@@ -1,0 +1,298 @@
+"""Synthetic session inputs (kube_batch_tpu/models/synthetic.py).
+
+Builds SolverInputs directly as tensors, bypassing the object model, for
+benchmarks, scale runs and tests.  ``make_synthetic_inputs`` draws the
+same numbers from the same seed as the reference, so both packages see
+the same cluster; the device and the float key dtype are explicit.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import check_float_dtype, resolve_device
+from ..ops.compile_cache import bucket
+from ..ops.resources import (SCORE_GRID_K, eps_vector, scalar_dims_mask,
+                             score_shift_for)
+from ..ops.scoring import ScoreWeights
+from ..ops.solver import SolverConfig, SolverInputs
+
+
+def _as_inputs(arrays: dict, dtype: torch.dtype,
+               device: torch.device) -> SolverInputs:
+    """numpy arrays -> SolverInputs on ``device``; float64 leaves become
+    the float key dtype."""
+    def conv(x):
+        t = torch.as_tensor(x)
+        if t.dtype == torch.float64:
+            t = t.to(dtype)
+        return t.to(device)
+    return SolverInputs(**{k: conv(v) for k, v in arrays.items()})
+
+
+def make_synthetic_inputs(n_tasks: int = 1000, n_nodes: int = 100,
+                          n_jobs: int = 50, n_queues: int = 4,
+                          gang_fraction: float = 0.8, seed: int = 0, *,
+                          dtype: torch.dtype, device=None):
+    """Random-but-plausible cluster: uniform node shapes, task requests in
+    {0.25..4} cpu / {0.25..8}Gi, jobs striped over queues, minAvailable
+    set for a fraction of jobs (gangs).  Returns (inputs, config)."""
+    dtype = check_float_dtype(dtype)
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    r = 2
+    f = np.float64
+
+    p_pad, n_pad = bucket(n_tasks), bucket(n_nodes)
+    j_pad, q_pad = bucket(n_jobs), bucket(max(n_queues, 1))
+
+    # nodes: 16 cpu / 64Gi each (quantized units: milli-cpu, MiB)
+    node_alloc = np.zeros((n_pad, r), np.int32)
+    node_alloc[:n_nodes, 0] = 16000
+    node_alloc[:n_nodes, 1] = 64 * 1024
+    node_idle = node_alloc.copy()
+    node_exists = np.zeros((n_pad,), bool)
+    node_exists[:n_nodes] = True
+
+    # tasks -> jobs in contiguous blocks
+    job_of_task = np.sort(rng.integers(0, n_jobs, size=n_tasks))
+    task_req = np.zeros((p_pad, r), np.int32)
+    task_req[:n_tasks, 0] = rng.choice([250, 500, 1000, 2000, 4000],
+                                       size=n_tasks)
+    task_req[:n_tasks, 1] = (rng.choice([0.25, 0.5, 1, 2, 4, 8],
+                                        size=n_tasks) * 1024).astype(np.int32)
+
+    job_start = np.zeros((j_pad,), np.int32)
+    job_count = np.zeros((j_pad,), np.int32)
+    for j in range(n_jobs):
+        members = np.nonzero(job_of_task == j)[0]
+        job_start[j] = members[0] if members.size else 0
+        job_count[j] = members.size
+
+    job_queue = np.zeros((j_pad,), np.int32)
+    job_queue[:n_jobs] = rng.integers(0, n_queues, size=n_jobs)
+    job_minavail = np.full((j_pad,), -1, np.int32)
+    is_gang = rng.random(n_jobs) < gang_fraction
+    job_minavail[:n_jobs] = np.where(
+        is_gang, np.maximum((job_count[:n_jobs] * 0.8).astype(np.int32), 1), 1)
+
+    queue_weight = np.zeros((q_pad,), f)
+    queue_weight[:n_queues] = rng.integers(1, 5, size=n_queues).astype(f)
+    queue_exists = np.zeros((q_pad,), bool)
+    queue_exists[:n_queues] = True
+
+    total = node_alloc[:n_nodes].sum(axis=0, dtype=np.int64)
+
+    request = np.zeros((q_pad, r), f)
+    for j in range(n_jobs):
+        request[job_queue[j]] += task_req[job_start[j]:job_start[j]
+                                          + job_count[j]].sum(axis=0)
+    deserved_f = _waterfill(total.astype(f), queue_weight, request,
+                            queue_exists)
+    deserved = np.clip(np.rint(deserved_f), 0,
+                       np.iinfo(np.int32).max).astype(np.int32)
+
+    arrays = dict(
+        task_req=task_req, task_res=task_req.copy(),
+        task_sig=np.zeros((p_pad,), np.int32),
+        task_sorted=np.arange(p_pad, dtype=np.int32),
+        task_ports=np.zeros((p_pad, 8), bool),
+        task_aff_req=np.zeros((p_pad, 8), bool),
+        task_anti=np.zeros((p_pad, 8), bool),
+        task_match=np.zeros((p_pad, 8), bool),
+        task_paff_w=np.zeros((p_pad, 8), np.int32),
+        task_panti_w=np.zeros((p_pad, 8), np.int32),
+        job_start=job_start, job_count=job_count, job_queue=job_queue,
+        job_minavail=job_minavail,
+        job_prio=np.zeros((j_pad,), f),
+        job_ts=np.arange(j_pad, dtype=f),
+        job_uid_rank=np.arange(j_pad, dtype=f),
+        job_init_ready=np.zeros((j_pad,), np.int32),
+        job_init_alloc=np.zeros((j_pad, r), np.int32),
+        queue_deserved=deserved, queue_deserved_f=deserved_f,
+        queue_init_alloc=np.zeros((q_pad, r), np.int32),
+        queue_ts=np.arange(q_pad, dtype=f),
+        queue_uid_rank=np.arange(q_pad, dtype=f),
+        queue_exists=queue_exists,
+        node_idle=node_idle,
+        node_releasing=np.zeros((n_pad, r), np.int32),
+        node_used=np.zeros((n_pad, r), np.int32),
+        node_alloc=node_alloc,
+        node_count=np.zeros((n_pad,), np.int32),
+        node_max_tasks=np.full((n_pad,), 1 << 30, np.int32),
+        node_exists=node_exists,
+        node_ports=np.zeros((n_pad, 8), bool),
+        node_selcnt=np.zeros((n_pad, 8), np.int32),
+        sig_mask=np.ones((1, n_pad), bool) & node_exists[None, :],
+        sig_bonus=np.zeros((1, n_pad), np.int32),
+        total_res=total.astype(np.float64),
+        eps=eps_vector(r, device="cpu").numpy(),
+        scalar_dims=scalar_dims_mask(r, device="cpu").numpy(),
+        score_shift=np.asarray(
+            [score_shift_for(int(node_alloc[:, d].max())) for d in range(2)],
+            np.int32),
+        node_coords=np.full((n_pad, 8), -1, np.int32))
+    return _as_inputs(arrays, dtype, device), SolverConfig()
+
+
+def _waterfill(total, weight, request, active):
+    """Host water-fill (proportion.go:101-154) for synthetic inputs."""
+    q, r = request.shape
+    deserved = np.zeros_like(request)
+    remaining = total.astype(np.float64).copy()
+    met = np.zeros((q,), bool)
+    for _ in range(64):
+        live = active & ~met
+        tw = weight[live].sum()
+        if tw == 0:
+            break
+        inc = np.zeros((r,))
+        for i in np.nonzero(live)[0]:
+            old = deserved[i].copy()
+            deserved[i] = deserved[i] + remaining * (weight[i] / tw)
+            if np.all(request[i] < deserved[i]):
+                deserved[i] = np.minimum(deserved[i], request[i])
+                met[i] = True
+            inc += deserved[i] - old
+        remaining = remaining - inc
+        if np.all(remaining < 10.0):  # eps = 10 quanta on every dim
+            break
+    return deserved
+
+
+def make_feature_inputs(seed: int = 0, *, dtype: torch.dtype, device=None):
+    """A small session that drives every branch of the solve: host ports,
+    required pod (anti-)affinity, preferred pod-affinity scoring,
+    releasing capacity (pipelined placements), several signatures with a
+    static score bonus, a third (scalar) resource dim, allocation and
+    task counts at session open, varied priorities and tight pod caps.
+    Returns (inputs, config) with every feature switched on."""
+    dtype = check_float_dtype(dtype)
+    device = resolve_device(device)
+    rng = np.random.default_rng(seed)
+    r, n_sig, width = 3, 3, 8
+    n_tasks, n_nodes, n_jobs, n_queues = 120, 24, 12, 3
+    p_pad, n_pad = bucket(n_tasks), bucket(n_nodes)
+    j_pad, q_pad = bucket(n_jobs), bucket(n_queues)
+    f = np.float64
+
+    node_alloc = np.zeros((n_pad, r), np.int32)
+    node_alloc[:n_nodes, 0] = rng.choice([4000, 8000, 16000], size=n_nodes)
+    node_alloc[:n_nodes, 1] = rng.choice([8192, 16384, 32768], size=n_nodes)
+    node_alloc[:n_nodes, 2] = rng.choice([0, 2000, 4000], size=n_nodes)
+    node_used = (node_alloc * rng.uniform(0.0, 0.6, (n_pad, 1))).astype(
+        np.int32)
+    node_releasing = np.zeros((n_pad, r), np.int32)
+    releasing = rng.random(n_pad) < 0.4
+    node_releasing[releasing] = (node_used[releasing] * 0.8).astype(np.int32)
+    node_idle = node_alloc - node_used
+    node_idle[releasing] = (node_idle[releasing] * 0.2).astype(np.int32)
+    node_exists = np.zeros((n_pad,), bool)
+    node_exists[:n_nodes] = True
+    node_count = rng.integers(0, 3, size=n_pad).astype(np.int32)
+    node_max_tasks = (node_count + rng.integers(1, 8, size=n_pad)).astype(
+        np.int32)
+    node_ports = np.zeros((n_pad, width), bool)
+    node_ports[:n_nodes, :2] = rng.random((n_nodes, 2)) < 0.3
+    node_selcnt = np.zeros((n_pad, width), np.int32)
+    node_selcnt[:n_nodes, :3] = rng.integers(0, 2, size=(n_nodes, 3)) \
+        * rng.integers(1, 3, size=(n_nodes, 3))
+
+    job_of_task = np.sort(rng.integers(0, n_jobs, size=n_tasks))
+    task_req = np.zeros((p_pad, r), np.int32)
+    task_req[:n_tasks, 0] = rng.choice([250, 500, 1000, 2000], size=n_tasks)
+    task_req[:n_tasks, 1] = rng.choice([256, 1024, 2048, 4096], size=n_tasks)
+    task_req[:n_tasks, 2] = rng.choice([0, 0, 5, 1000], size=n_tasks)
+    task_res = task_req.copy()
+    task_res[:n_tasks, 0] += rng.choice([0, 0, 100], size=n_tasks)
+    task_sig = np.zeros((p_pad,), np.int32)
+    task_sig[:n_tasks] = rng.integers(0, n_sig, size=n_tasks)
+    task_ports = np.zeros((p_pad, width), bool)
+    task_ports[:n_tasks, :2] = rng.random((n_tasks, 2)) < 0.25
+    task_aff_req = np.zeros((p_pad, width), bool)
+    task_aff_req[:n_tasks, 0] = rng.random(n_tasks) < 0.2
+    task_anti = np.zeros((p_pad, width), bool)
+    task_anti[:n_tasks, 1] = rng.random(n_tasks) < 0.2
+    task_match = np.zeros((p_pad, width), bool)
+    task_match[:n_tasks, :3] = rng.random((n_tasks, 3)) < 0.4
+    task_paff_w = np.zeros((p_pad, width), np.int32)
+    task_paff_w[:n_tasks, 2] = rng.integers(0, 4, size=n_tasks)
+    task_panti_w = np.zeros((p_pad, width), np.int32)
+    task_panti_w[:n_tasks, 0] = rng.integers(0, 3, size=n_tasks)
+
+    job_start = np.zeros((j_pad,), np.int32)
+    job_count = np.zeros((j_pad,), np.int32)
+    for j in range(n_jobs):
+        members = np.nonzero(job_of_task == j)[0]
+        job_start[j] = members[0] if members.size else 0
+        job_count[j] = members.size
+    job_queue = np.zeros((j_pad,), np.int32)
+    job_queue[:n_jobs] = rng.integers(0, n_queues, size=n_jobs)
+    job_minavail = np.full((j_pad,), -1, np.int32)
+    job_minavail[:n_jobs] = np.maximum(
+        (job_count[:n_jobs] * rng.uniform(0.2, 1.0, n_jobs)).astype(np.int32),
+        1)
+    job_prio = np.zeros((j_pad,), f)
+    job_prio[:n_jobs] = rng.choice([0.0, 10.0, 100.0], size=n_jobs)
+    job_init_ready = np.zeros((j_pad,), np.int32)
+    job_init_ready[:n_jobs] = rng.integers(0, 2, size=n_jobs)
+    job_init_alloc = np.zeros((j_pad, r), np.int32)
+    job_init_alloc[:n_jobs] = rng.integers(0, 2, size=(n_jobs, 1)) \
+        * np.asarray([1000, 2048, 0], np.int32)
+    queue_init_alloc = np.zeros((q_pad, r), np.int32)
+    for j in range(n_jobs):
+        queue_init_alloc[job_queue[j]] += job_init_alloc[j]
+
+    queue_weight = np.zeros((q_pad,), f)
+    queue_weight[:n_queues] = rng.integers(1, 5, size=n_queues).astype(f)
+    queue_exists = np.zeros((q_pad,), bool)
+    queue_exists[:n_queues] = True
+    total = node_alloc[:n_nodes].sum(axis=0, dtype=np.int64)
+    request = np.zeros((q_pad, r), f)
+    for j in range(n_jobs):
+        request[job_queue[j]] += task_req[job_start[j]:job_start[j]
+                                          + job_count[j]].sum(axis=0)
+    deserved_f = _waterfill(total.astype(f), queue_weight, request,
+                            queue_exists)
+    deserved = np.clip(np.rint(deserved_f), 0,
+                       np.iinfo(np.int32).max).astype(np.int32)
+
+    sig_mask = (rng.random((n_sig, n_pad)) < 0.85) & node_exists[None, :]
+    sig_bonus = np.zeros((n_sig, n_pad), np.int32)
+    sig_bonus[:, :n_nodes] = rng.integers(0, 3, size=(n_sig, n_nodes)) \
+        * (SCORE_GRID_K * 2)
+
+    arrays = dict(
+        task_req=task_req, task_res=task_res, task_sig=task_sig,
+        task_sorted=np.arange(p_pad, dtype=np.int32),
+        task_ports=task_ports, task_aff_req=task_aff_req,
+        task_anti=task_anti, task_match=task_match,
+        task_paff_w=task_paff_w, task_panti_w=task_panti_w,
+        job_start=job_start, job_count=job_count, job_queue=job_queue,
+        job_minavail=job_minavail, job_prio=job_prio,
+        job_ts=rng.permutation(j_pad).astype(f),
+        job_uid_rank=np.arange(j_pad, dtype=f),
+        job_init_ready=job_init_ready, job_init_alloc=job_init_alloc,
+        queue_deserved=deserved, queue_deserved_f=deserved_f,
+        queue_init_alloc=queue_init_alloc,
+        queue_ts=np.arange(q_pad, dtype=f),
+        queue_uid_rank=np.arange(q_pad, dtype=f),
+        queue_exists=queue_exists,
+        node_idle=node_idle, node_releasing=node_releasing,
+        node_used=node_used, node_alloc=node_alloc, node_count=node_count,
+        node_max_tasks=node_max_tasks, node_exists=node_exists,
+        node_ports=node_ports, node_selcnt=node_selcnt,
+        sig_mask=sig_mask, sig_bonus=sig_bonus,
+        total_res=total.astype(np.float64),
+        eps=eps_vector(r, device="cpu").numpy(),
+        scalar_dims=scalar_dims_mask(r, device="cpu").numpy(),
+        score_shift=np.asarray(
+            [score_shift_for(int(node_alloc[:, d].max())) for d in range(2)],
+            np.int32),
+        node_coords=np.full((n_pad, 8), -1, np.int32))
+    config = SolverConfig(
+        has_ports=True, has_pod_affinity=True, has_pod_affinity_score=True,
+        weights=ScoreWeights(least_requested=1, most_requested=1,
+                             balanced_resource=2))
+    return _as_inputs(arrays, dtype, device), config

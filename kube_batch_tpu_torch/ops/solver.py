@@ -1,0 +1,206 @@
+"""The allocate session solve: types, routing and async dispatch.
+
+Counterpart of kube_batch_tpu/ops/solver.py.  One session solve runs the
+reference's allocate loop (allocate.go:43-195): queue pop, job pop, and a
+drain of the popped job's tasks, each placement the first index of the
+best integer score among feasible nodes.  On a CUDA tensor the solve is
+one launch of the hand-written kernel (``ops/cuda_solver.py``); on a CPU
+tensor it is that kernel's plain PyTorch version.
+
+``dispatch_solve`` enqueues the solve without blocking; ``fetch_solve``
+reads back assignment, kind, order and the placement permutation as one
+transfer.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from .scoring import ScoreWeights
+
+
+class SolverInputs(NamedTuple):
+    """Static per-session tensors (field order is the packed leaf order).
+
+    Resource tensors ([.., R]) are int32 fixed-point quanta
+    (ops/resources.py); ts/prio/rank keys, queue_deserved_f and total_res
+    are in the float key dtype (float32 or float64)."""
+    # tasks (P = padded candidate count)
+    task_req: torch.Tensor       # [P, R] i32 launch requirement
+    task_res: torch.Tensor       # [P, R] i32 steady requirement
+    task_sig: torch.Tensor       # [P] i32 index into sig_mask
+    task_sorted: torch.Tensor    # [P] i32 task ids in (job, task-order) order
+    task_ports: torch.Tensor     # [P, NP] bool: task uses host-port key
+    task_aff_req: torch.Tensor   # [P, NS] bool: requires selector matched
+    task_anti: torch.Tensor      # [P, NS] bool: forbids selector matched
+    task_match: torch.Tensor     # [P, NS] bool: task's labels match selector
+    task_paff_w: torch.Tensor    # [P, NS] i32 preferred-affinity weights
+    task_panti_w: torch.Tensor   # [P, NS] i32 preferred-anti weights
+    # jobs (J)
+    job_start: torch.Tensor      # [J] i32 offset into the task axis
+    job_count: torch.Tensor      # [J] i32 number of candidate tasks
+    job_queue: torch.Tensor      # [J] i32 queue index
+    job_minavail: torch.Tensor   # [J] i32
+    job_prio: torch.Tensor       # [J] f PriorityClass value
+    job_ts: torch.Tensor         # [J] f creation timestamp
+    job_uid_rank: torch.Tensor   # [J] f rank of UID (tie-break)
+    job_init_ready: torch.Tensor  # [J] i32 ready_task_num at session open
+    job_init_alloc: torch.Tensor  # [J, R] allocated at session open (drf)
+    # queues (Q)
+    queue_deserved: torch.Tensor  # [Q, R] i32 water-fill (overused compare)
+    queue_deserved_f: torch.Tensor  # [Q, R] f unrounded (share denominator)
+    queue_init_alloc: torch.Tensor  # [Q, R]
+    queue_ts: torch.Tensor       # [Q] f
+    queue_uid_rank: torch.Tensor  # [Q] f
+    queue_exists: torch.Tensor   # [Q] bool (padding rows False)
+    # nodes (N)
+    node_idle: torch.Tensor      # [N, R]
+    node_releasing: torch.Tensor  # [N, R]
+    node_used: torch.Tensor      # [N, R]
+    node_alloc: torch.Tensor     # [N, R] allocatable (scoring denominator)
+    node_count: torch.Tensor     # [N] i32 resident task count
+    node_max_tasks: torch.Tensor  # [N] i32 pod-count cap
+    node_exists: torch.Tensor    # [N] bool (padding rows False)
+    node_ports: torch.Tensor     # [N, NP] bool: host-port key in use
+    node_selcnt: torch.Tensor    # [N, NS] i32: resident tasks matching sel
+    sig_mask: torch.Tensor       # [S, N] bool static predicate mask
+    sig_bonus: torch.Tensor      # [S, N] i32 static score bonus
+    # cluster
+    total_res: torch.Tensor      # [R] f sum of allocatable (drf denominator)
+    eps: torch.Tensor            # [R] epsilon vector
+    scalar_dims: torch.Tensor    # [R] bool
+    score_shift: torch.Tensor    # [2] i32 grid shifts for cpu/mem scoring
+    node_coords: torch.Tensor    # [N, 8] i32 topology (inert to the solve)
+
+
+class SolverConfig(NamedTuple):
+    """Plugin and tier structure of the loaded conf.  The key orders list
+    the order-contributing plugins in tier order, so the lexicographic
+    keys reproduce the conf's tiered chain.  Every field reaches the
+    kernel as a launch argument."""
+    job_key_order: tuple = ("priority", "gang", "drf")
+    queue_key_order: tuple = ("proportion",)
+    has_gang: bool = True          # gang registers JobReady
+    has_proportion: bool = True    # proportion registers Overused
+    has_ports: bool = False        # any candidate uses host ports
+    has_pod_affinity: bool = False  # any candidate uses pod (anti-)affinity
+    has_pod_affinity_score: bool = False  # preferred pod-affinity scoring
+    weights: ScoreWeights = ScoreWeights()
+
+
+class SolveResult(NamedTuple):
+    assignment: torch.Tensor  # [P] i32 node index or -1
+    kind: torch.Tensor        # [P] i32 0=none 1=allocate 2=pipeline
+    order: torch.Tensor       # [P] i32 placement sequence number
+    step: torch.Tensor        # scalar i32 total placements
+
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+def _pack_result_ordered(assignment, kind, order) -> torch.Tensor:
+    """[4, P] packed readback with the placement permutation computed on
+    the device: row 3 sorts task ids by placement step (unplaced rows
+    pushed to the tail by an int32-max key).  Placed steps are unique and
+    the sort is stable, so it equals the host's stable argsort."""
+    key = torch.where(kind > 0, order, _INT32_MAX)
+    perm = torch.argsort(key, stable=True).to(torch.int32)
+    return torch.stack([assignment, kind, order, perm])
+
+
+class PendingSolve(NamedTuple):
+    """A dispatched solve that has not been fetched.  On the card,
+    ``packed`` is a pinned host tensor that a non-blocking copy fills and
+    ``ready`` is the CUDA event recorded after that copy.  On the CPU the
+    solve ran synchronously and ``ready`` is None.  Every dispatched
+    handle ends in exactly one ``fetch_solve`` or ``discard_solve``."""
+    packed: torch.Tensor       # [4, P] i32: assignment/kind/order/perm
+    ready: object = None       # torch.cuda.Event, or None on the CPU
+
+
+# In-flight dispatch ledger (process-wide): dispatched-but-not-consumed
+# PendingSolve handles.
+_inflight_lock = threading.Lock()
+_inflight = 0  # guarded-by: _inflight_lock
+
+
+def _note_dispatch(delta: int) -> None:
+    global _inflight
+    with _inflight_lock:
+        _inflight = max(0, _inflight + delta)
+
+
+def solver_inflight() -> int:
+    """Outstanding dispatch handles."""
+    with _inflight_lock:
+        return _inflight
+
+
+def discard_solve(pending: PendingSolve) -> None:
+    """Abandon a dispatched solve without reading it back.  The resident
+    input image stays a valid delta baseline: the ship that fed this
+    dispatch completed."""
+    if pending is not None:
+        _note_dispatch(-1)
+
+
+def dispatch_solve(inp: SolverInputs, cfg: SolverConfig) -> PendingSolve:
+    """Route and dispatch the solve without blocking on its result.  On
+    the card the kernel, the packing and a non-blocking copy into pinned
+    host memory are enqueued on the current stream, followed by an event;
+    on the CPU everything runs synchronously."""
+    result = best_solve_allocate(inp, cfg)
+    packed = _pack_result_ordered(result.assignment, result.kind,
+                                  result.order)
+    if packed.is_cuda:
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(packed.device))
+        pending = PendingSolve(host, ready)
+    else:
+        pending = PendingSolve(packed)
+    _note_dispatch(+1)
+    return pending
+
+
+def fetch_solve(pending: PendingSolve):
+    """Wait for a dispatched solve and read it back.
+
+    Returns numpy (assignment, kind, order, ordered) where ``ordered`` is
+    the placed task ids in placement order: the device-computed
+    equivalent of ``placed[np.argsort(order[placed], kind="stable")]``."""
+    try:
+        if pending.ready is not None:
+            pending.ready.synchronize()
+        packed = pending.packed.numpy()
+    finally:
+        # Consumed either way: a fetch that raises still retires the
+        # handle from the in-flight ledger.
+        _note_dispatch(-1)
+    assignment, kind, order, perm = packed
+    n_placed = int(np.count_nonzero(kind > 0))
+    return assignment, kind, order, perm[:n_placed]
+
+
+def choose_solver_mesh(inp: SolverInputs):
+    """('cuda'|'torch', None): the hand-written kernel for CUDA tensors,
+    the plain PyTorch version for CPU tensors.  The mesh slot stays None
+    until the sharded route is ported."""
+    if inp.node_idle.is_cuda:
+        return "cuda", None
+    return "torch", None
+
+
+def best_solve_allocate(inp: SolverInputs, cfg: SolverConfig) -> SolveResult:
+    """The session solve on the route ``choose_solver_mesh`` picks.  Both
+    routes are placement-identical (tests and chip_smoke.py hold the
+    kernel against the plain version)."""
+    from .cuda_solver import solve_allocate_cuda, solve_allocate_plain
+    if choose_solver_mesh(inp)[0] == "cuda":
+        return solve_allocate_cuda(inp, cfg)[0]
+    return solve_allocate_plain(inp, cfg)[0]
