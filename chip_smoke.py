@@ -113,6 +113,34 @@ def validate(inputs, assignment, kind, order, ordered, n_nodes: int) -> int:
     return int(ordered.size)
 
 
+def phase_split(cuda_solver, inp, cfg) -> dict:
+    """One more launch with the kernel's clock64() phase stamps on: thread
+    0's cycles in each phase, turned into microseconds by the launch's
+    own cycles per CUDA-event millisecond (this includes the buffer
+    build, so the rate is a slight underestimate of the SM clock)."""
+    stamps = torch.zeros(len(cuda_solver.PHASES), dtype=torch.int64,
+                         device="cuda")
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    cuda_solver.solve_allocate_cuda(inp, cfg, stamps=stamps)
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop)
+    got = dict(zip(cuda_solver.PHASES, stamps.tolist()))
+    cycles_per_us = got["total"] / (ms * 1e3)
+    split = {f"{k}_us": got[k] / cycles_per_us for k in cuda_solver.PHASES
+             if k not in ("placements", "pops", "total")}
+    return dict(stamped_ms=ms, cycles_per_us=cycles_per_us,
+                placements=got["placements"], pops=got["pops"],
+                us_per_placement=sum(split[f"{k}_us"] for k in (
+                    "node_scan", "cta_reduce", "cluster_exchange",
+                    "owner_update")) / max(got["placements"], 1),
+                us_per_pop=sum(split[f"{k}_us"] for k in (
+                    "queue_pop", "job_pop", "write_back"))
+                / max(got["pops"], 1), **split)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -224,6 +252,7 @@ def main() -> int:
         torch.cuda.synchronize()
         kernel_ms.append(start.elapsed_time(stop))
     kernel_ms = float(np.median(kernel_ms))
+    phase("kernel-phases", **phase_split(cuda_solver, shipped, cfg))
 
     in_bytes = sum(t.numel() * t.element_size()
                    for t in (*ops.bufs, ops.task_data, ops.task_sig,

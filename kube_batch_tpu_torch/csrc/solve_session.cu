@@ -62,6 +62,7 @@ struct SolveArgs {
   const int32_t* score_shift;
   int32_t* out;
   int32_t* steps;
+  long long* stamps;  // phase cycles and counts (kPhaseSlots); null: off
   // shapes
   int32_t n, p, jdim, qdim, r, np_pad, ns_pad, n_sig;
   // the conf
@@ -90,6 +91,41 @@ constexpr int kGridK = 1 << 12;  // SCORE_GRID_K
 constexpr int kNegScore = -2147483647;  // SCORE_NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
 enum { kKeyNone = 0, kKeyPriority = 1, kKeyGang = 2, kKeyDrf = 3 };
+
+// Phase stamps: clock64() cycles accumulated by thread 0, per phase, then
+// counts.  Slot order must match PHASES in ops/cuda_solver.py.
+enum {
+  kQueuePop, kJobPop, kNodeScan, kCtaReduce, kClusterExchange, kOwnerUpdate,
+  kWriteBack, kPlacements, kPops, kTotal, kPhaseSlots
+};
+
+template <bool kOn>
+struct Stamps {
+  long long acc[kPhaseSlots];
+  long long last, first;
+  __device__ __forceinline__ void start() {
+    if (!kOn) return;
+#pragma unroll
+    for (int i = 0; i < kPhaseSlots; ++i) acc[i] = 0;
+    last = first = clock64();
+  }
+  // Charge the cycles since the previous mark to `phase`.
+  __device__ __forceinline__ void mark(int phase) {
+    if (!kOn) return;
+    const long long now = clock64();
+    acc[phase] += now - last;
+    last = now;
+  }
+  __device__ __forceinline__ void count(int slot) {
+    if (kOn) acc[slot] += 1;
+  }
+  __device__ __forceinline__ void write(long long* out) {
+    if (!kOn || threadIdx.x != 0) return;
+    acc[kTotal] = clock64() - first;
+#pragma unroll
+    for (int i = 0; i < kPhaseSlots; ++i) out[i] = acc[i];
+  }
+};
 
 // int32 arithmetic that wraps, as XLA's does.
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -221,7 +257,7 @@ __device__ __forceinline__ float queue_share(const SolveArgs& a, const T* qsta, 
   return share;
 }
 
-template <typename T>
+template <typename T, bool kStamp>
 __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) {
   __shared__ Lex<T> lex_slots[kWarps];
   __shared__ long long key_slots[kWarps];
@@ -235,6 +271,8 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
   int32_t* nint = a.node_int;
   const int shift[2] = {a.score_shift[0], a.score_shift[1]};
   const int job_keys[3] = {a.job_key0, a.job_key1, a.job_key2};
+  Stamps<kStamp> st;
+  st.start();
 
   for (int t = tid; t < a.p; t += kThreads) {
     a.out[4 * t + 0] = -1;
@@ -264,6 +302,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
     }
     qc = block_lex_min(qc, lex_slots);
     const int q = qc.idx < 0 ? Q : qc.idx;
+    st.mark(kQueuePop);
 
     bool overused = false;
     if (a.has_proportion) {
@@ -301,6 +340,8 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
     const int minavail = has_job ? (int)jsta[a.jmin * J + j] : 0;
     int ptr = has_job ? a.jdyn[a.jptr * J + j] : 0;
     int ready_cnt = has_job ? a.jdyn[a.jready * J + j] : 0;
+    st.mark(kJobPop);
+    st.count(kPops);
 
     // ---- drain the popped job: one placement per iteration -------------
     bool survive = false;
@@ -380,7 +421,10 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
         const long long key = pack_key(score, i, fit_idle, fit_rel);
         best = key > best ? key : best;
       }
+      st.mark(kNodeScan);
+      st.count(kPlacements);
       best = block_max(best, key_slots);
+      st.mark(kCtaReduce);
 
       const int best_score = (int)(unsigned)((unsigned long long)best >> 32);
       const unsigned lo = (unsigned)((unsigned long long)best & 0xffffffffull);
@@ -411,6 +455,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
           for (int s = 0; s < a.ns_pad; ++s)
             a.nsel[s * n + pick] = wadd(a.nsel[s * n + pick], task[a.match + s]);
       }
+      st.mark(kOwnerUpdate);
       if (placed) {
         ptr += 1;
         dstep += 1;
@@ -447,18 +492,25 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
     mine = false;
     for (int qq = tid; qq < Q; qq += kThreads) mine |= a.qdyn[a.qact * Q + qq] > 0;
     any_active = __syncthreads_or(mine);
+    st.mark(kWriteBack);
   }
   if (tid == 0) *a.steps = step;
+  st.write(a.stamps);
 }
 
 }  // namespace
 
 extern "C" int kbt_solve_session(const SolveArgs* args, int use_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (use_f64)
-    solve_session<double><<<1, kThreads, 0, s>>>(*args);
+  const bool stamp = args->stamps != nullptr;
+  if (use_f64 && stamp)
+    solve_session<double, true><<<1, kThreads, 0, s>>>(*args);
+  else if (use_f64)
+    solve_session<double, false><<<1, kThreads, 0, s>>>(*args);
+  else if (stamp)
+    solve_session<float, true><<<1, kThreads, 0, s>>>(*args);
   else
-    solve_session<float><<<1, kThreads, 0, s>>>(*args);
+    solve_session<float, false><<<1, kThreads, 0, s>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -516,12 +516,20 @@ def solve_allocate_plain(inp: SolverInputs, cfg: SolverConfig):
 _POINTER_FIELDS = ("node_int", "node_cs", "task_data", "task_sig",
                    "sig_mask", "sig_bonus", "jsta", "jdyn", "qsta", "qdes",
                    "qdyn", "nport", "nsel", "total", "score_shift", "out",
-                   "steps")
+                   "steps", "stamps")
 _SHAPE_FIELDS = ("n", "p", "jdim", "qdim", "r", "np_pad", "ns_pad", "n_sig")
 _CONFIG_FIELDS = ("w_least5", "w_most5", "w_bal", "has_gang",
                   "has_proportion", "has_ports", "has_pod_affinity",
                   "has_pod_affinity_score", "job_key0", "job_key1",
                   "job_key2", "queue_key0")
+
+
+# The kernel's phase stamps, in slot order: cycles of thread 0 in each
+# phase, then the counts of placements (node scans) and pops, then the
+# cycles of the whole launch.
+PHASES = ("queue_pop", "job_pop", "node_scan", "cta_reduce",
+          "cluster_exchange", "owner_update", "write_back", "placements",
+          "pops", "total")
 
 
 class SolveArgs(ctypes.Structure):
@@ -613,10 +621,15 @@ def _check_operands(ops: Operands, dev: torch.device) -> None:
         raise ValueError("sig_mask needs at least one signature row")
 
 
-def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig):
+def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig, *,
+                        stamps: torch.Tensor | None = None):
     """One launch of the whole-session kernel on the current stream.
     Returns (SolveResult, FinalState) without waiting for the device.
-    Raises on CPU tensors and on anything the kernel does not take."""
+    Raises on CPU tensors and on anything the kernel does not take.
+
+    ``stamps``, an int64 [len(PHASES)] tensor on the device, turns on the
+    kernel's clock64() phase stamps and receives them (see PHASES); the
+    main path passes none and runs the kernel without them."""
     dev = inp.node_idle.device
     if dev.type != "cuda":
         raise ValueError("solve_allocate_cuda takes CUDA tensors; use "
@@ -632,6 +645,11 @@ def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig):
         p = ops.task_data.shape[0]
         out = torch.empty((p, 4), dtype=torch.int32, device=dev)
         steps = torch.empty(1, dtype=torch.int32, device=dev)
+        if stamps is not None and (
+                stamps.device != dev or stamps.dtype != torch.int64
+                or tuple(stamps.shape) != (len(PHASES),)):
+            raise ValueError(f"stamps: the kernel takes an int64 "
+                             f"[{len(PHASES)}] tensor on {dev}")
         tensors = dict(zip(Buffers._fields, bufs))
         tensors.update(task_data=ops.task_data, task_sig=ops.task_sig,
                        sig_mask=ops.sig_mask, sig_bonus=ops.sig_bonus,
@@ -639,8 +657,10 @@ def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig):
                        score_shift=ops.score_shift, out=out, steps=steps)
         job_keys = _key_codes(cfg.job_key_order, _JOB_KEYS, 3)
         (queue_key,) = _key_codes(cfg.queue_key_order, _QUEUE_KEYS, 1)
+        tensors["stamps"] = stamps
         args = SolveArgs(
-            *[tensors[f].data_ptr() for f in _POINTER_FIELDS],
+            *[None if tensors[f] is None else tensors[f].data_ptr()
+              for f in _POINTER_FIELDS],
             n=bufs.node_int.shape[1], p=p, jdim=bufs.jsta.shape[1],
             qdim=bufs.qsta.shape[1], r=inp.task_req.shape[1],
             np_pad=lay.aff - lay.ports, ns_pad=lay.anti - lay.aff,
