@@ -7,15 +7,19 @@ Phases, each printed on its own line:
   2. build: compiles csrc/solve_session.cu with nvcc and prints the seconds;
   3. kernel against plain: the session-solve kernel must equal its plain
      PyTorch version exactly (assignment, kind, order, step and the final
-     node, job and queue buffers) on the test matrix, in float32 and
-     float64;
+     node, job and queue buffers) on the test matrix and on cases that
+     launch it as clusters of every size its plan takes, in float32 and
+     float64; each line names the cluster size and shared memory;
   4. main path at the north-star shape (50k pods x 10k nodes x 2k jobs x
      4 queues, float32): full, delta and clean ships through the resident
      shipper, each followed by dispatch_solve -> fetch_solve on the cuda
      route with the kernel's launch count reset just before and read just
      after; the result is validated, compared once with the plain version
      on the card, and timed (7 warm dispatch -> fetch rounds, and the
-     kernel alone with CUDA events).
+     kernel alone with CUDA events); one more launch with the kernel's
+     phase stamps on prints the phase split (`kernel-phases`: cluster
+     size, shared memory, microseconds per phase, per placement, per
+     pop).
 The last two lines are the kernel table as JSON and
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before those lines.  Imports nothing of JAX and nothing of kube_batch_tpu.
@@ -24,6 +28,7 @@ before those lines.  Imports nothing of JAX and nothing of kube_batch_tpu.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -56,6 +61,21 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def wait_device(what: str, seconds: float = 120.0) -> None:
+    """Wait for the card's queued work, at most ``seconds``; a kernel that
+    has not finished by then is taken as hung, and the process leaves at
+    once (its CUDA context, and the kernel with it, goes too)."""
+    done = torch.cuda.Event()
+    done.record()
+    deadline = time.monotonic() + seconds
+    while not done.query():
+        if time.monotonic() > deadline:
+            print(f"chip_smoke: {what} did not finish in {seconds} s",
+                  file=sys.stderr, flush=True)
+            os._exit(3)
+        time.sleep(0.001)
+
+
 def compare(kernel_out, plain_out) -> int:
     """Max absolute difference over result and final buffers; raises on
     any shape or dtype difference."""
@@ -73,7 +93,8 @@ def compare(kernel_out, plain_out) -> int:
 
 
 def matrix(dtype):
-    """The cases of tests/test_torch_solver.py, on the card."""
+    """The cases of tests/test_torch_solver.py, then the cluster cases,
+    on the card."""
     from kube_batch_tpu_torch.models.synthetic import (make_feature_inputs,
                                                        make_synthetic_inputs)
     for seed in (0, 1, 2):
@@ -88,6 +109,38 @@ def matrix(dtype):
         weights=cfg.weights._replace(most_requested=2)))
     for seed in (0, 1, 2):
         yield f"features-seed{seed}", make_feature_inputs(seed, dtype=dtype)
+    yield from cluster_cases(dtype)
+
+
+def cluster_cases(dtype, device=None):
+    """Shapes that spread the node slices over clusters of 2, 4, 8 and 16
+    CTAs (N not a multiple of C x 1024; uniform nodes, so ties cross CTA
+    boundaries), a case whose first winners lie in the last CTA, features
+    at thousands of nodes, and one whose rows do not all fit on chip."""
+    from kube_batch_tpu_torch.models.synthetic import (make_feature_inputs,
+                                                       make_synthetic_inputs)
+    from kube_batch_tpu_torch.ops import cuda_solver
+    for tasks, nodes, jobs in ((1000, 1100, 60), (1000, 2500, 60),
+                               (1000, 5000, 60), (1000, 20000, 60)):
+        yield f"cluster-{tasks}x{nodes}x{jobs}", make_synthetic_inputs(
+            tasks, nodes, jobs, 4, seed=11, dtype=dtype, device=device)
+    # Every node before the last CTA's slice starts a quarter full, so the
+    # least-requested score sends the first placements to the last CTA.
+    inp, cfg = make_synthetic_inputs(1000, 20000, 60, 4, seed=12,
+                                     dtype=dtype, device=device)
+    n = inp.node_idle.shape[0]
+    lo = cuda_solver.cluster_plan(n, 2, 0, 0, dtype, inp.job_ts.shape[0],
+                                  inp.queue_ts.shape[0]).slices(n)[-1][0]
+    load = inp.node_idle.clone()
+    load[lo:] = 0
+    load //= 4
+    yield "cluster-last-cta-wins", (inp._replace(
+        node_idle=inp.node_idle - load, node_used=inp.node_used + load), cfg)
+    for seed, nodes in ((4, 3000), (5, 6000)):
+        yield f"features-{nodes}-nodes-seed{seed}", make_feature_inputs(
+            seed, n_nodes=nodes, dtype=dtype, device=device)
+    yield "rows-in-global-300x100000x6000", make_synthetic_inputs(
+        300, 100_000, 6000, 4, seed=13, dtype=dtype, device=device)
 
 
 def validate(inputs, assignment, kind, order, ordered, n_nodes: int) -> int:
@@ -113,6 +166,20 @@ def validate(inputs, assignment, kind, order, ordered, n_nodes: int) -> int:
     return int(ordered.size)
 
 
+def plan_fields(cuda_solver, inp, cfg) -> dict:
+    """The cluster plan the kernel launched with for these inputs."""
+    n = inp.node_idle.shape[0]
+    np_use = inp.task_ports.shape[1] if cfg.has_ports else 0
+    ns_use = (inp.task_aff_req.shape[1] if cfg.has_pod_affinity
+              or cfg.has_pod_affinity_score else 0)
+    plan = cuda_solver.cluster_plan(
+        n, inp.task_req.shape[1], np_use, ns_use, inp.job_ts.dtype,
+        inp.job_ts.shape[0], inp.queue_ts.shape[0])
+    return dict(n=n, cluster=plan.cluster, smem_bytes=plan.smem_bytes,
+                rows_on_chip=f"{plan.smem_rows}/{plan.rows}",
+                jsta_smem=plan.jsta_smem, jwork_smem=plan.jwork_smem)
+
+
 def phase_split(cuda_solver, inp, cfg) -> dict:
     """One more launch with the kernel's clock64() phase stamps on: thread
     0's cycles in each phase, turned into microseconds by the launch's
@@ -131,7 +198,8 @@ def phase_split(cuda_solver, inp, cfg) -> dict:
     cycles_per_us = got["total"] / (ms * 1e3)
     split = {f"{k}_us": got[k] / cycles_per_us for k in cuda_solver.PHASES
              if k not in ("placements", "pops", "total")}
-    return dict(stamped_ms=ms, cycles_per_us=cycles_per_us,
+    return dict(**plan_fields(cuda_solver, inp, cfg), stamped_ms=ms,
+                cycles_per_us=cycles_per_us,
                 placements=got["placements"], pops=got["pops"],
                 us_per_placement=sum(split[f"{k}_us"] for k in (
                     "node_scan", "cta_reduce", "cluster_exchange",
@@ -163,14 +231,15 @@ def main() -> int:
     for dtype in (torch.float32, torch.float64):
         for name, (inp, cfg) in matrix(dtype):
             kout = cuda_solver.solve_allocate_cuda(inp, cfg)
-            torch.cuda.synchronize()
+            wait_device(f"the kernel on {name}")
             pout = cuda_solver.solve_allocate_plain(inp, cfg)
             err = compare(kout, pout)
             if err:
                 raise AssertionError(f"kernel != plain on {name} {dtype}: "
                                      f"max abs err {err}")
             phase("kernel-vs-plain", case=name, dtype=str(dtype),
-                  steps=int(kout[0].step), max_abs_err=err)
+                  steps=int(kout[0].step), max_abs_err=err,
+                  **plan_fields(cuda_solver, inp, cfg))
 
     # ---- the main path at the north-star shape ---------------------------
     inp, cfg = make_synthetic_inputs(*NORTH_STAR, seed=0,

@@ -11,25 +11,36 @@
 //
 // What bounds it on this card: not bytes and not arithmetic, but the
 // serial chain of placements.  A session of ~50k placements is ~50k
-// dependent steps, each one scan over N nodes plus one block-wide
-// reduction to pick the node, and the next step reads the node state the
-// previous one wrote.  The input and output bytes (a few MB) would take
-// microseconds at 3.35 TB/s.
+// dependent steps, each one scan over N nodes plus a reduction to pick the
+// node, and the next step reads the node state the previous one wrote.
 //
-// What this first design does about it: it keeps the whole chain inside
-// ONE persistent block of 1024 threads, so no step pays a kernel launch or
-// a host round trip.  The node state (about 0.7 MB at 10k nodes) lives in
-// global memory and stays in L2.  Node i belongs to thread i % 1024: the
-// thread scans its nodes for feasibility and score, a warp-shuffle plus
-// shared-memory reduction finds (max score, min index), and the owner of
-// the chosen node applies the rank-1 update itself, so the next scan sees
-// it without an extra barrier.  Job and queue pops are block-wide
-// lexicographic reductions over [J] and [Q].  Spreading the node state over
-// a thread-block cluster (DSMEM) or several blocks is later work.
+// What this design does about it: one launch is ONE thread-block cluster
+// of C CTAs (C in 1, 2, 4, 8; `cluster_plan` in the wrapper picks it), so
+// no step pays a launch or a host round trip, and the node state lives on
+// chip, as the TPU kernel keeps it in VMEM.  CTA k owns the contiguous
+// node slice [k*S, (k+1)*S); the slice's live rows (idle, releasing, used,
+// count, cap, the two grid-score capacities, the current signature's
+// feasibility bit and bonus, and the port and selector rows the conf
+// uses) sit in its shared memory, row after row.  Rows that do not fit
+// even at C = 8 stay in a global scratch mirror; generic pointers serve
+// both, so every shape solves through the same code.  Node li of a slice
+// belongs to thread li % kThreads of its CTA, which alone reads and
+// writes that node's rows: the owner applies the rank-1 update, and the
+// next scan needs no barrier for it.  Per placement each warp reduces its
+// nodes to one packed int64 key (max score, then first index) and writes
+// it into every CTA's exchange slots through distributed shared memory;
+// one cluster barrier later every thread takes the max of C x 32 keys
+// locally.  The slots alternate by placement parity, so one barrier per
+// placement suffices.  Pops need no traffic between CTAs: every CTA holds
+// an identical copy of the job and queue dynamic state and runs the same
+// pops and write-backs on it (the queue pop in every warp on its own, the
+// job pop as one block reduction).  At the end each CTA writes back its
+// node slice and CTA 0 the job and queue state.
 //
 // Exactness, each point from the reference:
 //  (a) ties break to the first index: max score, then the minimum node
-//      index; lexicographic pops take the minimum index among equal keys;
+//      index, across CTAs too; lexicographic pops take the minimum index
+//      among equal keys;
 //  (b) every integer sum is int32 and wraps (w* helpers below);
 //  (c) the grid-score division is in the float key type and the share
 //      division in float32, both IEEE-rounded: build WITHOUT
@@ -40,7 +51,10 @@
 
 #include <climits>
 #include <cstdint>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 // Field order must match SolveArgs in ops/cuda_solver.py (tests compare).
 struct SolveArgs {
@@ -63,8 +77,11 @@ struct SolveArgs {
   int32_t* out;
   int32_t* steps;
   long long* stamps;  // phase cycles and counts (kPhaseSlots); null: off
+  int32_t* scratch;   // what does not fit on chip (ClusterPlan.scratch_ints)
   // shapes
   int32_t n, p, jdim, qdim, r, np_pad, ns_pad, n_sig;
+  // the cluster plan (ops/cuda_solver.py ClusterPlan)
+  int32_t cluster, slice, rows, smem_rows, jsta_smem, jwork_smem, smem_bytes;
   // the conf
   int32_t w_least5, w_most5, w_bal;
   int32_t has_gang, has_proportion, has_ports, has_pod_affinity;
@@ -82,7 +99,7 @@ struct SolveArgs {
 
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 512;   // ops/cuda_solver.py THREADS
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxR = 8;        // ops/cuda_solver.py MAX_R
 constexpr int kMaxKeys = 5;     // up to 3 conf keys, then ts and uid rank
@@ -90,10 +107,11 @@ constexpr int kEps = 10;        // EPS_QUANTA
 constexpr int kGridK = 1 << 12;  // SCORE_GRID_K
 constexpr int kNegScore = -2147483647;  // SCORE_NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kNoCluster = -1;  // return code: no SM group can host the cluster
 enum { kKeyNone = 0, kKeyPriority = 1, kKeyGang = 2, kKeyDrf = 3 };
 
-// Phase stamps: clock64() cycles accumulated by thread 0, per phase, then
-// counts.  Slot order must match PHASES in ops/cuda_solver.py.
+// Phase stamps: clock64() cycles accumulated by thread 0 of CTA 0, per
+// phase, then counts.  Slot order must match PHASES in ops/cuda_solver.py.
 enum {
   kQueuePop, kJobPop, kNodeScan, kCtaReduce, kClusterExchange, kOwnerUpdate,
   kWriteBack, kPlacements, kPops, kTotal, kPhaseSlots
@@ -119,8 +137,8 @@ struct Stamps {
   __device__ __forceinline__ void count(int slot) {
     if (kOn) acc[slot] += 1;
   }
-  __device__ __forceinline__ void write(long long* out) {
-    if (!kOn || threadIdx.x != 0) return;
+  __device__ __forceinline__ void write(long long* out, bool writer) {
+    if (!kOn || !writer) return;
     acc[kTotal] = clock64() - first;
 #pragma unroll
     for (int i = 0; i < kPhaseSlots; ++i) out[i] = acc[i];
@@ -146,7 +164,7 @@ __device__ __forceinline__ int lshr(int a, int s) {
 }
 // Epsilon LessEqual of one dim: l < m or |l - m| < eps.
 __device__ __forceinline__ bool eps_le(int l, int m) {
-  return l < m || wabs(wsub(l, m)) < kEps;
+  return (l < m) | (wabs(wsub(l, m)) < kEps);
 }
 // ops/fairness.py safe_share: float32 of float32 operands.
 __device__ __forceinline__ float safe_share(float alloc, float total) {
@@ -164,14 +182,16 @@ struct Lex {
 
 template <typename T>
 __device__ __forceinline__ bool lex_before(const Lex<T>& a, const Lex<T>& b) {
-  if (a.idx < 0) return false;
-  if (b.idx < 0) return true;
+  // Key by key: a is before b at the first key where one is below the
+  // other (keys neither below nor above count as equal), else by index.
+  bool before = false, tied = true;
 #pragma unroll
   for (int i = 0; i < kMaxKeys; ++i) {
-    if (a.k[i] < b.k[i]) return true;
-    if (b.k[i] < a.k[i]) return false;
+    before = before | (tied & (a.k[i] < b.k[i]));
+    tied = tied & !(a.k[i] < b.k[i]) & !(b.k[i] < a.k[i]);
   }
-  return a.idx < b.idx;
+  before = before | (tied & (a.idx < b.idx));
+  return a.idx >= 0 && (b.idx < 0 || before);
 }
 
 template <typename T>
@@ -185,17 +205,6 @@ __device__ __forceinline__ Lex<T> warp_lex_min(Lex<T> v) {
     if (lex_before(o, v)) v = o;
   }
   return v;
-}
-
-// Every thread gets the block's lexicographic minimum.  The leading
-// barrier frees the slots from the previous reduction.
-template <typename T>
-__device__ Lex<T> block_lex_min(Lex<T> v, Lex<T>* slots) {
-  v = warp_lex_min(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) slots[threadIdx.x >> 5] = v;
-  __syncthreads();
-  return warp_lex_min(slots[threadIdx.x & 31]);
 }
 
 // A placement candidate as one int64: score in the high word, then the
@@ -219,136 +228,298 @@ __device__ __forceinline__ long long warp_max(long long v) {
   return v;
 }
 
-__device__ long long block_max(long long v, long long* slots) {
-  v = warp_max(v);
-  __syncthreads();
-  if ((threadIdx.x & 31) == 0) slots[threadIdx.x >> 5] = v;
-  __syncthreads();
-  return warp_max(slots[threadIdx.x & 31]);
+template <typename T>
+__device__ __forceinline__ float drf_share(const SolveArgs& a, const int32_t* jdyn,
+                                           const T* total, int j) {
+  const int J = a.jdim;
+  float share = 0.0f;
+  for (int i = 0; i < a.r; ++i) {
+    float s = safe_share((float)jdyn[(a.jalloc + i) * J + j], (float)total[i]);
+    share = s > share ? s : share;
+  }
+  return share;
 }
 
+// jshare[j] is drf_share of job j, kept current by the job's owner thread.
 template <typename T>
 __device__ __forceinline__ T job_key(const SolveArgs& a, const T* jsta,
-                                     const T* total, int code, int j) {
+                                     const int32_t* jw, const float* jshare, int code,
+                                     int j) {
   const int J = a.jdim;
   if (code == kKeyPriority) return -jsta[a.jprio * J + j];
   if (code == kKeyGang)
-    return (T)a.jdyn[a.jready * J + j] >= jsta[a.jmin * J + j] ? (T)1 : (T)0;
-  if (code == kKeyDrf) {
-    float share = 0.0f;
-    for (int i = 0; i < a.r; ++i) {
-      float s = safe_share((float)a.jdyn[(a.jalloc + i) * J + j], (float)total[i]);
-      share = s > share ? s : share;
-    }
-    return (T)share;
-  }
+    return (T)jw[a.jready * J + j] >= jsta[a.jmin * J + j] ? (T)1 : (T)0;
+  if (code == kKeyDrf) return (T)jshare[j];
   return (T)0;
 }
 
+// Job j as a pop candidate: the conf's tiered keys, then ts, then uid rank.
 template <typename T>
-__device__ __forceinline__ float queue_share(const SolveArgs& a, const T* qsta, int q) {
+__device__ __forceinline__ Lex<T> job_lex(const SolveArgs& a, const T* jsta,
+                                          const int32_t* jw, const float* jshare,
+                                          const int* job_keys, int j) {
+  const int J = a.jdim;
+  Lex<T> c;
+  c.idx = j;
+#pragma unroll
+  for (int s = 0; s < 3; ++s) c.k[s] = job_key(a, jsta, jw, jshare, job_keys[s], j);
+  c.k[3] = jsta[a.jts * J + j];
+  c.k[4] = jsta[a.juid * J + j];
+  return c;
+}
+
+// The calling warp's first active job of queue q, over the jobs its lanes
+// own (job j belongs to thread j % kThreads); idx -1 if none.  Every lane
+// gets the answer.
+template <typename T>
+__device__ Lex<T> warp_best_job(const SolveArgs& a, const T* jsta, const int32_t* jw,
+                                const float* jshare, const int* job_keys, int q) {
+  const int J = a.jdim;
+  const T qf = (T)q;
+  Lex<T> best;
+  best.idx = -1;
+#pragma unroll 4
+  for (int j = threadIdx.x; j < J; j += kThreads) {
+    if (jw[a.jact * J + j] <= 0 || !(jsta[a.jqueue * J + j] == qf)) continue;
+    const Lex<T> c = job_lex(a, jsta, jw, jshare, job_keys, j);
+    if (lex_before(c, best)) best = c;
+  }
+  return warp_lex_min(best);
+}
+
+template <typename T>
+__device__ __forceinline__ float queue_share(const SolveArgs& a, const T* qsta,
+                                             const int32_t* qw, int q) {
   const int Q = a.qdim;
   float share = 0.0f;
   for (int i = 0; i < a.r; ++i) {
-    float s = safe_share((float)a.qdyn[(a.qalloc + i) * Q + q],
+    float s = safe_share((float)qw[(a.qalloc + i) * Q + q],
                          (float)qsta[(a.qdesf + i) * Q + q]);
     share = s > share ? s : share;
   }
   return share;
 }
 
-template <typename T, bool kStamp>
-__global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) {
-  __shared__ Lex<T> lex_slots[kWarps];
-  __shared__ long long key_slots[kWarps];
+// The node rows a CTA keeps for its slice, in the order the plan places
+// them on chip (ops/cuda_solver.py node_rows).
+struct RowIx {
+  int idle, rel, used, cnt, cap, cs, sok, bonus, port, sel, np_use, ns_use;
+};
 
-  const int tid = threadIdx.x;
+__device__ __forceinline__ RowIx row_ix(const SolveArgs& a) {
+  RowIx x;
+  x.idle = 0;
+  x.rel = a.r;
+  x.used = 2 * a.r;
+  x.cnt = 3 * a.r;
+  x.cap = x.cnt + 1;
+  x.cs = x.cnt + 2;     // two rows
+  x.sok = x.cnt + 4;    // exists && sig_mask of the current signature
+  x.bonus = x.cnt + 5;  // sig_bonus of the current signature
+  x.port = x.cnt + 6;
+  x.np_use = a.has_ports ? a.np_pad : 0;
+  x.sel = x.port + x.np_use;
+  x.ns_use = (a.has_pod_affinity || a.has_pod_affinity_score) ? a.ns_pad : 0;
+  return x;
+}
+
+// Node row k of this CTA's slice: on chip for k < smem_rows, else in the
+// global mirror.  Indexed by the node's place in the slice.  kOnChip: the
+// plan put every row on chip, so no row needs the test.
+template <bool kOnChip>
+struct Rows {
+  int32_t* sm;
+  int32_t* gm;
+  int stride_sm, stride_gm, in_smem;
+  __device__ __forceinline__ int32_t* operator()(int k) const {
+    if (kOnChip) return sm + k * stride_sm;
+    return k < in_smem ? sm + k * stride_sm : gm + (size_t)k * stride_gm;
+  }
+};
+
+// kR: the resource dims the task loops unroll (2 when r <= 2, else
+// kMaxR); kOnChip: every node row is in shared memory.
+template <typename T, bool kStamp, int kR, bool kOnChip>
+__global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int C = a.cluster;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n = a.n, J = a.jdim, Q = a.qdim, r = a.r;
-  const T* jsta = static_cast<const T*>(a.jsta);
-  const T* qsta = static_cast<const T*>(a.qsta);
+  const int S = a.slice;
+  const int base = rank * S;
+  const int mine_n = max(0, min(S, n - base));
+  const RowIx rx = row_ix(a);
+  const int jw_rows = a.jact + 1, qw_rows = a.qact + 1;
   const T* sig_mask = static_cast<const T*>(a.sig_mask);
   const T* total = static_cast<const T*>(a.total);
-  int32_t* nint = a.node_int;
   const int shift[2] = {a.score_shift[0], a.score_shift[1]};
   const int job_keys[3] = {a.job_key0, a.job_key1, a.job_key2};
   Stamps<kStamp> st;
   st.start();
 
-  for (int t = tid; t < a.p; t += kThreads) {
+  // ---- carve shared memory (ClusterPlan.smem_bytes mirrors this) -------
+  long long* xslots = reinterpret_cast<long long*>(smem);  // [2][C*kWarps]
+  int32_t* tbuf = reinterpret_cast<int32_t*>(xslots + 2 * C * kWarps);  // [2][32]
+  int32_t* pop_sm = tbuf + 64;  // the pop's result, published by warp 0
+  // The static job rows the pops read (start .. uid rank).
+  const int js_rows = a.juid + 1;
+  T* js_sm = reinterpret_cast<T*>(pop_sm + 8);
+  const T* jsta = a.jsta_smem ? js_sm : static_cast<const T*>(a.jsta);
+  // The queue piece, always on chip: the static queue rows the pops read
+  // (ts, uid rank, exists, deserved floats), the dynamic copy, the job
+  // cache (jcache[q * kWarps + w] is warp w's first active job of queue
+  // q, -1 if none), qshare[q] (queue q's share, kept current) and the
+  // deserved quanta.
+  const int qs_rows = a.qdesf + r;
+  T* qs_sm = a.jsta_smem ? js_sm + js_rows * J : js_sm;
+  const T* qsta = qs_sm;
+  int32_t* qw = reinterpret_cast<int32_t*>(qs_sm + qs_rows * Q);
+  int32_t* jcache = qw + qw_rows * Q;
+  float* qshare = reinterpret_cast<float*>(jcache + kWarps * Q);
+  int32_t* qdes = reinterpret_cast<int32_t*>(qshare + Q);
+  int32_t* cursor = qdes + r * Q;
+  const int jpiece = (jw_rows + 1) * J;
+  int32_t* gj = a.scratch + (size_t)a.rows * n;  // [C][jpiece]
+  const Rows<kOnChip> row{cursor, a.scratch + base, S, n, a.smem_rows};
+  cursor += a.smem_rows * S;
+  // The job piece: the dynamic rows, then jshare.
+  int32_t* jw = a.jwork_smem ? cursor : gj + (size_t)rank * jpiece;
+  float* jshare = reinterpret_cast<float*>(jw + jw_rows * J);
+
+  // ---- load the slice, the job and queue copies; clear `out` ----------
+  for (int li = tid; li < mine_n; li += kThreads) {
+    const int g = base + li;
+    for (int d = 0; d < r; ++d) {
+      row(rx.idle + d)[li] = a.node_int[(a.idle + d) * n + g];
+      row(rx.rel + d)[li] = a.node_int[(a.rel + d) * n + g];
+      row(rx.used + d)[li] = a.node_int[(a.used + d) * n + g];
+    }
+    row(rx.cnt)[li] = a.node_int[a.cnt * n + g];
+    row(rx.cap)[li] = a.node_int[a.cap * n + g];
+    row(rx.cs)[li] = a.node_cs[g];
+    row(rx.cs + 1)[li] = a.node_cs[n + g];
+    for (int k = 0; k < rx.np_use; ++k) row(rx.port + k)[li] = a.nport[k * n + g];
+    for (int s = 0; s < rx.ns_use; ++s) row(rx.sel + s)[li] = a.nsel[s * n + g];
+  }
+  for (int i = tid; i < jw_rows * J; i += kThreads) jw[i] = a.jdyn[i];
+  for (int j = tid; j < J; j += kThreads) jshare[j] = drf_share(a, a.jdyn, total, j);
+  if (a.jsta_smem)
+    for (int i = tid; i < js_rows * J; i += kThreads)
+      js_sm[i] = static_cast<const T*>(a.jsta)[i];
+  for (int i = tid; i < qw_rows * Q; i += kThreads) qw[i] = a.qdyn[i];
+  for (int i = tid; i < qs_rows * Q; i += kThreads)
+    qs_sm[i] = static_cast<const T*>(a.qsta)[i];
+  for (int i = tid; i < r * Q; i += kThreads) qdes[i] = a.qdes[i];
+  for (int t = rank * kThreads + tid; t < a.p; t += C * kThreads) {
     a.out[4 * t + 0] = -1;
     a.out[4 * t + 1] = 0;
     a.out[4 * t + 2] = -1;
     a.out[4 * t + 3] = 0;
   }
-  bool mine = false;
-  for (int q = tid; q < Q; q += kThreads) mine |= a.qdyn[a.qact * Q + q] > 0;
-  bool any_active = __syncthreads_or(mine);
-  int step = 0;
+  // Every CTA of the cluster has started (its slots may be written) and
+  // every copy above is visible.
+  cluster.sync();
+  for (int q = tid; q < Q; q += kThreads) qshare[q] = queue_share(a, qsta, qw, q);
+  for (int q = 0; q < Q; ++q) {
+    const int best = warp_best_job(a, jsta, jw, jshare, job_keys, q).idx;
+    if (lane == 0) jcache[q * kWarps + warp] = best;
+  }
+
+  bool act = false;
+  for (int q = tid; q < Q; q += kThreads) act |= qw[a.qact * Q + q] > 0;
+  bool any_active = __syncthreads_or(act);
+  int step = 0, par = 0, cur_sig = -1;
 
   while (any_active) {
-    // ---- queue pop: lex-first active queue by share, ts, uid rank ------
-    Lex<T> qc;
-    qc.idx = -1;
-    for (int q = tid; q < Q; q += kThreads) {
-      if (a.qdyn[a.qact * Q + q] <= 0) continue;
-      Lex<T> c;
-      c.idx = q;
-      c.k[0] = a.queue_key0 ? (T)queue_share(a, qsta, q) : (T)0;
-      c.k[1] = qsta[a.qts * Q + q];
-      c.k[2] = qsta[a.quid * Q + q];
-      c.k[3] = (T)0;
-      c.k[4] = (T)0;
-      if (lex_before(c, qc)) qc = c;
-    }
-    qc = block_lex_min(qc, lex_slots);
-    const int q = qc.idx < 0 ? Q : qc.idx;
-    st.mark(kQueuePop);
-
-    bool overused = false;
-    if (a.has_proportion) {
-      overused = true;
-      for (int i = 0; i < r; ++i) {
-        const int des = q < Q ? a.qdes[i * Q + q] : 0;
-        const int alc = q < Q ? a.qdyn[(a.qalloc + i) * Q + q] : 0;
-        bool ok = eps_le(des, alc);
-        if (i >= 2) ok = ok || des <= kEps;
-        overused = overused && ok;
+    // ---- pops, in warp 0 alone: the other warps wait at the barrier,
+    // which publishes the result (sixteen warps popping redundantly would
+    // share the schedulers four to one) ----------------------------------
+    if (warp == 0) {
+      // queue pop: share, ts, uid rank
+      Lex<T> qc;
+      qc.idx = -1;
+      for (int qq = lane; qq < Q; qq += 32) {
+        if (qw[a.qact * Q + qq] <= 0) continue;
+        Lex<T> c;
+        c.idx = qq;
+        c.k[0] = a.queue_key0 ? (T)qshare[qq] : (T)0;
+        c.k[1] = qsta[a.qts * Q + qq];
+        c.k[2] = qsta[a.quid * Q + qq];
+        c.k[3] = (T)0;
+        c.k[4] = (T)0;
+        if (lex_before(c, qc)) qc = c;
+      }
+      qc = warp_lex_min(qc);
+      const int pq = qc.idx < 0 ? Q : qc.idx;
+      bool overused = false;
+      if (a.has_proportion) {
+        overused = true;
+        for (int i = 0; i < r; ++i) {
+          const int des = pq < Q ? qdes[i * Q + pq] : 0;
+          const int alc = pq < Q ? qw[(a.qalloc + i) * Q + pq] : 0;
+          bool ok = eps_le(des, alc);
+          if (i >= 2) ok = ok || des <= kEps;
+          overused = overused && ok;
+        }
+      }
+      st.mark(kQueuePop);
+      // job pop: the lex-first of the warps' cached candidates of queue
+      // pq (only the popped job's keys change between two pops, and its
+      // warp refreshes its entry at the write-back)
+      Lex<T> jc;
+      jc.idx = -1;
+      if (pq < Q && lane < kWarps) {
+        const int cj = jcache[pq * kWarps + lane];
+        if (cj >= 0) jc = job_lex(a, jsta, jw, jshare, job_keys, cj);
+      }
+      jc = warp_lex_min(jc);
+      if (lane == 0) {
+        const int pj = jc.idx < 0 ? J : jc.idx;
+        const bool found = pj < J;
+        const bool gone = overused || !found;
+        pop_sm[0] = pq;
+        pop_sm[1] = pj;
+        pop_sm[2] = gone;
+        pop_sm[3] = found ? (int)jsta[a.jstart * J + pj] : 0;
+        pop_sm[4] = gone ? 0 : (int)jsta[a.jcount * J + pj];
+        pop_sm[5] = found ? (int)jsta[a.jmin * J + pj] : 0;
+        pop_sm[6] = found ? jw[a.jptr * J + pj] : 0;
+        pop_sm[7] = found ? jw[a.jready * J + pj] : 0;
       }
     }
-
-    // ---- job pop: the conf's tiered keys, then ts, then uid rank -------
-    Lex<T> jc;
-    jc.idx = -1;
-    const T qf = (T)q;
-    for (int j = tid; j < J; j += kThreads) {
-      if (a.jdyn[a.jact * J + j] <= 0 || !(jsta[a.jqueue * J + j] == qf)) continue;
-      Lex<T> c;
-      c.idx = j;
-#pragma unroll
-      for (int s = 0; s < 3; ++s) c.k[s] = job_key(a, jsta, total, job_keys[s], j);
-      c.k[3] = jsta[a.jts * J + j];
-      c.k[4] = jsta[a.juid * J + j];
-      if (lex_before(c, jc)) jc = c;
-    }
-    jc = block_lex_min(jc, lex_slots);
-    const int j = jc.idx < 0 ? J : jc.idx;
-    const bool has_job = j < J;
-    const bool retire = overused || !has_job;
-
-    const int start = has_job ? (int)jsta[a.jstart * J + j] : 0;
-    const int count_j = retire ? 0 : (int)jsta[a.jcount * J + j];
-    const int minavail = has_job ? (int)jsta[a.jmin * J + j] : 0;
-    int ptr = has_job ? a.jdyn[a.jptr * J + j] : 0;
-    int ready_cnt = has_job ? a.jdyn[a.jready * J + j] : 0;
+    __syncthreads();
+    const int q = pop_sm[0], j = pop_sm[1];
+    const bool retire = pop_sm[2] != 0;
+    const int start = pop_sm[3], count_j = pop_sm[4], minavail = pop_sm[5];
+    int ptr = pop_sm[6], ready_cnt = pop_sm[7];
     st.mark(kJobPop);
     st.count(kPops);
 
     // ---- drain the popped job: one placement per iteration -------------
     bool survive = false;
     int dstep = step;
-    int dres[kMaxR];
+    int dres[kR];
 #pragma unroll
-    for (int d = 0; d < kMaxR; ++d) dres[d] = 0;
+    for (int d = 0; d < kR; ++d) dres[d] = 0;
+    // The task of the first placement comes from global memory; each
+    // placement's warp 0 fetches the next task (the job's next, which the
+    // drain reaches only if this placement succeeds) into tbuf while the
+    // scan runs, and the exchange barrier publishes it.
+    int t = 0, sig = 0;
+    int req[kR], res[kR];
+    if (ptr < count_j) {
+      t = wadd(start, ptr);
+      t = t < 0 ? 0 : (t > a.p - 1 ? a.p - 1 : t);
+      const int32_t* task = a.task_data + (size_t)t * a.task_width;
+#pragma unroll
+      for (int d = 0; d < kR; ++d) {
+        req[d] = d < r ? task[a.req + d] : 0;
+        res[d] = d < r ? task[a.res + d] : 0;
+      }
+      sig = a.task_sig[t];
+    }
     for (;;) {
       // Past the job's last task (always so for a retired pop) the
       // iteration places nothing and ends the drain: skip its scan.
@@ -356,75 +527,93 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
         survive = false;
         break;
       }
-      int t = wadd(start, ptr);
-      t = t < 0 ? 0 : (t > a.p - 1 ? a.p - 1 : t);
-      const int32_t* task = a.task_data + (size_t)t * a.task_width;
-      int req[kMaxR], res[kMaxR];
-#pragma unroll
-      for (int d = 0; d < kMaxR; ++d) {
-        req[d] = d < r ? task[a.req + d] : 0;
-        res[d] = d < r ? task[a.res + d] : 0;
+      int tn = wadd(wadd(start, ptr), 1);
+      tn = tn < 0 ? 0 : (tn > a.p - 1 ? a.p - 1 : tn);
+      int next = 0;
+      if (warp == 0 && lane <= 2 * r) {
+        const int col = lane < r ? a.req + lane : a.res + lane - r;
+        next = lane < 2 * r ? a.task_data[(size_t)tn * a.task_width + col]
+                            : a.task_sig[tn];
       }
-      int sig = a.task_sig[t];
+      const int32_t* task = a.task_data + (size_t)t * a.task_width;
       sig = sig < 0 ? 0 : (sig > a.n_sig - 1 ? a.n_sig - 1 : sig);
-      const T* sig_row = sig_mask + (size_t)sig * n;
-      const int32_t* bonus_row = a.sig_bonus + (size_t)sig * n;
+
+      if (sig != cur_sig) {  // cache the signature's rows for my nodes
+        const T* mask_row = sig_mask + (size_t)sig * n + base;
+        const int32_t* bonus_row = a.sig_bonus + (size_t)sig * n + base;
+        for (int li = tid; li < mine_n; li += kThreads) {
+          row(rx.sok)[li] = a.node_int[a.exists * n + base + li] > 0 &&
+                            mask_row[li] > (T)0.5;
+          row(rx.bonus)[li] = bonus_row[li];
+        }
+        cur_sig = sig;
+      }
 
       long long best = LLONG_MIN;
-      for (int i = tid; i < n; i += kThreads) {
+      for (int li = tid; li < mine_n; li += kThreads) {
         bool fit_idle = true, fit_rel = true;
 #pragma unroll
-        for (int d = 0; d < kMaxR; ++d) {
-          if (d >= r) break;
-          const bool low = d >= 2 && req[d] <= kEps;
-          fit_idle = fit_idle && (low || eps_le(req[d], nint[(a.idle + d) * n + i]));
-          fit_rel = fit_rel && (low || eps_le(req[d], nint[(a.rel + d) * n + i]));
-        }
-        bool feas = sig_row[i] > (T)0.5 && nint[a.exists * n + i] > 0 &&
-                    nint[a.cnt * n + i] < nint[a.cap * n + i] && (fit_idle || fit_rel);
-        if (feas && a.has_ports) {
-          for (int k = 0; k < a.np_pad; ++k)
-            if (task[a.ports + k] > 0 && a.nport[k * n + i] > 0) feas = false;
-        }
-        if (feas && a.has_pod_affinity) {
-          for (int s = 0; s < a.ns_pad; ++s) {
-            const bool have = a.nsel[s * n + i] > 0;
-            if ((task[a.aff + s] > 0 && !have) || (task[a.anti + s] > 0 && have)) feas = false;
+        for (int d = 0; d < kR; ++d) {
+          if (d < r) {
+            const bool low = d >= 2 && req[d] <= kEps;
+            fit_idle = fit_idle & (low | eps_le(req[d], row(rx.idle + d)[li]));
+            fit_rel = fit_rel & (low | eps_le(req[d], row(rx.rel + d)[li]));
           }
         }
-        int score = kNegScore;
-        if (feas) {
-          int g[2];
+        bool feas = (row(rx.sok)[li] != 0) & (row(rx.cnt)[li] < row(rx.cap)[li]) &
+                    (fit_idle | fit_rel);
+        for (int k = 0; k < rx.np_use; ++k)
+          if (task[a.ports + k] > 0) feas = feas & !(row(rx.port + k)[li] > 0);
+        if (a.has_pod_affinity) {
+          for (int s = 0; s < rx.ns_use; ++s) {
+            const bool have = row(rx.sel + s)[li] > 0;
+            if (task[a.aff + s] > 0) feas = feas & have;
+            if (task[a.anti + s] > 0) feas = feas & !have;
+          }
+        }
+        int g[2];
 #pragma unroll
-          for (int d = 0; d < 2; ++d) {
-            const int cs = a.node_cs[d * n + i];
-            int xs = lshr(wadd(nint[(a.used + d) * n + i], res[d]), shift[d]);
-            xs = xs < cs ? xs : cs;
-            const int quot = (int)((T)wmul(xs, kGridK) / (T)(cs > 1 ? cs : 1));
-            g[d] = cs == 0 ? kGridK : quot;
-          }
-          score = 0;
-          if (a.w_least5)
-            score = wadd(score, wmul(a.w_least5, wsub(wsub(2 * kGridK, g[0]), g[1])));
-          if (a.w_most5) score = wadd(score, wmul(a.w_most5, wadd(g[0], g[1])));
-          if (a.w_bal)
-            score = wadd(score, wmul(a.w_bal, wsub(10 * kGridK,
-                                                   wmul(10, wabs(wsub(g[0], g[1]))))));
-          if (a.has_pod_affinity_score) {
-            for (int s = 0; s < a.ns_pad; ++s) {
-              const int wd = wsub(task[a.paffw + s], task[a.pantiw + s]);
-              score = wadd(score, wmul(wmul(kGridK, wd), a.nsel[s * n + i]));
-            }
-          }
-          score = wadd(score, bonus_row[i]);
+        for (int d = 0; d < 2; ++d) {
+          const int cs = row(rx.cs + d)[li];
+          int xs = lshr(wadd(row(rx.used + d)[li], res[d]), shift[d]);
+          xs = xs < cs ? xs : cs;
+          const int quot = (int)((T)wmul(xs, kGridK) / (T)(cs > 1 ? cs : 1));
+          g[d] = cs == 0 ? kGridK : quot;
         }
-        const long long key = pack_key(score, i, fit_idle, fit_rel);
+        int score = 0;
+        if (a.w_least5)
+          score = wadd(score, wmul(a.w_least5, wsub(wsub(2 * kGridK, g[0]), g[1])));
+        if (a.w_most5) score = wadd(score, wmul(a.w_most5, wadd(g[0], g[1])));
+        if (a.w_bal)
+          score = wadd(score, wmul(a.w_bal, wsub(10 * kGridK,
+                                                 wmul(10, wabs(wsub(g[0], g[1]))))));
+        if (a.has_pod_affinity_score) {
+          for (int s = 0; s < rx.ns_use; ++s) {
+            const int wd = wsub(task[a.paffw + s], task[a.pantiw + s]);
+            score = wadd(score, wmul(wmul(kGridK, wd), row(rx.sel + s)[li]));
+          }
+        }
+        score = wadd(score, row(rx.bonus)[li]);
+        score = feas ? score : kNegScore;
+        const long long key = pack_key(score, base + li, fit_idle, fit_rel);
         best = key > best ? key : best;
       }
       st.mark(kNodeScan);
       st.count(kPlacements);
-      best = block_max(best, key_slots);
+
+      // ---- pick: warp max, keys to every CTA, one cluster barrier ------
+      best = warp_max(best);
+      long long* xs = xslots + par * C * kWarps;
+      if (lane < C) *cluster.map_shared_rank(xs + rank * kWarps + warp, lane) = best;
+      int32_t* tb = tbuf + 32 * par;
+      if (warp == 0 && lane <= 2 * r) tb[lane] = next;
+      par ^= 1;
       st.mark(kCtaReduce);
+      cluster.sync();
+      best = LLONG_MIN;
+      for (int m = lane; m < C * kWarps; m += 32) best = xs[m] > best ? xs[m] : best;
+      best = warp_max(best);
+      st.mark(kClusterExchange);
 
       const int best_score = (int)(unsigned)((unsigned long long)best >> 32);
       const unsigned lo = (unsigned)((unsigned long long)best & 0xffffffffull);
@@ -434,33 +623,32 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
       const bool pipe_ok = feasible_any && !(lo & 2u) && (lo & 1u);
       const bool placed = alloc_ok || pipe_ok;
 
-      if (placed && pick % kThreads == tid) {
+      const int li = pick - base;
+      if (placed && li >= 0 && li < mine_n && li % kThreads == tid) {
         // The owner of the chosen node: rank-1 update of its column.
         for (int d = 0; d < r; ++d) {
-          int* idle = &nint[(a.idle + d) * n + pick];
-          int* rel = &nint[(a.rel + d) * n + pick];
-          int* used = &nint[(a.used + d) * n + pick];
+          int32_t* idle = row(rx.idle + d) + li;
+          int32_t* rel = row(rx.rel + d) + li;
+          int32_t* used = row(rx.used + d) + li;
           if (alloc_ok) *idle = wsub(*idle, res[d]);
           if (pipe_ok) *rel = wsub(*rel, res[d]);
           *used = wadd(*used, res[d]);
         }
-        nint[a.cnt * n + pick] = wadd(nint[a.cnt * n + pick], 1);
+        row(rx.cnt)[li] = wadd(row(rx.cnt)[li], 1);
         a.out[4 * t + 0] = pick;
         a.out[4 * t + 1] = alloc_ok ? 1 : 2;
         a.out[4 * t + 2] = dstep;
         a.out[4 * t + 3] = 0;
-        if (a.has_ports)
-          for (int k = 0; k < a.np_pad; ++k) a.nport[k * n + pick] |= task[a.ports + k];
-        if (a.has_pod_affinity || a.has_pod_affinity_score)
-          for (int s = 0; s < a.ns_pad; ++s)
-            a.nsel[s * n + pick] = wadd(a.nsel[s * n + pick], task[a.match + s]);
+        for (int k = 0; k < rx.np_use; ++k) row(rx.port + k)[li] |= task[a.ports + k];
+        for (int s = 0; s < rx.ns_use; ++s)
+          row(rx.sel + s)[li] = wadd(row(rx.sel + s)[li], task[a.match + s]);
       }
       st.mark(kOwnerUpdate);
       if (placed) {
         ptr += 1;
         dstep += 1;
 #pragma unroll
-        for (int d = 0; d < kMaxR; ++d)
+        for (int d = 0; d < kR; ++d)
           if (d < r) dres[d] = wadd(dres[d], res[d]);
       }
       if (alloc_ok) ready_cnt += 1;
@@ -470,32 +658,126 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
         survive = feasible_any && ready && remaining;
         break;
       }
+      // Placed, so the next task is the one warp 0 fetched.
+      t = tn;
+#pragma unroll
+      for (int d = 0; d < kR; ++d) {
+        req[d] = d < r ? tb[d] : 0;
+        res[d] = d < r ? tb[r + d] : 0;
+      }
+      sig = tb[2 * r];
     }
 
-    // ---- write-back and rotation ---------------------------------------
+    // ---- write-back and rotation, on every CTA's own copy ---------------
     step = dstep;
-    if (tid == 0) {
-      if (!retire) {
-        for (int d = 0; d < r; ++d) {
-          a.jdyn[(a.jalloc + d) * J + j] = wadd(a.jdyn[(a.jalloc + d) * J + j], dres[d]);
-          if (q < Q)
-            a.qdyn[(a.qalloc + d) * Q + q] = wadd(a.qdyn[(a.qalloc + d) * Q + q], dres[d]);
-        }
-        a.jdyn[a.jptr * J + j] = ptr;
-        a.jdyn[a.jready * J + j] = ready_cnt;
-        a.jdyn[a.jact * J + j] = survive ? 1 : 0;
-      } else if (q < Q) {
-        a.qdyn[a.qact * Q + q] = 0;
+    // The pop barrier stands between the pops' reads and these writes.
+    if (!retire) {
+      if (tid == j % kThreads) {  // the job's owner thread
+        for (int d = 0; d < r; ++d)
+          jw[(a.jalloc + d) * J + j] = wadd(jw[(a.jalloc + d) * J + j], dres[d]);
+        jw[a.jptr * J + j] = ptr;
+        jw[a.jready * J + j] = ready_cnt;
+        jw[a.jact * J + j] = survive ? 1 : 0;
+        jshare[j] = drf_share(a, jw, total, j);
       }
+      if (warp == (j % kThreads) / 32) {  // its warp refreshes queue q's entry
+        const int best = warp_best_job(a, jsta, jw, jshare, job_keys, q).idx;
+        if (lane == 0) jcache[q * kWarps + warp] = best;
+      }
+      if (tid == 0 && q < Q) {
+        for (int d = 0; d < r; ++d)
+          qw[(a.qalloc + d) * Q + q] = wadd(qw[(a.qalloc + d) * Q + q], dres[d]);
+        qshare[q] = queue_share(a, qsta, qw, q);
+      }
+    } else if (tid == 0 && q < Q) {
+      qw[a.qact * Q + q] = 0;
     }
-    __syncthreads();
-    mine = false;
-    for (int qq = tid; qq < Q; qq += kThreads) mine |= a.qdyn[a.qact * Q + qq] > 0;
-    any_active = __syncthreads_or(mine);
+    // Only the popped queue's active flag can have changed, and every
+    // thread knows its new value, so one barrier serves.
+    act = false;
+    for (int qq = tid; qq < Q; qq += kThreads)
+      act |= (qq == q && retire) ? false : qw[a.qact * Q + qq] > 0;
+    any_active = __syncthreads_or(act);
     st.mark(kWriteBack);
   }
-  if (tid == 0) *a.steps = step;
-  st.write(a.stamps);
+
+  // ---- write back: each CTA its node slice, CTA 0 the job/queue state --
+  for (int li = tid; li < mine_n; li += kThreads) {
+    const int g = base + li;
+    for (int d = 0; d < r; ++d) {
+      a.node_int[(a.idle + d) * n + g] = row(rx.idle + d)[li];
+      a.node_int[(a.rel + d) * n + g] = row(rx.rel + d)[li];
+      a.node_int[(a.used + d) * n + g] = row(rx.used + d)[li];
+    }
+    a.node_int[a.cnt * n + g] = row(rx.cnt)[li];
+    for (int k = 0; k < rx.np_use; ++k) a.nport[k * n + g] = row(rx.port + k)[li];
+    for (int s = 0; s < rx.ns_use; ++s) a.nsel[s * n + g] = row(rx.sel + s)[li];
+  }
+  if (rank == 0) {
+    for (int i = tid; i < jw_rows * J; i += kThreads) a.jdyn[i] = jw[i];
+    for (int i = tid; i < qw_rows * Q; i += kThreads) a.qdyn[i] = qw[i];
+    if (tid == 0) *a.steps = step;
+  }
+  st.write(a.stamps, rank == 0 && tid == 0);
+  // No CTA leaves while another may still address its shared memory.
+  cluster.sync();
+}
+
+// The dynamic shared memory a launch carves (ClusterPlan.smem_bytes).
+template <typename T>
+size_t smem_bytes(const SolveArgs& a) {
+  size_t b = 2 * (size_t)a.cluster * kWarps * sizeof(long long) + 72 * sizeof(int32_t);
+  if (a.jsta_smem) b += (size_t)(a.juid + 1) * a.jdim * sizeof(T);
+  b += (size_t)(a.qact + 2 + kWarps + a.r) * a.qdim * sizeof(int32_t) +
+       (size_t)(a.qdesf + a.r) * a.qdim * sizeof(T);
+  b += (size_t)a.smem_rows * a.slice * sizeof(int32_t);
+  if (a.jwork_smem) b += (size_t)(a.jact + 2) * a.jdim * sizeof(int32_t);
+  return b;
+}
+
+template <typename T, bool kStamp, int kR, bool kOnChip>
+int launch(const SolveArgs& a, cudaStream_t s) {
+  auto kernel = solve_session<T, kStamp, kR, kOnChip>;
+  const int rows = 3 * a.r + 6 + (a.has_ports ? a.np_pad : 0) +
+                   (a.has_pod_affinity || a.has_pod_affinity_score ? a.ns_pad : 0);
+  if ((size_t)a.smem_bytes != smem_bytes<T>(a) || a.rows != rows || a.cluster < 1 ||
+      a.cluster > 16 || (size_t)a.slice * a.cluster < (size_t)a.n || 2 * a.r + 1 > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (a.cluster > 8) {  // 16 CTAs: Hopper's non-portable cluster size
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = a.smem_bytes;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (clusters < 1) return kNoCluster;
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool kStamp>
+int launch_for(const SolveArgs& a, cudaStream_t s) {
+  const bool on_chip = a.smem_rows == a.rows;
+  if (a.r <= 2)
+    return on_chip ? launch<T, kStamp, 2, true>(a, s) : launch<T, kStamp, 2, false>(a, s);
+  return on_chip ? launch<T, kStamp, kMaxR, true>(a, s)
+                 : launch<T, kStamp, kMaxR, false>(a, s);
 }
 
 }  // namespace
@@ -503,17 +785,14 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
 extern "C" int kbt_solve_session(const SolveArgs* args, int use_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool stamp = args->stamps != nullptr;
-  if (use_f64 && stamp)
-    solve_session<double, true><<<1, kThreads, 0, s>>>(*args);
-  else if (use_f64)
-    solve_session<double, false><<<1, kThreads, 0, s>>>(*args);
-  else if (stamp)
-    solve_session<float, true><<<1, kThreads, 0, s>>>(*args);
-  else
-    solve_session<float, false><<<1, kThreads, 0, s>>>(*args);
-  return static_cast<int>(cudaGetLastError());
+  if (use_f64)
+    return stamp ? launch_for<double, true>(*args, s) : launch_for<double, false>(*args, s);
+  return stamp ? launch_for<float, true>(*args, s) : launch_for<float, false>(*args, s);
 }
 
 extern "C" const char* kbt_error_string(int code) {
+  if (code == kNoCluster)
+    return "no group of SMs can host the thread-block cluster "
+           "(cudaOccupancyMaxActiveClusters returned 0)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }

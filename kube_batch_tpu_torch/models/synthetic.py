@@ -161,18 +161,21 @@ def _waterfill(total, weight, request, active):
     return deserved
 
 
-def make_feature_inputs(seed: int = 0, *, dtype: torch.dtype, device=None):
+def make_feature_inputs(seed: int = 0, *, n_nodes: int = 24,
+                        dtype: torch.dtype, device=None):
     """A small session that drives every branch of the solve: host ports,
     required pod (anti-)affinity, preferred pod-affinity scoring,
     releasing capacity (pipelined placements), several signatures with a
     static score bonus, a third (scalar) resource dim, allocation and
     task counts at session open, varied priorities and tight pod caps.
-    Returns (inputs, config) with every feature switched on."""
+    ``n_nodes`` widens the cluster (the port's kernel spreads wide ones
+    over a thread-block cluster).  Returns (inputs, config) with every
+    feature switched on."""
     dtype = check_float_dtype(dtype)
     device = resolve_device(device)
     rng = np.random.default_rng(seed)
     r, n_sig, width = 3, 3, 8
-    n_tasks, n_nodes, n_jobs, n_queues = 120, 24, 12, 3
+    n_tasks, n_jobs, n_queues = 120, 12, 3
     p_pad, n_pad = bucket(n_tasks), bucket(n_nodes)
     j_pad, q_pad = bucket(n_jobs), bucket(n_queues)
     f = np.float64

@@ -48,6 +48,18 @@ from .solver import SolveResult, SolverConfig, SolverInputs
 
 # The kernel keeps a task's request and a job's drain sums in registers.
 MAX_R = 8
+# Threads of one CTA (kThreads in the kernel), the shared memory one CTA
+# may hold on an H100, and the cluster sizes the kernel launches with (16
+# is Hopper's non-portable size; a card that cannot host it raises).
+THREADS = 512
+SMEM_PER_CTA = 232_448
+CLUSTER_SIZES = (1, 2, 4, 8, 16)
+# A CTA's slice is at most this many nodes (2 a thread) where a cluster
+# of CLUSTER_SIZES allows: the scan shrinks with the slice while the
+# exchange barrier costs the same at 8 and 16 CTAs (north-star shape:
+# 16 CTAs of 640 nodes beat 8 of 1,280 and 4 of 2,560; kernel_ab.py,
+# PERF.md).
+SLICE_NODES = 2 * THREADS
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "solve_session.cu"
 # Inside the checkout and listed in .gitignore; built at first use.
@@ -131,6 +143,88 @@ def layout(r: int, np_pad: int, ns_pad: int) -> Layout:
         qts=0, quid=1, qexists=2, qdesf=3, qsta_rows=_pad8(3 + r),
         qdes_rows=_pad8(r),
         qalloc=0, qact=r, qdyn_rows=_pad8(r + 1))
+
+
+class ClusterPlan(NamedTuple):
+    """How one launch spreads a session over a thread-block cluster.  The
+    fields from ``cluster`` to ``smem_bytes`` are launch arguments, in the
+    order of the C struct ``SolveArgs``."""
+    cluster: int      # CTAs in the cluster
+    slice: int        # nodes per CTA; CTA k owns [k*slice, (k+1)*slice)
+    rows: int         # node rows the kernel keeps per node
+    smem_rows: int    # how many of them (the first) are in shared memory
+    jsta_smem: bool   # the static job rows the pops read, in shared memory
+    jwork_smem: bool  # the CTA's copy of the job dynamic rows
+    smem_bytes: int   # dynamic shared memory per CTA
+    scratch_ints: int  # global int32 scratch for what is not on chip
+
+    def slices(self, n: int):
+        """Each CTA's node range [lo, hi)."""
+        return [(min(n, k * self.slice), min(n, (k + 1) * self.slice))
+                for k in range(self.cluster)]
+
+
+def node_rows(r: int, np_use: int, ns_use: int) -> int:
+    """Node rows the kernel keeps for each node: idle, releasing and used
+    per dim, count, cap, two grid-score capacities, the current
+    signature's feasibility bit and bonus, then the port and selector rows
+    the conf uses."""
+    return 3 * r + 6 + np_use + ns_use
+
+
+def cluster_plan(n: int, r: int, np_use: int, ns_use: int,
+                 dtype: torch.dtype, jdim: int, qdim: int) -> ClusterPlan:
+    """The smallest cluster in CLUSTER_SIZES whose slice is at most
+    SLICE_NODES (or the largest cluster) and whose CTAs hold all the
+    session's state in shared memory: the queue piece, their node slice's
+    rows, their job copy and the static job rows.  Where none does, the
+    largest cluster, with as much on chip as fits in this order: node rows
+    (a prefix), job copy, static job rows; the rest lives in the global
+    scratch and solves through the same code.  The queue piece always
+    lives on chip: raises ValueError for a queue count beyond that.
+    ``np_use``/``ns_use`` are the port and selector rows the conf reads (0
+    when it switches them off)."""
+    lay = layout(r, np_use, ns_use)
+    rows = node_rows(r, np_use, ns_use)
+    fbytes = 4 if dtype == torch.float32 else 8
+    warps = THREADS // 32
+    js = (lay.juid + 1) * jdim * fbytes
+    # job piece: dynamic copy and DRF shares (4 bytes each)
+    jpiece = (lay.jact + 2) * jdim
+    jw = jpiece * 4
+    # exchange slots (two parities), task buffer and pop result, then the
+    # queue piece: static queue rows (float key type), dynamic copy, job
+    # cache [Q, warps], queue shares and deserved quanta (4 bytes each)
+    queue = ((lay.qdesf + r) * qdim * fbytes
+             + (lay.qact + 2 + warps + r) * qdim * 4)
+
+    def fixed(c):
+        return c * 2 * warps * 8 + 72 * 4 + queue
+
+    def plan(c, slice_, smem_rows, js_in, jw_in, used):
+        return ClusterPlan(c, slice_, rows, smem_rows, js_in, jw_in, used,
+                           rows * n + c * jpiece)
+
+    for c in CLUSTER_SIZES:
+        slice_ = -(-n // c)
+        need = fixed(c) + js + rows * slice_ * 4 + jw
+        if need <= SMEM_PER_CTA and (slice_ <= SLICE_NODES
+                                     or c == CLUSTER_SIZES[-1]):
+            return plan(c, slice_, rows, True, True, need)
+    c = CLUSTER_SIZES[-1]
+    slice_ = -(-n // c)
+    used = fixed(c)
+    if used > SMEM_PER_CTA:
+        raise ValueError(
+            f"{qdim} queues need {queue} B of shared memory for the queue "
+            f"state, over the {SMEM_PER_CTA} B a CTA holds")
+    smem_rows = min(rows, (SMEM_PER_CTA - used) // (slice_ * 4))
+    used += smem_rows * slice_ * 4
+    jw_in = used + jw <= SMEM_PER_CTA
+    used += jw if jw_in else 0
+    js_in = used + js <= SMEM_PER_CTA
+    used += js if js_in else 0
+    return plan(c, slice_, smem_rows, js_in, jw_in, used)
 
 
 class Buffers(NamedTuple):
@@ -516,8 +610,9 @@ def solve_allocate_plain(inp: SolverInputs, cfg: SolverConfig):
 _POINTER_FIELDS = ("node_int", "node_cs", "task_data", "task_sig",
                    "sig_mask", "sig_bonus", "jsta", "jdyn", "qsta", "qdes",
                    "qdyn", "nport", "nsel", "total", "score_shift", "out",
-                   "steps", "stamps")
+                   "steps", "stamps", "scratch")
 _SHAPE_FIELDS = ("n", "p", "jdim", "qdim", "r", "np_pad", "ns_pad", "n_sig")
+_PLAN_FIELDS = ClusterPlan._fields[:ClusterPlan._fields.index("smem_bytes") + 1]
 _CONFIG_FIELDS = ("w_least5", "w_most5", "w_bal", "has_gang",
                   "has_proportion", "has_ports", "has_pod_affinity",
                   "has_pod_affinity_score", "job_key0", "job_key1",
@@ -534,10 +629,12 @@ PHASES = ("queue_pop", "job_pop", "node_scan", "cta_reduce",
 
 class SolveArgs(ctypes.Structure):
     """Mirror of ``struct SolveArgs`` in csrc/solve_session.cu: device
-    pointers, shapes, the conf as launch arguments, then the Layout."""
+    pointers, shapes, the cluster plan, the conf as launch arguments, then
+    the Layout."""
     _fields_ = ([(f, ctypes.c_void_p) for f in _POINTER_FIELDS]
                 + [(f, ctypes.c_int32) for f in
-                   _SHAPE_FIELDS + _CONFIG_FIELDS + Layout._fields])
+                   _SHAPE_FIELDS + _PLAN_FIELDS + _CONFIG_FIELDS
+                   + Layout._fields])
 
 
 class _Kernel:
@@ -657,14 +754,22 @@ def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig, *,
                        score_shift=ops.score_shift, out=out, steps=steps)
         job_keys = _key_codes(cfg.job_key_order, _JOB_KEYS, 3)
         (queue_key,) = _key_codes(cfg.queue_key_order, _QUEUE_KEYS, 1)
+        r = inp.task_req.shape[1]
+        np_pad, ns_pad = lay.aff - lay.ports, lay.anti - lay.aff
+        plan = cluster_plan(
+            bufs.node_int.shape[1], r, np_pad if cfg.has_ports else 0,
+            ns_pad if cfg.has_pod_affinity or cfg.has_pod_affinity_score
+            else 0, bufs.jsta.dtype, bufs.jsta.shape[1], bufs.qsta.shape[1])
         tensors["stamps"] = stamps
+        tensors["scratch"] = torch.empty(plan.scratch_ints,
+                                         dtype=torch.int32, device=dev)
         args = SolveArgs(
             *[None if tensors[f] is None else tensors[f].data_ptr()
               for f in _POINTER_FIELDS],
             n=bufs.node_int.shape[1], p=p, jdim=bufs.jsta.shape[1],
-            qdim=bufs.qsta.shape[1], r=inp.task_req.shape[1],
-            np_pad=lay.aff - lay.ports, ns_pad=lay.anti - lay.aff,
+            qdim=bufs.qsta.shape[1], r=r, np_pad=np_pad, ns_pad=ns_pad,
             n_sig=ops.sig_mask.shape[0],
+            **{f: int(getattr(plan, f)) for f in _PLAN_FIELDS},
             w_least5=w_least5, w_most5=w_most5, w_bal=w_bal,
             has_gang=bool(cfg.has_gang),
             has_proportion=bool(cfg.has_proportion),
