@@ -27,15 +27,20 @@
 // belongs to thread li % kThreads of its CTA, which alone reads and
 // writes that node's rows: the owner applies the rank-1 update, and the
 // next scan needs no barrier for it.  Per placement each warp reduces its
-// nodes to one packed int64 key (max score, then first index) and writes
-// it into every CTA's exchange slots through distributed shared memory;
-// one cluster barrier later every thread takes the max of C x 32 keys
-// locally.  The slots alternate by placement parity, so one barrier per
-// placement suffices.  Pops need no traffic between CTAs: every CTA holds
-// an identical copy of the job and queue dynamic state and runs the same
-// pops and write-backs on it (the queue pop in every warp on its own, the
-// job pop as one block reduction).  At the end each CTA writes back its
-// node slice and CTA 0 the job and queue state.
+// nodes to one packed int64 key (max score, then first index) and sends
+// it into every CTA's exchange slots with st.async, which counts its
+// bytes on that CTA's mbarrier; when its own CTA's mbarrier has all C x
+// kWarps keys, every thread takes their max locally.  No fence and no
+// cluster-wide barrier: a cluster barrier's release costs a GPU-scope
+// fence per placement.  Slots and mbarriers alternate by placement
+// parity; no CTA can refill a slot before every warp has read it, since
+// it must first receive every warp's next key.  Pops need no traffic between CTAs: every CTA holds
+// an identical copy of the job and queue state and runs the same pops and
+// write-backs on it.  Warp 0 pops (the queue first, then the job from each
+// warp's cached first job of that queue) and publishes the result behind
+// one CTA barrier; the popped job's warp refreshes its cache entry at the
+// write-back.  At the end each CTA writes back its node slice and CTA 0
+// the job and queue state.
 //
 // Exactness, each point from the reference:
 //  (a) ties break to the first index: max score, then the minimum node
@@ -241,6 +246,36 @@ __device__ __forceinline__ float drf_share(const SolveArgs& a, const int32_t* jd
 }
 
 // jshare[j] is drf_share of job j, kept current by the job's owner thread.
+// The exchange without a fence: st.async writes a key into another CTA's
+// shared memory and counts its bytes on that CTA's mbarrier, whose phase
+// completes when the bytes it expects have all landed (and its one local
+// arrival came); a thread that sees the phase complete sees the bytes.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+__device__ __forceinline__ void store_async(uint32_t addr, long long v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];"
+               ::"r"(addr), "l"(v), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void arrive_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("{\n .reg .b64 st;\n"
+               " mbarrier.arrive.expect_tx.shared::cta.b64 st, [%0], %1;\n}"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile("{\n .reg .pred p;\n"
+                 " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+                 " selp.u32 %0, 1, 0, p;\n}"
+                 : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+}
+
 template <typename T>
 __device__ __forceinline__ T job_key(const SolveArgs& a, const T* jsta,
                                      const int32_t* jw, const float* jshare, int code,
@@ -361,7 +396,10 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
 
   // ---- carve shared memory (ClusterPlan.smem_bytes mirrors this) -------
   long long* xslots = reinterpret_cast<long long*>(smem);  // [2][C*kWarps]
-  int32_t* tbuf = reinterpret_cast<int32_t*>(xslots + 2 * C * kWarps);  // [2][32]
+  // One mbarrier per parity: a phase completes when all C x kWarps keys of
+  // that placement have landed and warp 0 has published the next task.
+  unsigned long long* xbar = reinterpret_cast<unsigned long long*>(xslots + 2 * C * kWarps);
+  int32_t* tbuf = reinterpret_cast<int32_t*>(xbar + 2);  // [2][32]
   int32_t* pop_sm = tbuf + 64;  // the pop's result, published by warp 0
   // The static job rows the pops read (start .. uid rank).
   const int js_rows = a.juid + 1;
@@ -418,9 +456,15 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
     a.out[4 * t + 2] = -1;
     a.out[4 * t + 3] = 0;
   }
-  // Every CTA of the cluster has started (its slots may be written) and
-  // every copy above is visible.
+  if (tid == 0) {
+    for (int i = 0; i < 2; ++i)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(xbar + i)));
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // Every CTA of the cluster has started (its slots and mbarriers may be
+  // used) and every copy above is visible.
   cluster.sync();
+  uint32_t xphase = 0;  // bit p: the phase parity mbarrier p completes next
   for (int q = tid; q < Q; q += kThreads) qshare[q] = queue_share(a, qsta, qw, q);
   for (int q = 0; q < Q; ++q) {
     const int best = warp_best_job(a, jsta, jw, jshare, job_keys, q).idx;
@@ -604,12 +648,20 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
       // ---- pick: warp max, keys to every CTA, one cluster barrier ------
       best = warp_max(best);
       long long* xs = xslots + par * C * kWarps;
-      if (lane < C) *cluster.map_shared_rank(xs + rank * kWarps + warp, lane) = best;
       int32_t* tb = tbuf + 32 * par;
-      if (warp == 0 && lane <= 2 * r) tb[lane] = next;
-      par ^= 1;
+      const uint32_t bar = smem_u32(xbar + par);
+      if (warp == 0) {
+        if (lane <= 2 * r) tb[lane] = next;
+        __syncwarp();
+        if (lane == 0) arrive_expect(bar, C * kWarps * sizeof(long long));
+      }
+      if (lane < C)
+        store_async(map_rank(smem_u32(xs + rank * kWarps + warp), lane), best,
+                    map_rank(bar, lane));
       st.mark(kCtaReduce);
-      cluster.sync();
+      wait_parity(bar, (xphase >> par) & 1u);
+      xphase ^= 1u << par;
+      par ^= 1;
       best = LLONG_MIN;
       for (int m = lane; m < C * kWarps; m += 32) best = xs[m] > best ? xs[m] : best;
       best = warp_max(best);
@@ -726,7 +778,8 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
 // The dynamic shared memory a launch carves (ClusterPlan.smem_bytes).
 template <typename T>
 size_t smem_bytes(const SolveArgs& a) {
-  size_t b = 2 * (size_t)a.cluster * kWarps * sizeof(long long) + 72 * sizeof(int32_t);
+  size_t b = 2 * (size_t)a.cluster * kWarps * sizeof(long long) + 2 * sizeof(long long) +
+             72 * sizeof(int32_t);
   if (a.jsta_smem) b += (size_t)(a.juid + 1) * a.jdim * sizeof(T);
   b += (size_t)(a.qact + 2 + kWarps + a.r) * a.qdim * sizeof(int32_t) +
        (size_t)(a.qdesf + a.r) * a.qdim * sizeof(T);

@@ -192,14 +192,14 @@ def cluster_plan(n: int, r: int, np_use: int, ns_use: int,
     # job piece: dynamic copy and DRF shares (4 bytes each)
     jpiece = (lay.jact + 2) * jdim
     jw = jpiece * 4
-    # exchange slots (two parities), task buffer and pop result, then the
-    # queue piece: static queue rows (float key type), dynamic copy, job
+    # exchange slots and mbarriers (two parities), task buffer and pop
+    # result, then the queue piece: static queue rows (float key type), dynamic copy, job
     # cache [Q, warps], queue shares and deserved quanta (4 bytes each)
     queue = ((lay.qdesf + r) * qdim * fbytes
              + (lay.qact + 2 + warps + r) * qdim * 4)
 
     def fixed(c):
-        return c * 2 * warps * 8 + 72 * 4 + queue
+        return c * 2 * warps * 8 + 2 * 8 + 72 * 4 + queue
 
     def plan(c, slice_, smem_rows, js_in, jw_in, used):
         return ClusterPlan(c, slice_, rows, smem_rows, js_in, jw_in, used,
