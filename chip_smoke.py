@@ -128,9 +128,7 @@ def cluster_cases(dtype, device=None):
     # least-requested score sends the first placements to the last CTA.
     inp, cfg = make_synthetic_inputs(1000, 20000, 60, 4, seed=12,
                                      dtype=dtype, device=device)
-    n = inp.node_idle.shape[0]
-    lo = cuda_solver.cluster_plan(n, 2, 0, 0, dtype, inp.job_ts.shape[0],
-                                  inp.queue_ts.shape[0]).slices(n)[-1][0]
+    lo = cuda_solver.plan_of(inp, cfg).slices(inp.node_idle.shape[0])[-1][0]
     load = inp.node_idle.clone()
     load[lo:] = 0
     load //= 4
@@ -168,14 +166,8 @@ def validate(inputs, assignment, kind, order, ordered, n_nodes: int) -> int:
 
 def plan_fields(cuda_solver, inp, cfg) -> dict:
     """The cluster plan the kernel launched with for these inputs."""
-    n = inp.node_idle.shape[0]
-    np_use = inp.task_ports.shape[1] if cfg.has_ports else 0
-    ns_use = (inp.task_aff_req.shape[1] if cfg.has_pod_affinity
-              or cfg.has_pod_affinity_score else 0)
-    plan = cuda_solver.cluster_plan(
-        n, inp.task_req.shape[1], np_use, ns_use, inp.job_ts.dtype,
-        inp.job_ts.shape[0], inp.queue_ts.shape[0])
-    return dict(n=n, cluster=plan.cluster, smem_bytes=plan.smem_bytes,
+    plan = cuda_solver.plan_of(inp, cfg)
+    return dict(n=inp.node_idle.shape[0], cluster=plan.cluster, smem_bytes=plan.smem_bytes,
                 rows_on_chip=f"{plan.smem_rows}/{plan.rows}",
                 jsta_smem=plan.jsta_smem, jwork_smem=plan.jwork_smem)
 

@@ -550,7 +550,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
     // The task of the first placement comes from global memory; each
     // placement's warp 0 fetches the next task (the job's next, which the
     // drain reaches only if this placement succeeds) into tbuf while the
-    // scan runs, and the exchange barrier publishes it.
+    // scan runs, and its arrival on the exchange mbarrier publishes it.
     int t = 0, sig = 0;
     int req[kR], res[kR];
     if (ptr < count_j) {
@@ -645,7 +645,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
       st.mark(kNodeScan);
       st.count(kPlacements);
 
-      // ---- pick: warp max, keys to every CTA, one cluster barrier ------
+      // ---- pick: warp max, keys to every CTA, one mbarrier phase -------
       best = warp_max(best);
       long long* xs = xslots + par * C * kWarps;
       int32_t* tb = tbuf + 32 * par;

@@ -24,7 +24,9 @@ Buffer layout (rows padded to multiples of 8, as in the reference):
 
 Every row offset comes from ``layout()``, the one table that
 ``build_buffers``, the plain version and the kernel's launch arguments
-share.
+share.  ``cluster_plan()`` decides how one launch spreads the session over
+a thread-block cluster: the cluster size, each CTA's node slice, which
+rows live in shared memory and the bytes that takes.
 """
 
 from __future__ import annotations
@@ -55,10 +57,9 @@ THREADS = 512
 SMEM_PER_CTA = 232_448
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
 # A CTA's slice is at most this many nodes (2 a thread) where a cluster
-# of CLUSTER_SIZES allows: the scan shrinks with the slice while the
-# exchange barrier costs the same at 8 and 16 CTAs (north-star shape:
-# 16 CTAs of 640 nodes beat 8 of 1,280 and 4 of 2,560; kernel_ab.py,
-# PERF.md).
+# of CLUSTER_SIZES allows: the scan shrinks with the slice faster than the
+# exchange grows with the cluster (north-star shape: 16 CTAs of 640 nodes
+# beat 8 of 1,280 and 4 of 2,560; kernel_ab.py, PERF.md).
 SLICE_NODES = 2 * THREADS
 
 _SRC = Path(__file__).resolve().parents[1] / "csrc" / "solve_session.cu"
@@ -193,8 +194,9 @@ def cluster_plan(n: int, r: int, np_use: int, ns_use: int,
     jpiece = (lay.jact + 2) * jdim
     jw = jpiece * 4
     # exchange slots and mbarriers (two parities), task buffer and pop
-    # result, then the queue piece: static queue rows (float key type), dynamic copy, job
-    # cache [Q, warps], queue shares and deserved quanta (4 bytes each)
+    # result, then the queue piece: static queue rows (float key type),
+    # dynamic copy, job cache [Q, warps], queue shares and deserved quanta
+    # (4 bytes each)
     queue = ((lay.qdesf + r) * qdim * fbytes
              + (lay.qact + 2 + warps + r) * qdim * 4)
 
@@ -225,6 +227,18 @@ def cluster_plan(n: int, r: int, np_use: int, ns_use: int,
     js_in = used + js <= SMEM_PER_CTA
     used += js if js_in else 0
     return plan(c, slice_, smem_rows, js_in, jw_in, used)
+
+
+def plan_of(inp: SolverInputs, cfg: SolverConfig) -> ClusterPlan:
+    """The cluster plan the kernel launches with for ``inp`` under
+    ``cfg``."""
+    lay = _layout_of(inp)
+    uses_sel = cfg.has_pod_affinity or cfg.has_pod_affinity_score
+    return cluster_plan(
+        inp.node_idle.shape[0], inp.task_req.shape[1],
+        lay.aff - lay.ports if cfg.has_ports else 0,
+        lay.anti - lay.aff if uses_sel else 0, inp.job_ts.dtype,
+        inp.job_start.shape[0], inp.queue_deserved.shape[0])
 
 
 class Buffers(NamedTuple):
@@ -756,10 +770,7 @@ def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig, *,
         (queue_key,) = _key_codes(cfg.queue_key_order, _QUEUE_KEYS, 1)
         r = inp.task_req.shape[1]
         np_pad, ns_pad = lay.aff - lay.ports, lay.anti - lay.aff
-        plan = cluster_plan(
-            bufs.node_int.shape[1], r, np_pad if cfg.has_ports else 0,
-            ns_pad if cfg.has_pod_affinity or cfg.has_pod_affinity_score
-            else 0, bufs.jsta.dtype, bufs.jsta.shape[1], bufs.qsta.shape[1])
+        plan = plan_of(inp, cfg)
         tensors["stamps"] = stamps
         tensors["scratch"] = torch.empty(plan.scratch_ints,
                                          dtype=torch.int32, device=dev)

@@ -90,6 +90,16 @@ def test_plan_prefers_small_slices():
         assert all(-(-n // c) > cuda_solver.SLICE_NODES for c in smaller)
 
 
+def test_plan_of_reads_the_conf():
+    """Port and selector rows count only when the conf reads them."""
+    inp, cfg = make_feature_inputs(0, n_nodes=3_000, dtype=torch.float32,
+                                   device="cpu")
+    assert cuda_solver.plan_of(inp, cfg).rows == 3 * 3 + 6 + 8 + 8
+    off = cfg._replace(has_ports=False, has_pod_affinity=False,
+                       has_pod_affinity_score=False)
+    assert cuda_solver.plan_of(inp, off).rows == 3 * 3 + 6
+
+
 def test_plan_fields_are_launch_arguments():
     """The plan's fields up to smem_bytes are the C struct's plan fields,
     in order, right after the shapes."""
@@ -122,14 +132,12 @@ def test_smoke_cluster_cases_cover_every_cluster_size(dtype):
 def test_last_cta_case_places_into_the_last_slice():
     cases = dict(chip_smoke.cluster_cases(torch.float32, device="cpu"))
     inp, cfg = cases["cluster-last-cta-wins"]
-    n = inp.node_idle.shape[0]
-    plan = chip_smoke.plan_fields(cuda_solver, inp, cfg)
-    lo = cluster_plan(n, 2, 0, 0, torch.float32, inp.job_ts.shape[0],
-                      inp.queue_ts.shape[0]).slices(n)[-1][0]
+    plan = cuda_solver.plan_of(inp, cfg)
+    lo = plan.slices(inp.node_idle.shape[0])[-1][0]
     result, _ = cuda_solver.solve_allocate_plain(inp, cfg)
     placed = result.kind > 0
     first = result.assignment[placed][result.order[placed].argmin()]
-    assert plan["cluster"] > 1 and int(first) >= lo
+    assert plan.cluster > 1 and int(first) >= lo
 
 
 def test_feature_inputs_widen_without_changing_the_default():
