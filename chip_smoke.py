@@ -19,7 +19,23 @@ Phases, each printed on its own line:
      kernel alone with CUDA events); one more launch with the kernel's
      phase stamps on prints the phase split (`kernel-phases`: cluster
      size, shared memory, microseconds per phase, per placement, per
-     pop).
+     pop); the same inputs with the cluster bound forced to 8 must equal
+     the plain version too;
+  5. session, the slice's main path at the north star: make_synthetic_
+     cache through the SchedulerCache's ingestion, then one cold and five
+     warm sessions of open_session -> TpuAllocateAction(cuda, float32) ->
+     close_session, bound pods echoed back between them; each session
+     must take the cuda route without the host fallback, launch the
+     kernel once, bind exactly the kernel's placements (read off a direct
+     launch on its shipped inputs), leave no node over its allocatable
+     and no gang job below its minAvailable; prints the stage split,
+     the wall time (median, p90) and the kernel's share;
+  6. session-vs-cpu: one 5k x 1k session on the card and on the CPU (the
+     plain route) must give the same binds in the same order and the
+     same pod-group statuses.
+The kernel-vs-plain matrix includes the shapes the kernel once refused:
+2,500 queues in float64 (the queue piece in global memory) and 10 and 20
+resource dims.
 The last two lines are the kernel table as JSON and
 {"ok": true, "device": {...}}.  Any failure raises and exits non-zero
 before those lines.  Imports nothing of JAX and nothing of kube_batch_tpu.
@@ -110,6 +126,27 @@ def matrix(dtype):
     for seed in (0, 1, 2):
         yield f"features-seed{seed}", make_feature_inputs(seed, dtype=dtype)
     yield from cluster_cases(dtype)
+    yield from repaired_cases(dtype)
+
+
+def repaired_cases(dtype, device=None):
+    """Shapes the kernel once refused: more queues than a CTA's shared
+    memory holds (float64: the queue piece goes to global memory), and 10
+    and 20 resource dims (the instantiation for any R), the last with node
+    rows in global memory too."""
+    from kube_batch_tpu_torch.models.synthetic import (make_feature_inputs,
+                                                       make_synthetic_inputs,
+                                                       with_scalar_dims)
+    if dtype == torch.float64:
+        yield "queues-2500-in-global", make_synthetic_inputs(
+            3000, 400, 2600, 2500, seed=21, dtype=dtype, device=device)
+    yield "features-r10", with_scalar_dims(make_feature_inputs(
+        6, n_nodes=1100, dtype=dtype, device=device), 10, seed=6)
+    yield "synthetic-r20", with_scalar_dims(make_synthetic_inputs(
+        6000, 1500, 80, 4, seed=22, dtype=dtype, device=device), 20, seed=22)
+    yield "synthetic-r20-rows-in-global", with_scalar_dims(
+        make_synthetic_inputs(300, 30_000, 200, 4, seed=23, dtype=dtype,
+                              device=device), 20, seed=23)
 
 
 def cluster_cases(dtype, device=None):
@@ -164,12 +201,18 @@ def validate(inputs, assignment, kind, order, ordered, n_nodes: int) -> int:
     return int(ordered.size)
 
 
-def plan_fields(cuda_solver, inp, cfg) -> dict:
-    """The cluster plan the kernel launched with for these inputs."""
-    plan = cuda_solver.plan_of(inp, cfg)
-    return dict(n=inp.node_idle.shape[0], cluster=plan.cluster, smem_bytes=plan.smem_bytes,
+def plan_fields(cuda_solver, inp, cfg, max_cluster=None) -> dict:
+    """The cluster plan for these inputs under a cluster bound (by
+    default the largest size the kernel takes; the card's own bound
+    applies on top at launch)."""
+    plan = cuda_solver.plan_of(inp, cfg, max_cluster
+                               or cuda_solver.CLUSTER_SIZES[-1])
+    return dict(n=inp.node_idle.shape[0], r=inp.task_req.shape[1],
+                q=inp.queue_deserved.shape[0], cluster=plan.cluster,
+                smem_bytes=plan.smem_bytes,
                 rows_on_chip=f"{plan.smem_rows}/{plan.rows}",
-                jsta_smem=plan.jsta_smem, jwork_smem=plan.jwork_smem)
+                jsta_smem=plan.jsta_smem, jwork_smem=plan.jwork_smem,
+                queue_piece="shared" if plan.queue_smem else "global")
 
 
 def phase_split(cuda_solver, inp, cfg) -> dict:
@@ -199,6 +242,185 @@ def phase_split(cuda_solver, inp, cfg) -> dict:
                 us_per_pop=sum(split[f"{k}_us"] for k in (
                     "queue_pop", "job_pop", "write_back"))
                 / max(got["pops"], 1), **split)
+
+
+def _register(device):
+    """The port's default plugins and actions in its own registries."""
+    from kube_batch_tpu_torch.actions.factory import register_default_actions
+    from kube_batch_tpu_torch.plugins.factory import register_default_plugins
+    from kube_batch_tpu_torch.scheduler import (DEFAULT_SCHEDULER_CONF,
+                                                parse_scheduler_conf)
+    register_default_plugins()
+    register_default_actions(device=device)
+    return parse_scheduler_conf(DEFAULT_SCHEDULER_CONF).tiers
+
+
+def _run_session(cache, tiers, action):
+    """open_session -> tpu-allocate -> close_session; returns the
+    session's seconds by stage (open, the action's four, close) and its
+    wall time."""
+    from kube_batch_tpu_torch.framework import close_session, open_session
+    action.last = None
+    began = time.perf_counter()
+    ssn = open_session(cache, tiers)
+    opened = time.perf_counter()
+    try:
+        action.execute(ssn)
+        executed = time.perf_counter()
+        over = [name for name, node in ssn.nodes.items()
+                if over_allocatable(node)]
+    finally:
+        closing = time.perf_counter()
+        close_session(ssn)
+    ended = time.perf_counter()
+    if action.last is None:
+        raise AssertionError("the session solved nothing on the device "
+                             "(host fallback or an empty backlog)")
+    if over:
+        raise AssertionError(f"{len(over)} nodes over their allocatable "
+                             f"after apply, e.g. {over[:3]}")
+    stages = {"open": opened - began, **action.last.stages,
+              "close": ended - closing}
+    # The allocatable check between the action and the close is not
+    # session time.
+    return stages, (executed - began) + (ended - closing)
+
+
+def over_allocatable(node) -> bool:
+    """Whether a node holds more than its allocatable in any dimension or
+    more pods than its cap (exact compares, no epsilon)."""
+    used, alloc = node.used, node.allocatable
+    if used.milli_cpu > alloc.milli_cpu or used.memory > alloc.memory:
+        return True
+    if len(node.tasks) > alloc.max_task_num:
+        return True
+    return any(v > (alloc.scalar_resources or {}).get(k, 0.0)
+               for k, v in (used.scalar_resources or {}).items())
+
+
+def session_phase(cuda_solver, card) -> int:
+    """The slice's main path at the north star: make_synthetic_cache
+    through the cache's ingestion, then one cold and five warm sessions of
+    open_session -> TpuAllocateAction(cuda, float32) -> close_session,
+    every bound pod echoed back unchanged between sessions (bench.py
+    measure_full_session), so each sees the same backlog.  Returns the
+    kernel launches of those sessions."""
+    from kube_batch_tpu_torch.actions.tpu_allocate import TpuAllocateAction
+    from kube_batch_tpu_torch.api import pod_key
+    from kube_batch_tpu_torch.models.synthetic import make_synthetic_cache
+
+    tiers = _register("cuda")
+    began = time.perf_counter()
+    cache, binder = make_synthetic_cache(*NORTH_STAR)
+    build_s = time.perf_counter() - began
+    pods = {pod_key(t.pod): t.pod for job in cache.jobs.values()
+            for t in job.tasks.values()}
+    job_of = {pod_key(t.pod): t.job for job in cache.jobs.values()
+              for t in job.tasks.values()}
+    min_avail = {uid: job.min_available for uid, job in cache.jobs.items()}
+    action = TpuAllocateAction(device="cuda", dtype=torch.float32)
+    runs = []
+    launches = 0
+    for i in range(6):
+        seen = len(binder.channel)
+        cuda_solver.solve_allocate_cuda.launches = 0
+        stages, wall = _run_session(cache, tiers, action)
+        got = cuda_solver.solve_allocate_cuda.launches
+        launches += got
+        last = action.last
+        binds = [(key, binder.binds[key]) for key in binder.channel[seen:]]
+        if last.route != "cuda" or last.snap.needs_fallback:
+            raise AssertionError(f"session {i}: route {last.route}, "
+                                 f"fallback {last.snap.fallback_reason}")
+        if got != 1:
+            raise AssertionError(f"session {i} launched the kernel {got} "
+                                 f"times")
+        # The bind map read off a direct launch on the shipped inputs,
+        # timed with CUDA events (the kernel's share of the session).
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res, _ = cuda_solver.solve_allocate_cuda(last.inputs,
+                                                 last.snap.config)
+        stop.record()
+        stop.synchronize()
+        kernel_ms = start.elapsed_time(stop)
+        assignment = res.assignment.cpu().numpy()
+        kind = res.kind.cpu().numpy()
+        order = res.order.cpu().numpy()
+        placed = np.nonzero(kind > 0)[0]
+        ordered = placed[np.argsort(order[placed], kind="stable")]
+        expect = [(pod_key(last.snap.tasks[t].pod),
+                   last.snap.node_names[assignment[t]]) for t in ordered]
+        if int(res.step) != len(binds) or len(binds) != ordered.size:
+            raise AssertionError(f"session {i}: {len(binds)} binds for "
+                                 f"{int(res.step)} placements")
+        # A map: the binder sees each gang job's tasks together, in the
+        # order the jobs become ready, not in placement order.
+        if len(dict(binds)) != len(binds) or dict(binds) != dict(expect):
+            raise AssertionError(f"session {i}: the bind map differs from "
+                                 f"the kernel's placements on its inputs")
+        per_job = {}
+        for key, _host in binds:
+            per_job[job_of[key]] = per_job.get(job_of[key], 0) + 1
+        short = [uid for uid, n in per_job.items() if n < min_avail[uid]]
+        if short:
+            raise AssertionError(f"session {i}: gang jobs bound below "
+                                 f"minAvailable: {short[:3]}")
+        runs.append((stages, wall, len(binds), kernel_ms))
+        phase("session-run", session=i, cold=i == 0, wall_s=wall,
+              binds=len(binds), launches=got, kernel_ms=kernel_ms,
+              stages_ms={k: v * 1e3 for k, v in stages.items()})
+        for key, _host in binds:  # echo back unchanged (outside the clock)
+            cache.update_pod(pods[key], pods[key])
+    warm = runs[1:]
+    walls = [w for _s, w, _b, _k in warm]
+    split = {k: float(np.median([s[k] for s, _w, _b, _k in warm])) * 1e3
+             for k in warm[0][0]}
+    kernel_med = float(np.median([k for _s, _w, _b, k in warm]))
+    phase("session", shape=list(NORTH_STAR), build_s=build_s,
+          cold_wall_ms=runs[0][1] * 1e3,
+          warm_wall_ms_median=float(np.median(walls)) * 1e3,
+          warm_wall_ms_p90=float(np.percentile(walls, 90)) * 1e3,
+          warm_wall_ms_all=[w * 1e3 for w in walls],
+          stage_ms_median=split,
+          kernel_ms_median=kernel_med,
+          kernel_share_of_session=kernel_med / (float(np.median(walls))
+                                                * 1e3),
+          binds_per_session=[b for _s, _w, b, _k in runs],
+          launches=launches, route="cuda", card=card)
+    return launches
+
+
+def session_vs_cpu_phase(cuda_solver) -> None:
+    """One session at a mid size on the card and the same session on the
+    CPU (the plain route): the binds in bind order and the pod-group
+    statuses must be exactly equal."""
+    from kube_batch_tpu_torch.actions.tpu_allocate import TpuAllocateAction
+    from kube_batch_tpu_torch.models.synthetic import make_synthetic_cache
+
+    shape = (5_000, 1_000, 200, 4)
+    out = {}
+    for device in ("cuda", "cpu"):
+        tiers = _register(device)
+        cache, binder = make_synthetic_cache(*shape)
+        action = TpuAllocateAction(device=device, dtype=torch.float32)
+        _stages, wall = _run_session(cache, tiers, action)
+        statuses = [(pg.metadata.namespace, pg.metadata.name,
+                     pg.status.phase, pg.status.running,
+                     [(c.type, c.status, c.reason, c.message)
+                      for c in pg.status.conditions])
+                    for pg in cache.status_updater.pod_groups]
+        out[device] = (list(binder.channel), list(binder.binds.items()),
+                       statuses, wall, action.last.route)
+    card, cpu = out["cuda"], out["cpu"]
+    if card[4] != "cuda" or cpu[4] != "torch":
+        raise AssertionError(f"routes {card[4]} / {cpu[4]}")
+    if card[:3] != cpu[:3]:
+        raise AssertionError("the card's session and the CPU's differ")
+    phase("session-vs-cpu", shape=list(shape), binds=len(card[1]),
+          statuses=len(card[2]), cuda_wall_s=card[3], cpu_wall_s=cpu[3],
+          identical=True)
 
 
 def main() -> int:
@@ -294,6 +516,17 @@ def main() -> int:
     if not np.array_equal(fetched[0], kout[0].assignment.cpu().numpy()):
         raise AssertionError("dispatch/fetch result differs from the kernel")
     steps = int(kout[0].step)
+    # The same inputs with the cluster bound forced to 8, as on a card
+    # that cannot host 16 CTAs: more rows in global memory, same answer.
+    k8 = cuda_solver.solve_allocate_cuda(shipped, cfg, max_cluster=8)
+    wait_device("the kernel at the north star with 8 CTAs")
+    err8 = compare(k8, pout)
+    if err8:
+        raise AssertionError(f"kernel at 8 CTAs != plain at the north star: "
+                             f"max abs err {err8}")
+    phase("kernel-vs-plain", case="north-star-cluster-bound-8",
+          dtype=str(torch.float32), steps=int(k8[0].step), max_abs_err=err8,
+          **plan_fields(cuda_solver, shipped, cfg, 8))
 
     rounds = []
     for _ in range(7):
@@ -335,12 +568,16 @@ def main() -> int:
           lane_ops=steps * n_pad * OPS_PER_NODE_SCAN, ops_bound_ms=ops_ms,
           card=card)
 
+    session_launches = session_phase(cuda_solver, card)
+    session_vs_cpu_phase(cuda_solver)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "solve_session", "route": "cuda",
         "source": "kube_batch_tpu_torch/csrc/solve_session.cu",
         "replaces": "kube_batch_tpu/ops/pallas_solver.py:60",
-        "launches": launches, "max_abs_err": max_err, "ms": kernel_ms,
+        "launches": session_launches, "max_abs_err": max_err,
+        "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {

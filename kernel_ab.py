@@ -8,10 +8,10 @@ Each timing runs in its own process, which imports ``kube_batch_tpu_torch``
 from the checkout it times, builds that checkout's kernel and times
 `solve_allocate_cuda` with CUDA events (one warm-up launch, then 3).  The
 order is other, this, this, other; then this checkout once more at each
-cluster size in CLUSTER_SIZES that holds the north-star rows on chip, with
-the phase stamps on.  Prints one JSON line per timing, the card's name and
-power limit, then a JSON summary as the last line.  Needs a card; imports
-nothing of JAX.
+cluster size in CLUSTER_SIZES that holds the north-star rows on chip (the
+size is the plan's cluster bound), with the phase stamps on.  Prints one
+JSON line per timing, the card's name and power limit, then a JSON
+summary as the last line.  Needs a card; imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -37,18 +37,19 @@ def time_checkout(root: str, cluster: int | None) -> dict:
 
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab: no CUDA device")
-    if cluster is not None:
-        cuda_solver.CLUSTER_SIZES = (cluster,)
+    # A forced cluster size is the plan's cluster bound; a checkout whose
+    # plan takes no bound is timed at its own plan.
+    bound = {} if cluster is None else {"max_cluster": cluster}
     inp, cfg = make_synthetic_inputs(*NORTH_STAR, seed=0, dtype=torch.float32)
     cuda_solver.build_kernel()
-    cuda_solver.solve_allocate_cuda(inp, cfg)
+    cuda_solver.solve_allocate_cuda(inp, cfg, **bound)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     ms = []
     for _ in range(3):
         start.record()
-        result, _ = cuda_solver.solve_allocate_cuda(inp, cfg)
+        result, _ = cuda_solver.solve_allocate_cuda(inp, cfg, **bound)
         stop.record()
         torch.cuda.synchronize()
         ms.append(start.elapsed_time(stop))
@@ -58,11 +59,11 @@ def time_checkout(root: str, cluster: int | None) -> dict:
         n = inp.node_idle.shape[0]
         plan = cuda_solver.cluster_plan(n, 2, 0, 0, torch.float32,
                                         inp.job_ts.shape[0],
-                                        inp.queue_ts.shape[0])
+                                        inp.queue_ts.shape[0], **bound)
         out.update(cluster=plan.cluster, smem_bytes=plan.smem_bytes)
         stamps = torch.zeros(len(cuda_solver.PHASES), dtype=torch.int64,
                              device="cuda")
-        cuda_solver.solve_allocate_cuda(inp, cfg, stamps=stamps)
+        cuda_solver.solve_allocate_cuda(inp, cfg, stamps=stamps, **bound)
         torch.cuda.synchronize()
         got = dict(zip(cuda_solver.PHASES, stamps.tolist()))
         cycles_per_ms = got["total"] / out["median_ms"]
@@ -87,17 +88,14 @@ def run(root: str, cluster: int | None = None) -> dict:
 
 
 def on_chip(cuda_solver, c: int) -> bool:
-    """Whether a cluster of c CTAs holds all of the north-star state
-    (N=10,240, J=2,048, Q=8, R=2, no features) in shared memory."""
+    """Whether the plan under a cluster bound of c CTAs takes c CTAs and
+    holds all of the north-star state (N=10,240, J=2,048, Q=8, R=2, no
+    features) in shared memory."""
     import torch
-    sizes = cuda_solver.CLUSTER_SIZES
-    cuda_solver.CLUSTER_SIZES = (c,)
-    try:
-        plan = cuda_solver.cluster_plan(10_240, 2, 0, 0, torch.float32,
-                                        2_048, 8)
-    finally:
-        cuda_solver.CLUSTER_SIZES = sizes
-    return plan.smem_rows == plan.rows and plan.jsta_smem and plan.jwork_smem
+    plan = cuda_solver.cluster_plan(10_240, 2, 0, 0, torch.float32, 2_048, 8,
+                                    max_cluster=c)
+    return (plan.cluster == c and plan.smem_rows == plan.rows
+            and plan.jsta_smem and plan.jwork_smem and plan.queue_smem)
 
 
 def main() -> int:

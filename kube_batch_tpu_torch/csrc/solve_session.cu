@@ -15,18 +15,22 @@
 // node, and the next step reads the node state the previous one wrote.
 //
 // What this design does about it: one launch is ONE thread-block cluster
-// of C CTAs (C in 1, 2, 4, 8; `cluster_plan` in the wrapper picks it), so
-// no step pays a launch or a host round trip, and the node state lives on
-// chip, as the TPU kernel keeps it in VMEM.  CTA k owns the contiguous
-// node slice [k*S, (k+1)*S); the slice's live rows (idle, releasing, used,
-// count, cap, the two grid-score capacities, the current signature's
-// feasibility bit and bonus, and the port and selector rows the conf
-// uses) sit in its shared memory, row after row.  Rows that do not fit
-// even at C = 8 stay in a global scratch mirror; generic pointers serve
-// both, so every shape solves through the same code.  Node li of a slice
-// belongs to thread li % kThreads of its CTA, which alone reads and
-// writes that node's rows: the owner applies the rank-1 update, and the
-// next scan needs no barrier for it.  Per placement each warp reduces its
+// of C CTAs (C in 1, 2, 4, 8, 16, at most what the card hosts; the
+// wrapper's `cluster_plan` picks it), so no step pays a launch or a host
+// round trip, and the node state lives on chip, as the TPU kernel keeps
+// it in VMEM.  CTA k owns the contiguous node slice [k*S, (k+1)*S); the
+// slice's live rows (idle, releasing, used, count, cap, the two
+// grid-score capacities, the current signature's feasibility bit and
+// bonus, and the port and selector rows the conf uses) sit in its shared
+// memory, row after row.  What does not fit even at the largest cluster
+// (the queue piece of many queues, node rows past a prefix, the job
+// pieces) stays in a global scratch; generic pointers serve both, so
+// every shape solves through the same code.  Any number of resource dims
+// solves: up to kMaxR the task and the drain sums sit in registers,
+// beyond it the kAnyR instantiation reads them from global memory.  Node
+// li of a slice belongs to thread li % kThreads of its CTA, which alone
+// reads and writes that node's rows: the owner applies the rank-1
+// update, and the next scan needs no barrier for it.  Per placement each warp reduces its
 // nodes to one packed int64 key (max score, then first index) and sends
 // it into every CTA's exchange slots with st.async, which counts its
 // bytes on that CTA's mbarrier; when its own CTA's mbarrier has all C x
@@ -86,7 +90,8 @@ struct SolveArgs {
   // shapes
   int32_t n, p, jdim, qdim, r, np_pad, ns_pad, n_sig;
   // the cluster plan (ops/cuda_solver.py ClusterPlan)
-  int32_t cluster, slice, rows, smem_rows, jsta_smem, jwork_smem, smem_bytes;
+  int32_t cluster, slice, rows, smem_rows, jsta_smem, jwork_smem, queue_smem;
+  int32_t smem_bytes;
   // the conf
   int32_t w_least5, w_most5, w_bal;
   int32_t has_gang, has_proportion, has_ports, has_pod_affinity;
@@ -106,7 +111,8 @@ namespace {
 
 constexpr int kThreads = 512;   // ops/cuda_solver.py THREADS
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxR = 8;        // ops/cuda_solver.py MAX_R
+constexpr int kMaxR = 8;        // the most resource dims held in registers
+constexpr int kAnyR = 0;        // kR of the instantiation for any R
 constexpr int kMaxKeys = 5;     // up to 3 conf keys, then ts and uid rank
 constexpr int kEps = 10;        // EPS_QUANTA
 constexpr int kGridK = 1 << 12;  // SCORE_GRID_K
@@ -222,6 +228,20 @@ __device__ __forceinline__ long long pack_key(int score, int idx, bool fit_idle,
   unsigned long long lo = ((unsigned long long)(0x3fffffffu - (unsigned)idx) << 2) |
                           (fit_idle ? 2u : 0u) | (fit_rel ? 1u : 0u);
   return (long long)(hi | lo);
+}
+
+// The kAnyR drain's sum of resource dim d over the tasks it placed, the
+// job's tasks start + from .. start + to - 1 (the register path sums them
+// as it places).
+__device__ __forceinline__ int drain_sum(const SolveArgs& a, int start, int from,
+                                         int to, int d) {
+  int sum = 0;
+  for (int k = from; k < to; ++k) {
+    int t = wadd(start, k);
+    t = t < 0 ? 0 : (t > a.p - 1 ? a.p - 1 : t);
+    sum = wadd(sum, a.task_data[(size_t)t * a.task_width + a.res + d]);
+  }
+  return sum;
 }
 
 __device__ __forceinline__ long long warp_max(long long v) {
@@ -372,8 +392,12 @@ struct Rows {
   }
 };
 
-// kR: the resource dims the task loops unroll (2 when r <= 2, else
-// kMaxR); kOnChip: every node row is in shared memory.
+// kR: the resource dims the task loops unroll (2 when r <= 2, kMaxR when
+// r <= kMaxR), with the task's request and the drain sums in registers;
+// kAnyR for any r: the scan reads the task from global memory (one
+// broadcast load per dim, L1-resident) and the write-back sums the drain
+// from the job's tasks.  kOnChip: every node row and the queue piece are
+// in shared memory.
 template <typename T, bool kStamp, int kR, bool kOnChip>
 __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -405,21 +429,31 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
   const int js_rows = a.juid + 1;
   T* js_sm = reinterpret_cast<T*>(pop_sm + 8);
   const T* jsta = a.jsta_smem ? js_sm : static_cast<const T*>(a.jsta);
-  // The queue piece, always on chip: the static queue rows the pops read
-  // (ts, uid rank, exists, deserved floats), the dynamic copy, the job
-  // cache (jcache[q * kWarps + w] is warp w's first active job of queue
-  // q, -1 if none), qshare[q] (queue q's share, kept current) and the
-  // deserved quanta.
+  // The queue piece: the static queue rows the pops read (ts, uid rank,
+  // exists, deserved floats), the dynamic copy, the job cache
+  // (jcache[q * kWarps + w] is warp w's first active job of queue q, -1
+  // if none), qshare[q] (queue q's share, kept current) and the deserved
+  // quanta.  Off chip (many queues), the static rows and the quanta are
+  // read where the wrapper built them, and the CTA's copy, job cache and
+  // shares live in its piece of the scratch.  kOnChip implies the queue
+  // piece on chip, so that instantiation's pointers below are all shared
+  // ones and compile to shared-memory loads; the node rows' cursor is
+  // carved from shared pointers in both cases for the same reason.
+  const bool q_on = kOnChip || a.queue_smem;
   const int qs_rows = a.qdesf + r;
   T* qs_sm = a.jsta_smem ? js_sm + js_rows * J : js_sm;
-  const T* qsta = qs_sm;
-  int32_t* qw = reinterpret_cast<int32_t*>(qs_sm + qs_rows * Q);
-  int32_t* jcache = qw + qw_rows * Q;
-  float* qshare = reinterpret_cast<float*>(jcache + kWarps * Q);
-  int32_t* qdes = reinterpret_cast<int32_t*>(qshare + Q);
-  int32_t* cursor = qdes + r * Q;
+  int32_t* qw_sm = reinterpret_cast<int32_t*>(qs_sm + qs_rows * Q);
+  int32_t* qdes_sm = qw_sm + (qw_rows + kWarps) * Q + Q;  // after jcache, qshare
   const int jpiece = (jw_rows + 1) * J;
   int32_t* gj = a.scratch + (size_t)a.rows * n;  // [C][jpiece]
+  const int qpiece = (qw_rows + kWarps + 1) * Q;
+  int32_t* gq = gj + (size_t)C * jpiece;         // [C][qpiece] when off chip
+  const T* qsta = q_on ? qs_sm : static_cast<const T*>(a.qsta);
+  int32_t* qw = q_on ? qw_sm : gq + (size_t)rank * qpiece;
+  int32_t* jcache = qw + qw_rows * Q;
+  float* qshare = reinterpret_cast<float*>(jcache + kWarps * Q);
+  const int32_t* qdes = q_on ? qdes_sm : a.qdes;
+  int32_t* cursor = q_on ? qdes_sm + r * Q : reinterpret_cast<int32_t*>(qs_sm);
   const Rows<kOnChip> row{cursor, a.scratch + base, S, n, a.smem_rows};
   cursor += a.smem_rows * S;
   // The job piece: the dynamic rows, then jshare.
@@ -447,9 +481,11 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
     for (int i = tid; i < js_rows * J; i += kThreads)
       js_sm[i] = static_cast<const T*>(a.jsta)[i];
   for (int i = tid; i < qw_rows * Q; i += kThreads) qw[i] = a.qdyn[i];
-  for (int i = tid; i < qs_rows * Q; i += kThreads)
-    qs_sm[i] = static_cast<const T*>(a.qsta)[i];
-  for (int i = tid; i < r * Q; i += kThreads) qdes[i] = a.qdes[i];
+  if (q_on) {
+    for (int i = tid; i < qs_rows * Q; i += kThreads)
+      qs_sm[i] = static_cast<const T*>(a.qsta)[i];
+    for (int i = tid; i < r * Q; i += kThreads) qdes_sm[i] = a.qdes[i];
+  }
   for (int t = rank * kThreads + tid; t < a.p; t += C * kThreads) {
     a.out[4 * t + 0] = -1;
     a.out[4 * t + 1] = 0;
@@ -544,23 +580,27 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
     // ---- drain the popped job: one placement per iteration -------------
     bool survive = false;
     int dstep = step;
-    int dres[kR];
+    constexpr int kRegs = kR > 0 ? kR : 2;
+    const int ptr0 = ptr;  // the drain places tasks start + ptr0 .. start + ptr - 1
+    int dres[kRegs];
 #pragma unroll
-    for (int d = 0; d < kR; ++d) dres[d] = 0;
+    for (int d = 0; d < kRegs; ++d) dres[d] = 0;
     // The task of the first placement comes from global memory; each
     // placement's warp 0 fetches the next task (the job's next, which the
     // drain reaches only if this placement succeeds) into tbuf while the
     // scan runs, and its arrival on the exchange mbarrier publishes it.
     int t = 0, sig = 0;
-    int req[kR], res[kR];
+    int req[kRegs], res[kRegs];
     if (ptr < count_j) {
       t = wadd(start, ptr);
       t = t < 0 ? 0 : (t > a.p - 1 ? a.p - 1 : t);
       const int32_t* task = a.task_data + (size_t)t * a.task_width;
+      if constexpr (kR > 0) {
 #pragma unroll
-      for (int d = 0; d < kR; ++d) {
-        req[d] = d < r ? task[a.req + d] : 0;
-        res[d] = d < r ? task[a.res + d] : 0;
+        for (int d = 0; d < kR; ++d) {
+          req[d] = d < r ? task[a.req + d] : 0;
+          res[d] = d < r ? task[a.res + d] : 0;
+        }
       }
       sig = a.task_sig[t];
     }
@@ -574,7 +614,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
       int tn = wadd(wadd(start, ptr), 1);
       tn = tn < 0 ? 0 : (tn > a.p - 1 ? a.p - 1 : tn);
       int next = 0;
-      if (warp == 0 && lane <= 2 * r) {
+      if (kR > 0 && warp == 0 && lane <= 2 * r) {
         const int col = lane < r ? a.req + lane : a.res + lane - r;
         next = lane < 2 * r ? a.task_data[(size_t)tn * a.task_width + col]
                             : a.task_sig[tn];
@@ -593,15 +633,28 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
         cur_sig = sig;
       }
 
+      if constexpr (kR == kAnyR) {  // the grid score reads res[0], res[1]
+        res[0] = task[a.res];
+        res[1] = r > 1 ? task[a.res + 1] : 0;
+      }
       long long best = LLONG_MIN;
       for (int li = tid; li < mine_n; li += kThreads) {
         bool fit_idle = true, fit_rel = true;
+        if constexpr (kR > 0) {
 #pragma unroll
-        for (int d = 0; d < kR; ++d) {
-          if (d < r) {
-            const bool low = d >= 2 && req[d] <= kEps;
-            fit_idle = fit_idle & (low | eps_le(req[d], row(rx.idle + d)[li]));
-            fit_rel = fit_rel & (low | eps_le(req[d], row(rx.rel + d)[li]));
+          for (int d = 0; d < kR; ++d) {
+            if (d < r) {
+              const bool low = d >= 2 && req[d] <= kEps;
+              fit_idle = fit_idle & (low | eps_le(req[d], row(rx.idle + d)[li]));
+              fit_rel = fit_rel & (low | eps_le(req[d], row(rx.rel + d)[li]));
+            }
+          }
+        } else {
+          for (int d = 0; d < r; ++d) {
+            const int rq = task[a.req + d];
+            const bool low = d >= 2 && rq <= kEps;
+            fit_idle = fit_idle & (low | eps_le(rq, row(rx.idle + d)[li]));
+            fit_rel = fit_rel & (low | eps_le(rq, row(rx.rel + d)[li]));
           }
         }
         bool feas = (row(rx.sok)[li] != 0) & (row(rx.cnt)[li] < row(rx.cap)[li]) &
@@ -682,9 +735,10 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
           int32_t* idle = row(rx.idle + d) + li;
           int32_t* rel = row(rx.rel + d) + li;
           int32_t* used = row(rx.used + d) + li;
-          if (alloc_ok) *idle = wsub(*idle, res[d]);
-          if (pipe_ok) *rel = wsub(*rel, res[d]);
-          *used = wadd(*used, res[d]);
+          const int rs = kR > 0 ? res[d] : task[a.res + d];
+          if (alloc_ok) *idle = wsub(*idle, rs);
+          if (pipe_ok) *rel = wsub(*rel, rs);
+          *used = wadd(*used, rs);
         }
         row(rx.cnt)[li] = wadd(row(rx.cnt)[li], 1);
         a.out[4 * t + 0] = pick;
@@ -699,9 +753,11 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
       if (placed) {
         ptr += 1;
         dstep += 1;
+        if constexpr (kR > 0) {
 #pragma unroll
-        for (int d = 0; d < kR; ++d)
-          if (d < r) dres[d] = wadd(dres[d], res[d]);
+          for (int d = 0; d < kR; ++d)
+            if (d < r) dres[d] = wadd(dres[d], res[d]);
+        }
       }
       if (alloc_ok) ready_cnt += 1;
       const bool ready = a.has_gang ? ready_cnt >= minavail : true;
@@ -712,12 +768,16 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
       }
       // Placed, so the next task is the one warp 0 fetched.
       t = tn;
+      if constexpr (kR > 0) {
 #pragma unroll
-      for (int d = 0; d < kR; ++d) {
-        req[d] = d < r ? tb[d] : 0;
-        res[d] = d < r ? tb[r + d] : 0;
+        for (int d = 0; d < kR; ++d) {
+          req[d] = d < r ? tb[d] : 0;
+          res[d] = d < r ? tb[r + d] : 0;
+        }
+        sig = tb[2 * r];
+      } else {
+        sig = a.task_sig[tn];
       }
-      sig = tb[2 * r];
     }
 
     // ---- write-back and rotation, on every CTA's own copy ---------------
@@ -726,7 +786,9 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
     if (!retire) {
       if (tid == j % kThreads) {  // the job's owner thread
         for (int d = 0; d < r; ++d)
-          jw[(a.jalloc + d) * J + j] = wadd(jw[(a.jalloc + d) * J + j], dres[d]);
+          jw[(a.jalloc + d) * J + j] = wadd(
+              jw[(a.jalloc + d) * J + j],
+              kR > 0 ? dres[d] : drain_sum(a, start, ptr0, ptr, d));
         jw[a.jptr * J + j] = ptr;
         jw[a.jready * J + j] = ready_cnt;
         jw[a.jact * J + j] = survive ? 1 : 0;
@@ -738,7 +800,9 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
       }
       if (tid == 0 && q < Q) {
         for (int d = 0; d < r; ++d)
-          qw[(a.qalloc + d) * Q + q] = wadd(qw[(a.qalloc + d) * Q + q], dres[d]);
+          qw[(a.qalloc + d) * Q + q] = wadd(
+              qw[(a.qalloc + d) * Q + q],
+              kR > 0 ? dres[d] : drain_sum(a, start, ptr0, ptr, d));
         qshare[q] = queue_share(a, qsta, qw, q);
       }
     } else if (tid == 0 && q < Q) {
@@ -781,26 +845,35 @@ size_t smem_bytes(const SolveArgs& a) {
   size_t b = 2 * (size_t)a.cluster * kWarps * sizeof(long long) + 2 * sizeof(long long) +
              72 * sizeof(int32_t);
   if (a.jsta_smem) b += (size_t)(a.juid + 1) * a.jdim * sizeof(T);
-  b += (size_t)(a.qact + 2 + kWarps + a.r) * a.qdim * sizeof(int32_t) +
-       (size_t)(a.qdesf + a.r) * a.qdim * sizeof(T);
+  if (a.queue_smem)
+    b += (size_t)(a.qact + 2 + kWarps + a.r) * a.qdim * sizeof(int32_t) +
+         (size_t)(a.qdesf + a.r) * a.qdim * sizeof(T);
   b += (size_t)a.smem_rows * a.slice * sizeof(int32_t);
   if (a.jwork_smem) b += (size_t)(a.jact + 2) * a.jdim * sizeof(int32_t);
   return b;
 }
 
+// One instantiation's launch, or with `clusters` set only the number of
+// its clusters the card can run at once (cudaOccupancyMaxActiveClusters).
 template <typename T, bool kStamp, int kR, bool kOnChip>
-int launch(const SolveArgs& a, cudaStream_t s) {
+int launch(const SolveArgs& a, cudaStream_t s, int* clusters) {
   auto kernel = solve_session<T, kStamp, kR, kOnChip>;
   const int rows = 3 * a.r + 6 + (a.has_ports ? a.np_pad : 0) +
                    (a.has_pod_affinity || a.has_pod_affinity_score ? a.ns_pad : 0);
   if ((size_t)a.smem_bytes != smem_bytes<T>(a) || a.rows != rows || a.cluster < 1 ||
-      a.cluster > 16 || (size_t)a.slice * a.cluster < (size_t)a.n || 2 * a.r + 1 > 32)
+      a.cluster > 16 || (size_t)a.slice * a.cluster < (size_t)a.n ||
+      (kR > 0 && (a.r > kR || 2 * a.r + 1 > 32)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem_bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (a.cluster > 8) {  // 16 CTAs: Hopper's non-portable cluster size
     e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess && clusters != nullptr) {  // a card without it hosts no 16
+      cudaGetLastError();
+      *clusters = 0;
+      return 0;
+    }
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   cudaLaunchAttribute attr[1];
@@ -815,32 +888,54 @@ int launch(const SolveArgs& a, cudaStream_t s) {
   cfg.stream = s;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  int active = 0;
+  e = cudaOccupancyMaxActiveClusters(&active, kernel, &cfg);
+  if (clusters != nullptr) {
+    // A size the card refuses outright is a capacity of 0, not an error.
+    *clusters = e == cudaSuccess ? active : 0;
+    if (e != cudaSuccess) cudaGetLastError();
+    return 0;
+  }
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (clusters < 1) return kNoCluster;
+  if (active < 1) return kNoCluster;
   e = cudaLaunchKernelEx(&cfg, kernel, a);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool kStamp>
-int launch_for(const SolveArgs& a, cudaStream_t s) {
-  const bool on_chip = a.smem_rows == a.rows;
+int launch_for(const SolveArgs& a, cudaStream_t s, int* clusters) {
+  const bool on_chip = a.smem_rows == a.rows && a.queue_smem;
   if (a.r <= 2)
-    return on_chip ? launch<T, kStamp, 2, true>(a, s) : launch<T, kStamp, 2, false>(a, s);
-  return on_chip ? launch<T, kStamp, kMaxR, true>(a, s)
-                 : launch<T, kStamp, kMaxR, false>(a, s);
+    return on_chip ? launch<T, kStamp, 2, true>(a, s, clusters)
+                   : launch<T, kStamp, 2, false>(a, s, clusters);
+  if (a.r <= kMaxR)
+    return on_chip ? launch<T, kStamp, kMaxR, true>(a, s, clusters)
+                   : launch<T, kStamp, kMaxR, false>(a, s, clusters);
+  return on_chip ? launch<T, kStamp, kAnyR, true>(a, s, clusters)
+                 : launch<T, kStamp, kAnyR, false>(a, s, clusters);
+}
+
+template <bool kStamp>
+int dispatch(const SolveArgs& a, int use_f64, cudaStream_t s, int* clusters) {
+  return use_f64 ? launch_for<double, kStamp>(a, s, clusters)
+                 : launch_for<float, kStamp>(a, s, clusters);
 }
 
 }  // namespace
 
 extern "C" int kbt_solve_session(const SolveArgs* args, int use_f64, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool stamp = args->stamps != nullptr;
-  if (use_f64)
-    return stamp ? launch_for<double, true>(*args, s) : launch_for<double, false>(*args, s);
-  return stamp ? launch_for<float, true>(*args, s) : launch_for<float, false>(*args, s);
+  return args->stamps != nullptr ? dispatch<true>(*args, use_f64, s, nullptr)
+                                 : dispatch<false>(*args, use_f64, s, nullptr);
+}
+
+// How many clusters of this plan the card can run at once (0: it cannot
+// host the plan's cluster at the plan's shared memory), asked of the
+// unstamped instantiation.  `args` needs its shapes, plan, conf and
+// layout; its pointers are not read.
+extern "C" int kbt_cluster_capacity(const SolveArgs* args, int use_f64, int* clusters) {
+  return dispatch<false>(*args, use_f64, nullptr, clusters);
 }
 
 extern "C" const char* kbt_error_string(int code) {

@@ -243,9 +243,14 @@ class DeviceResidentShipper:
 def resident_shipper(owner, device=None) -> DeviceResidentShipper:
     """The owner's persistent shipper, created on first use on ``device``;
     a throwaway instance (always a full ship) for owners that refuse
-    attributes.  A shipper seen under two owners means two caches share
-    one delta baseline, which would silently break bit parity: raise."""
+    attributes.  An owner asked for another device than its shipper's
+    gets a new shipper there (the old resident image is dropped).  A
+    shipper seen under two owners means two caches share one delta
+    baseline, which would silently break bit parity: raise."""
     sh = getattr(owner, "_ship_cache", None)
+    if (sh is not None and device is not None
+            and sh.device != resolve_device(device)):
+        sh = None
     if sh is None:
         sh = DeviceResidentShipper(device)
         try:

@@ -4,6 +4,8 @@ Builds SolverInputs directly as tensors, bypassing the object model, for
 benchmarks, scale runs and tests.  ``make_synthetic_inputs`` draws the
 same numbers from the same seed as the reference, so both packages see
 the same cluster; the device and the float key dtype are explicit.
+``make_synthetic_cache`` builds the same kind of cluster as objects,
+through a SchedulerCache's normal ingestion, for whole sessions.
 """
 
 from __future__ import annotations
@@ -299,3 +301,131 @@ def make_feature_inputs(seed: int = 0, *, n_nodes: int = 24,
         weights=ScoreWeights(least_requested=1, most_requested=1,
                              balanced_resource=2))
     return _as_inputs(arrays, dtype, device), config
+
+
+def make_synthetic_cache(n_tasks, n_nodes, n_jobs, n_queues,
+                         n_signatures: int = 1):
+    """SchedulerCache at kubemark scale, fed through the normal ingestion
+    path — the object-model analog of make_synthetic_inputs, used by the
+    end-to-end session runs (chip_smoke.py).  Returns (cache, binder).
+
+    ``n_signatures > 1`` makes the snapshot heterogeneous: jobs carry one
+    of S distinct (node-selector, tolerations, preferred-node-affinity)
+    combos and every node carries a UNIQUE ``kubernetes.io/hostname``
+    label plus pool/zone labels — the realistic worst case for the static
+    [S, N] predicate mask."""
+    from ..api import (Affinity, Container, Node, NodeSpec, NodeStatus,
+                       ObjectMeta, Pod, PodSpec, PodStatus, Toleration)
+    from ..api.queue_info import Queue
+    from ..apis.scheduling import v1alpha1
+    from ..cache import (FakeBinder, FakeEvictor, FakeStatusUpdater,
+                         FakeVolumeBinder, SchedulerCache)
+    from ..apis.scheduling.v1alpha1 import GroupNameAnnotationKey
+
+    binder = FakeBinder()
+    cache = SchedulerCache(binder=binder, evictor=FakeEvictor(),
+                           status_updater=FakeStatusUpdater(),
+                           volume_binder=FakeVolumeBinder())
+    for q in range(n_queues):
+        cache.add_queue(Queue(metadata=ObjectMeta(name=f"q{q}",
+                                                  creation_timestamp=float(q)),
+                              weight=1 + q % 4))
+    alloc = {"cpu": "16", "memory": "64Gi", "pods": 110}
+    hetero = n_signatures > 1
+    for i in range(n_nodes):
+        name = f"n{i:05d}"
+        labels = ({"kubernetes.io/hostname": name, "pool": f"pool{i % 4}",
+                   "zone": f"z{i % 8}"} if hetero else {})
+        cache.add_node(Node(metadata=ObjectMeta(name=name, uid=f"n{i}",
+                                                labels=labels),
+                            spec=NodeSpec(),
+                            status=NodeStatus(allocatable=dict(alloc),
+                                              capacity=dict(alloc))))
+    per_job = max(1, n_tasks // n_jobs)
+    cpus = ["250m", "500m", "1", "2"]
+    mems = ["512Mi", "1Gi", "2Gi", "4Gi"]
+    for j in range(n_jobs):
+        cache.add_pod_group(v1alpha1.PodGroup(
+            metadata=ObjectMeta(name=f"pg{j}", namespace="bench"),
+            spec=v1alpha1.PodGroupSpec(min_member=max(1, per_job * 4 // 5),
+                                       queue=f"q{j % n_queues}")))
+
+    def sig_features(s: int):
+        """One of S distinct static-predicate signatures.  Selector keeps
+        3/4 of pods unconstrained (placements stay dense); tolerations
+        split signatures without affecting untainted nodes; preferred
+        node affinity exercises the static bonus."""
+        selector = {"pool": f"pool{(s // 4) % 4}"} if s % 4 == 0 else {}
+        tolerations = [Toleration(key=f"grp{s}", operator="Exists")]
+        affinity = Affinity(
+            preferred_node_terms=[(1 + s % 10, {"zone": f"z{s % 8}"})])
+        return selector, tolerations, affinity
+
+    for i in range(n_tasks):
+        j = min(i // per_job, n_jobs - 1)
+        if hetero:
+            selector, tolerations, affinity = sig_features(j % n_signatures)
+        else:
+            selector, tolerations, affinity = {}, [], None
+        cache.add_pod(Pod(
+            metadata=ObjectMeta(
+                name=f"p{i:06d}", namespace="bench", uid=f"p{i}",
+                annotations={GroupNameAnnotationKey: f"pg{j}"},
+                creation_timestamp=float(i)),
+            spec=PodSpec(containers=[Container(
+                requests={"cpu": cpus[i % 4], "memory": mems[(i // 2) % 4]})],
+                node_selector=selector, tolerations=tolerations,
+                affinity=affinity),
+            status=PodStatus(phase="Pending")))
+    return cache, binder
+
+
+def with_scalar_dims(built, r: int, seed: int = 0):
+    """``built`` = (inputs, config) widened to ``r`` resource dims: the
+    dims past the inputs' own are scalar resources (GPUs, hugepages,
+    devices) that some nodes carry and some tasks request, drawn from
+    ``seed``.  The new dims hold no allocation at session open; the
+    queues' deserved shares of them split the cluster total evenly.
+    Returns (inputs, config) on the inputs' device."""
+    inp, cfg = built
+    r0 = inp.task_req.shape[1]
+    if r <= r0:
+        raise ValueError(f"with_scalar_dims widens to more than {r0} dims, "
+                         f"got {r}")
+    rng = np.random.default_rng(seed)
+    extra = r - r0
+    dev = inp.node_idle.device
+    fdt = inp.job_ts.dtype
+    p, n = inp.task_req.shape[0], inp.node_idle.shape[0]
+    j, q = inp.job_start.shape[0], inp.queue_deserved.shape[0]
+    exists = inp.node_exists.cpu().numpy()
+    alloc = rng.choice([0, 2000, 8000], size=(n, extra)).astype(np.int32)
+    alloc[~exists] = 0
+    req = rng.choice([0, 0, 0, 5, 1000, 2000], size=(p, extra)).astype(
+        np.int32)
+    total = alloc.sum(axis=0, dtype=np.int64)
+    live = inp.queue_exists.cpu().numpy()
+    des_f = np.zeros((q, extra), np.float64)
+    des_f[live] = total / max(int(live.sum()), 1)
+    des = np.clip(np.rint(des_f), 0, np.iinfo(np.int32).max).astype(np.int32)
+
+    def cat(leaf, cols):
+        cols = torch.as_tensor(cols).to(leaf.dtype)
+        return torch.cat([leaf, cols.to(dev)], dim=1)
+
+    zeros = np.zeros
+    return inp._replace(
+        task_req=cat(inp.task_req, req), task_res=cat(inp.task_res, req),
+        job_init_alloc=cat(inp.job_init_alloc, zeros((j, extra), np.int32)),
+        queue_deserved=cat(inp.queue_deserved, des),
+        queue_deserved_f=cat(inp.queue_deserved_f, des_f),
+        queue_init_alloc=cat(inp.queue_init_alloc,
+                             zeros((q, extra), np.int32)),
+        node_idle=cat(inp.node_idle, alloc),
+        node_releasing=cat(inp.node_releasing, zeros((n, extra), np.int32)),
+        node_used=cat(inp.node_used, zeros((n, extra), np.int32)),
+        node_alloc=cat(inp.node_alloc, alloc),
+        total_res=torch.cat([inp.total_res,
+                             torch.as_tensor(total, dtype=fdt).to(dev)]),
+        eps=eps_vector(r, device=dev).to(inp.eps.dtype),
+        scalar_dims=scalar_dims_mask(r, device=dev)), cfg

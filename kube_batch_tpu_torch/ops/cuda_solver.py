@@ -48,11 +48,10 @@ from .resources import EPS_QUANTA, SCORE_GRID_K
 from .scoring import SCORE_NEG_INF
 from .solver import SolveResult, SolverConfig, SolverInputs
 
-# The kernel keeps a task's request and a job's drain sums in registers.
-MAX_R = 8
 # Threads of one CTA (kThreads in the kernel), the shared memory one CTA
 # may hold on an H100, and the cluster sizes the kernel launches with (16
-# is Hopper's non-portable size; a card that cannot host it raises).
+# is Hopper's non-portable size).  The card's own bound on the cluster
+# size, asked once per plan at launch (``hostable_plan``), caps the plan.
 THREADS = 512
 SMEM_PER_CTA = 232_448
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
@@ -156,6 +155,7 @@ class ClusterPlan(NamedTuple):
     smem_rows: int    # how many of them (the first) are in shared memory
     jsta_smem: bool   # the static job rows the pops read, in shared memory
     jwork_smem: bool  # the CTA's copy of the job dynamic rows
+    queue_smem: bool  # the queue piece (static rows and the CTA's copy)
     smem_bytes: int   # dynamic shared memory per CTA
     scratch_ints: int  # global int32 scratch for what is not on chip
 
@@ -174,17 +174,22 @@ def node_rows(r: int, np_use: int, ns_use: int) -> int:
 
 
 def cluster_plan(n: int, r: int, np_use: int, ns_use: int,
-                 dtype: torch.dtype, jdim: int, qdim: int) -> ClusterPlan:
-    """The smallest cluster in CLUSTER_SIZES whose slice is at most
-    SLICE_NODES (or the largest cluster) and whose CTAs hold all the
-    session's state in shared memory: the queue piece, their node slice's
-    rows, their job copy and the static job rows.  Where none does, the
-    largest cluster, with as much on chip as fits in this order: node rows
-    (a prefix), job copy, static job rows; the rest lives in the global
-    scratch and solves through the same code.  The queue piece always
-    lives on chip: raises ValueError for a queue count beyond that.
-    ``np_use``/``ns_use`` are the port and selector rows the conf reads (0
-    when it switches them off)."""
+                 dtype: torch.dtype, jdim: int, qdim: int,
+                 max_cluster: int = CLUSTER_SIZES[-1]) -> ClusterPlan:
+    """The smallest cluster in CLUSTER_SIZES, at most ``max_cluster``,
+    whose slice is at most SLICE_NODES (or the largest such cluster) and
+    whose CTAs hold all the session's state in shared memory: the queue
+    piece, their node slice's rows, their job copy and the static job
+    rows.  Where none does, the largest cluster, with as much on chip as
+    fits in this order: the queue piece, node rows (a prefix), job copy,
+    static job rows; the rest lives in the global scratch and solves
+    through the same code.  ``np_use``/``ns_use`` are the port and
+    selector rows the conf reads (0 when it switches them off);
+    ``max_cluster`` is the largest cluster the card hosts."""
+    sizes = [c for c in CLUSTER_SIZES if c <= max_cluster]
+    if not sizes:
+        raise ValueError(f"no cluster size in {CLUSTER_SIZES} is at most "
+                         f"{max_cluster}")
     lay = layout(r, np_use, ns_use)
     rows = node_rows(r, np_use, ns_use)
     fbytes = 4 if dtype == torch.float32 else 8
@@ -193,52 +198,56 @@ def cluster_plan(n: int, r: int, np_use: int, ns_use: int,
     # job piece: dynamic copy and DRF shares (4 bytes each)
     jpiece = (lay.jact + 2) * jdim
     jw = jpiece * 4
-    # exchange slots and mbarriers (two parities), task buffer and pop
-    # result, then the queue piece: static queue rows (float key type),
-    # dynamic copy, job cache [Q, warps], queue shares and deserved quanta
-    # (4 bytes each)
+    # the queue piece: static queue rows (float key type), dynamic copy,
+    # job cache [Q, warps], queue shares and deserved quanta (4 bytes
+    # each); off chip, the CTA's dynamic copy, job cache and shares live
+    # in the scratch and the static rows are read where they are
     queue = ((lay.qdesf + r) * qdim * fbytes
              + (lay.qact + 2 + warps + r) * qdim * 4)
+    qpiece = (lay.qact + 2 + warps) * qdim
 
     def fixed(c):
-        return c * 2 * warps * 8 + 2 * 8 + 72 * 4 + queue
+        # exchange slots and mbarriers (two parities), task buffer and
+        # pop result
+        return c * 2 * warps * 8 + 2 * 8 + 72 * 4
 
-    def plan(c, slice_, smem_rows, js_in, jw_in, used):
-        return ClusterPlan(c, slice_, rows, smem_rows, js_in, jw_in, used,
-                           rows * n + c * jpiece)
+    def plan(c, slice_, smem_rows, js_in, jw_in, q_in, used):
+        return ClusterPlan(c, slice_, rows, smem_rows, js_in, jw_in, q_in,
+                           used, rows * n + c * jpiece
+                           + (0 if q_in else c * qpiece))
 
-    for c in CLUSTER_SIZES:
+    for c in sizes:
         slice_ = -(-n // c)
-        need = fixed(c) + js + rows * slice_ * 4 + jw
+        need = fixed(c) + queue + js + rows * slice_ * 4 + jw
         if need <= SMEM_PER_CTA and (slice_ <= SLICE_NODES
-                                     or c == CLUSTER_SIZES[-1]):
-            return plan(c, slice_, rows, True, True, need)
-    c = CLUSTER_SIZES[-1]
+                                     or c == sizes[-1]):
+            return plan(c, slice_, rows, True, True, True, need)
+    c = sizes[-1]
     slice_ = -(-n // c)
     used = fixed(c)
-    if used > SMEM_PER_CTA:
-        raise ValueError(
-            f"{qdim} queues need {queue} B of shared memory for the queue "
-            f"state, over the {SMEM_PER_CTA} B a CTA holds")
+    q_in = used + queue <= SMEM_PER_CTA
+    used += queue if q_in else 0
     smem_rows = min(rows, (SMEM_PER_CTA - used) // (slice_ * 4))
     used += smem_rows * slice_ * 4
     jw_in = used + jw <= SMEM_PER_CTA
     used += jw if jw_in else 0
     js_in = used + js <= SMEM_PER_CTA
     used += js if js_in else 0
-    return plan(c, slice_, smem_rows, js_in, jw_in, used)
+    return plan(c, slice_, smem_rows, js_in, jw_in, q_in, used)
 
 
-def plan_of(inp: SolverInputs, cfg: SolverConfig) -> ClusterPlan:
-    """The cluster plan the kernel launches with for ``inp`` under
-    ``cfg``."""
+def plan_of(inp: SolverInputs, cfg: SolverConfig,
+            max_cluster: int = CLUSTER_SIZES[-1]) -> ClusterPlan:
+    """The cluster plan for ``inp`` under ``cfg`` with clusters of at most
+    ``max_cluster`` CTAs."""
     lay = _layout_of(inp)
     uses_sel = cfg.has_pod_affinity or cfg.has_pod_affinity_score
     return cluster_plan(
         inp.node_idle.shape[0], inp.task_req.shape[1],
         lay.aff - lay.ports if cfg.has_ports else 0,
         lay.anti - lay.aff if uses_sel else 0, inp.job_ts.dtype,
-        inp.job_start.shape[0], inp.queue_deserved.shape[0])
+        inp.job_start.shape[0], inp.queue_deserved.shape[0],
+        max_cluster)
 
 
 class Buffers(NamedTuple):
@@ -683,6 +692,10 @@ def build_kernel() -> ctypes.CDLL:
     lib.kbt_solve_session.argtypes = [ctypes.POINTER(SolveArgs),
                                       ctypes.c_int, ctypes.c_void_p]
     lib.kbt_solve_session.restype = ctypes.c_int
+    lib.kbt_cluster_capacity.argtypes = [ctypes.POINTER(SolveArgs),
+                                         ctypes.c_int,
+                                         ctypes.POINTER(ctypes.c_int)]
+    lib.kbt_cluster_capacity.restype = ctypes.c_int
     lib.kbt_error_string.argtypes = [ctypes.c_int]
     lib.kbt_error_string.restype = ctypes.c_char_p
     _Kernel.build_seconds = time.perf_counter() - began
@@ -693,8 +706,9 @@ def build_kernel() -> ctypes.CDLL:
 def _check_operands(ops: Operands, dev: torch.device) -> None:
     lay, bufs = ops.lay, ops.bufs
     r = ops.total.shape[0]
-    if not 1 <= r <= MAX_R:
-        raise ValueError(f"the kernel takes 1..{MAX_R} resource dims, got {r}")
+    if r < 1:
+        raise ValueError(f"the kernel takes at least one resource dim, "
+                         f"got {r}")
     fdt = bufs.jsta.dtype
     if fdt not in (torch.float32, torch.float64):
         raise ValueError(f"float key dtype must be float32 or float64, "
@@ -732,15 +746,78 @@ def _check_operands(ops: Operands, dev: torch.device) -> None:
         raise ValueError("sig_mask needs at least one signature row")
 
 
+# Clusters the card can run at once for a plan, by (plan, float64, R):
+# asked of the card once per plan (``hostable_plan``).
+_CAPACITY: dict = {}
+
+
+def _launch_args(ops: Operands, cfg: SolverConfig, plan: ClusterPlan,
+                 tensors: dict) -> SolveArgs:
+    lay, bufs = ops.lay, ops.bufs
+    w_least5, w_most5, w_bal = _weight_args(cfg)
+    job_keys = _key_codes(cfg.job_key_order, _JOB_KEYS, 3)
+    (queue_key,) = _key_codes(cfg.queue_key_order, _QUEUE_KEYS, 1)
+    return SolveArgs(
+        *[None if tensors.get(f) is None else tensors[f].data_ptr()
+          for f in _POINTER_FIELDS],
+        n=bufs.node_int.shape[1], p=ops.task_data.shape[0],
+        jdim=bufs.jsta.shape[1], qdim=bufs.qsta.shape[1],
+        r=ops.total.shape[0], np_pad=lay.aff - lay.ports,
+        ns_pad=lay.anti - lay.aff, n_sig=ops.sig_mask.shape[0],
+        **{f: int(getattr(plan, f)) for f in _PLAN_FIELDS},
+        w_least5=w_least5, w_most5=w_most5, w_bal=w_bal,
+        has_gang=bool(cfg.has_gang),
+        has_proportion=bool(cfg.has_proportion),
+        has_ports=bool(cfg.has_ports),
+        has_pod_affinity=bool(cfg.has_pod_affinity),
+        has_pod_affinity_score=bool(cfg.has_pod_affinity_score),
+        job_key0=job_keys[0], job_key1=job_keys[1], job_key2=job_keys[2],
+        queue_key0=queue_key, **lay._asdict())
+
+
+def hostable_plan(inp: SolverInputs, cfg: SolverConfig, ops: Operands,
+                  max_cluster: int = CLUSTER_SIZES[-1]) -> ClusterPlan:
+    """The plan of ``plan_of`` under the largest cluster bound, at most
+    ``max_cluster``, whose cluster the card can host at that plan's shared
+    memory (``cudaOccupancyMaxActiveClusters`` in the bound library,
+    asked once per plan).  A card or partition that cannot host 16 CTAs
+    gets the 8-CTA plan, with more rows in global memory.  Raises when
+    not even one CTA fits."""
+    lib = build_kernel()
+    f64 = int(ops.bufs.jsta.dtype == torch.float64)
+    bound = max_cluster
+    while True:
+        plan = plan_of(inp, cfg, bound)
+        key = (plan, f64, ops.total.shape[0])
+        if key not in _CAPACITY:
+            args = _launch_args(ops, cfg, plan, {})
+            got = ctypes.c_int(0)
+            rc = lib.kbt_cluster_capacity(ctypes.byref(args), f64,
+                                          ctypes.byref(got))
+            if rc != 0:
+                raise RuntimeError("cluster capacity query failed: "
+                                   + lib.kbt_error_string(rc).decode())
+            _CAPACITY[key] = got.value
+        if _CAPACITY[key] >= 1:
+            return plan
+        if plan.cluster == 1:
+            raise RuntimeError(
+                f"the card cannot host even one CTA of {plan.smem_bytes} B "
+                f"of shared memory")
+        bound = plan.cluster // 2
+
+
 def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig, *,
-                        stamps: torch.Tensor | None = None):
+                        stamps: torch.Tensor | None = None,
+                        max_cluster: int = CLUSTER_SIZES[-1]):
     """One launch of the whole-session kernel on the current stream.
     Returns (SolveResult, FinalState) without waiting for the device.
     Raises on CPU tensors and on anything the kernel does not take.
 
     ``stamps``, an int64 [len(PHASES)] tensor on the device, turns on the
     kernel's clock64() phase stamps and receives them (see PHASES); the
-    main path passes none and runs the kernel without them."""
+    main path passes none and runs the kernel without them.
+    ``max_cluster`` caps the cluster size below the card's own bound."""
     dev = inp.node_idle.device
     if dev.type != "cuda":
         raise ValueError("solve_allocate_cuda takes CUDA tensors; use "
@@ -748,11 +825,11 @@ def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig, *,
     for name, leaf in zip(SolverInputs._fields, inp):
         if leaf.device != dev:
             raise ValueError(f"{name} is on {leaf.device}, not {dev}")
-    w_least5, w_most5, w_bal = _weight_args(cfg)
+    _weight_args(cfg)
     with torch.cuda.device(dev):
         ops = _operands(inp)
         _check_operands(ops, dev)
-        lay, bufs = ops.lay, ops.bufs
+        bufs = ops.bufs
         p = ops.task_data.shape[0]
         out = torch.empty((p, 4), dtype=torch.int32, device=dev)
         steps = torch.empty(1, dtype=torch.int32, device=dev)
@@ -766,29 +843,11 @@ def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig, *,
                        sig_mask=ops.sig_mask, sig_bonus=ops.sig_bonus,
                        nport=ops.nport, nsel=ops.nsel, total=ops.total,
                        score_shift=ops.score_shift, out=out, steps=steps)
-        job_keys = _key_codes(cfg.job_key_order, _JOB_KEYS, 3)
-        (queue_key,) = _key_codes(cfg.queue_key_order, _QUEUE_KEYS, 1)
-        r = inp.task_req.shape[1]
-        np_pad, ns_pad = lay.aff - lay.ports, lay.anti - lay.aff
-        plan = plan_of(inp, cfg)
+        plan = hostable_plan(inp, cfg, ops, max_cluster)
         tensors["stamps"] = stamps
         tensors["scratch"] = torch.empty(plan.scratch_ints,
                                          dtype=torch.int32, device=dev)
-        args = SolveArgs(
-            *[None if tensors[f] is None else tensors[f].data_ptr()
-              for f in _POINTER_FIELDS],
-            n=bufs.node_int.shape[1], p=p, jdim=bufs.jsta.shape[1],
-            qdim=bufs.qsta.shape[1], r=r, np_pad=np_pad, ns_pad=ns_pad,
-            n_sig=ops.sig_mask.shape[0],
-            **{f: int(getattr(plan, f)) for f in _PLAN_FIELDS},
-            w_least5=w_least5, w_most5=w_most5, w_bal=w_bal,
-            has_gang=bool(cfg.has_gang),
-            has_proportion=bool(cfg.has_proportion),
-            has_ports=bool(cfg.has_ports),
-            has_pod_affinity=bool(cfg.has_pod_affinity),
-            has_pod_affinity_score=bool(cfg.has_pod_affinity_score),
-            job_key0=job_keys[0], job_key1=job_keys[1], job_key2=job_keys[2],
-            queue_key0=queue_key, **lay._asdict())
+        args = _launch_args(ops, cfg, plan, tensors)
         lib = build_kernel()
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.kbt_solve_session(ctypes.byref(args),

@@ -67,6 +67,14 @@ def grid_score(task_res: torch.Tensor, used: torch.Tensor,
     return score
 
 
+def max_weight_sum(weights: ScoreWeights) -> int:
+    """Upper bound scale factor for a combined score: callers keep
+    max_weight_sum * 10 * SCORE_GRID_K inside int32 (tensorize falls back
+    to the host path otherwise)."""
+    return (abs(int(weights.least_requested)) + abs(int(weights.most_requested))
+            + abs(int(weights.balanced_resource)))
+
+
 def score_nodes(task_res: torch.Tensor, used: torch.Tensor,
                 allocatable: torch.Tensor, shift: torch.Tensor,
                 weights: ScoreWeights) -> torch.Tensor:

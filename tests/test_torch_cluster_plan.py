@@ -75,10 +75,107 @@ def test_rows_beyond_capacity_stay_in_global_memory(dtype):
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_queue_state_beyond_capacity_raises(dtype):
-    """The queue piece always lives on chip; the plan names the limit."""
-    _plan((10_240, 2, 0, 0, 2_048, 1_024), DTYPES[dtype])
-    with pytest.raises(ValueError, match="queues need"):
-        _plan((10_240, 2, 0, 0, 2_048, 4_096), DTYPES[dtype])
+    """Once a plan refused more queues than a CTA's shared memory holds;
+    now the queue piece moves to global memory and the plan fits."""
+    small = _plan((10_240, 2, 0, 0, 2_048, 1_024), DTYPES[dtype])
+    assert small.queue_smem
+    plan = _plan((10_240, 2, 0, 0, 2_048, 4_096), DTYPES[dtype])
+    assert not plan.queue_smem
+    assert plan.smem_bytes <= SMEM_PER_CTA
+    lay = cuda_solver.layout(2, 0, 0)
+    qpiece = (lay.qact + 2 + cuda_solver.THREADS // 32) * 4_096
+    jpiece = (lay.jact + 2) * 2_048
+    # every CTA's queue copy, job cache and shares live in the scratch
+    assert plan.scratch_ints == (plan.rows * 10_240 + plan.cluster * jpiece
+                                 + plan.cluster * qpiece)
+    assert small.scratch_ints == small.rows * 10_240 + small.cluster * jpiece
+
+
+@pytest.mark.parametrize("bound", [8, 4])
+@pytest.mark.parametrize("n", [1_000, 10_240, 114_688])
+def test_plan_honours_a_cluster_bound(n, bound):
+    """A card that hosts at most ``bound`` CTAs gets a plan of at most
+    that many, every node covered once; the rows that no longer fit stay
+    in global memory."""
+    full = _plan((n, 2, 0, 0, 2_048, 8), torch.float32)
+    plan = cluster_plan(n, 2, 0, 0, torch.float32, 2_048, 8,
+                        max_cluster=bound)
+    assert plan.cluster <= bound and plan.cluster in CLUSTER_SIZES
+    assert plan.cluster == min(full.cluster, bound)
+    covered = [i for lo, hi in plan.slices(n) for i in range(lo, hi)]
+    assert covered == list(range(n))
+    assert plan.smem_bytes <= SMEM_PER_CTA
+    if full.cluster > bound:
+        assert plan.smem_rows <= full.smem_rows
+
+
+def test_north_star_plan_is_unchanged():
+    """The north-star launch keeps its plan: 16 CTAs of 640 nodes, every
+    row on chip, 142,480 B of shared memory per CTA."""
+    plan = _plan(NORTH_STAR, torch.float32)
+    assert (plan.cluster, plan.slice, plan.smem_rows, plan.rows,
+            plan.smem_bytes) == (16, 640, 12, 12, 142_480)
+    assert plan.jsta_smem and plan.jwork_smem and plan.queue_smem
+
+
+@pytest.mark.parametrize("r", [10, 20])
+def test_plans_for_many_resource_dims_count_their_rows(r):
+    """3R + 6 node rows (plus ports and selectors); where they do not fit
+    a CTA, the prefix that does stays on chip."""
+    for n, np_use, ns_use in ((1_280, 0, 0), (10_240, 8, 8),
+                              (114_688, 0, 0)):
+        plan = cluster_plan(n, r, np_use, ns_use, torch.float64, 2_048, 8)
+        assert plan.rows == 3 * r + 6 + np_use + ns_use
+        assert plan.smem_bytes <= SMEM_PER_CTA
+        assert plan.scratch_ints >= plan.rows * n
+        if plan.smem_rows < plan.rows:
+            assert plan.cluster == CLUSTER_SIZES[-1]
+    big = cluster_plan(114_688, r, 0, 0, torch.float64, 2_048, 8)
+    assert 0 < big.smem_rows < big.rows
+
+
+def test_smoke_repaired_cases_reach_each_repair():
+    """chip_smoke.py's repaired-fault cases: a queue piece in global
+    memory (float64), and 10 and 20 resource dims."""
+    got = {}
+    for dtype in (torch.float32, torch.float64):
+        for name, (inp, cfg) in chip_smoke.repaired_cases(dtype,
+                                                          device="cpu"):
+            got[(name, dtype)] = chip_smoke.plan_fields(cuda_solver, inp,
+                                                        cfg)
+    assert got[("queues-2500-in-global", torch.float64)]["queue_piece"] \
+        == "global"
+    assert {f["r"] for f in got.values()} >= {2, 10, 20}
+    for dtype in (torch.float32, torch.float64):
+        on, rows = got[("synthetic-r20-rows-in-global", dtype)][
+            "rows_on_chip"].split("/")
+        assert 0 < int(on) < int(rows) == 66
+
+
+@pytest.mark.parametrize("mode", ["f64", "f32"])
+def test_plain_equals_pallas_interpret_at_ten_dims(mode):
+    """The large-R semantics pinned before the card sees them: at R = 10
+    the plain version equals the JAX Pallas kernel in interpret mode."""
+    import jax
+    import numpy as np
+
+    from kube_batch_tpu.ops import pallas_solver as jax_pallas
+    from kube_batch_tpu_torch.models.synthetic import with_scalar_dims
+    from tests.test_torch_solver import jax_cfg, to_jax
+
+    dtype, x64 = {"f64": (torch.float64, True),
+                  "f32": (torch.float32, False)}[mode]
+    inp, cfg = with_scalar_dims(make_feature_inputs(3, dtype=dtype,
+                                                    device="cpu"), 10, seed=3)
+    ours, _ = cuda_solver.solve_allocate_plain(inp, cfg)
+    with jax.enable_x64(x64):
+        ref = jax_pallas.solve_allocate_pallas(to_jax(inp), jax_cfg(cfg),
+                                               interpret=True)
+        ref = {f: np.asarray(getattr(ref, f)) for f in ref._fields}
+    for f in ("assignment", "kind", "order", "step"):
+        assert np.array_equal(getattr(ours, f).numpy(), ref[f]), f
+    placed = ours.kind > 0
+    assert 0 < int(placed.sum()) < int((inp.job_count).sum())
 
 
 def test_plan_prefers_small_slices():

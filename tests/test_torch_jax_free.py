@@ -4,7 +4,10 @@ tests/conftest.py imports jax into this process, so the check runs in a
 fresh interpreter.  A ``sys.meta_path`` hook there refuses ``jax``,
 ``jaxlib`` and ``kube_batch_tpu`` (and their submodules, but not
 ``kube_batch_tpu_torch``); under it the subprocess imports every module of
-the port and runs one small ship -> dispatch -> fetch on the CPU.
+the port, runs one small ship -> dispatch -> fetch on the CPU, runs one
+whole ``open_session -> tpu-allocate -> close_session`` on the CPU, and
+checks that ``TpuAllocateAction()`` without a device raises when there is
+no CUDA.
 """
 
 import pkgutil
@@ -43,10 +46,39 @@ owner = type("Owner", (), {})()
 shipped = resident_shipper(owner, device="cpu").ship(inp, cfg)
 assignment, kind, order, ordered = fetch_solve(dispatch_solve(shipped, cfg))
 assert ordered.size > 0 and (kind > 0).sum() == ordered.size
+
+# One whole session through the port's entry path on the CPU.
+from kube_batch_tpu_torch.actions.factory import register_default_actions
+from kube_batch_tpu_torch.actions.tpu_allocate import TpuAllocateAction
+from kube_batch_tpu_torch.framework import close_session, open_session
+from kube_batch_tpu_torch.models.synthetic import make_synthetic_cache
+from kube_batch_tpu_torch.plugins.factory import register_default_plugins
+from kube_batch_tpu_torch.scheduler import (DEFAULT_SCHEDULER_CONF,
+                                            parse_scheduler_conf)
+
+register_default_plugins()
+register_default_actions(device="cpu")
+cache, binder = make_synthetic_cache(300, 40, 12, 3)
+tiers = parse_scheduler_conf(DEFAULT_SCHEDULER_CONF).tiers
+action = TpuAllocateAction(device="cpu", dtype=torch.float32)
+ssn = open_session(cache, tiers)
+try:
+    action.execute(ssn)
+finally:
+    close_session(ssn)
+assert action.last.route == "torch" and len(binder.binds) > 0
+if not torch.cuda.is_available():
+    try:
+        TpuAllocateAction()
+    except RuntimeError as exc:
+        assert "device='cpu'" in str(exc)
+    else:
+        raise AssertionError("TpuAllocateAction() ran without CUDA")
+
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
-print("placed", ordered.size)
+print("placed", ordered.size, "bound", len(binder.binds))
 """
 
 
@@ -62,7 +94,13 @@ def test_port_runs_with_jax_and_the_reference_blocked():
     modules = port_modules()
     assert {"kube_batch_tpu_torch.ops.cuda_solver",
             "kube_batch_tpu_torch.models.shipping",
-            "kube_batch_tpu_torch.knobs"} <= set(modules)
+            "kube_batch_tpu_torch.knobs",
+            "kube_batch_tpu_torch.models.tensor_snapshot",
+            "kube_batch_tpu_torch.actions.tpu_allocate",
+            "kube_batch_tpu_torch.cache.cache",
+            "kube_batch_tpu_torch.framework.session",
+            "kube_batch_tpu_torch.plugins.factory",
+            "kube_batch_tpu_torch.scheduler"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, *modules],
                           cwd=str(ROOT), capture_output=True, text=True,
                           timeout=300, check=False)
