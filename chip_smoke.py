@@ -43,6 +43,7 @@ before those lines.  Imports nothing of JAX and nothing of kube_batch_tpu.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -127,6 +128,7 @@ def matrix(dtype):
         yield f"features-seed{seed}", make_feature_inputs(seed, dtype=dtype)
     yield from cluster_cases(dtype)
     yield from repaired_cases(dtype)
+    yield from gathered_cases(dtype)
 
 
 def repaired_cases(dtype, device=None):
@@ -244,6 +246,25 @@ def phase_split(cuda_solver, inp, cfg) -> dict:
                 / max(got["pops"], 1), **split)
 
 
+@contextlib.contextmanager
+def incremental_arm(on: bool):
+    """Run the block with incremental sessions on (the default) or as the
+    reference's KUBE_BATCH_TPU_INCREMENTAL=0 control; the knob is read at
+    every call, so one process runs both arms."""
+    old = os.environ.get("KUBE_BATCH_TPU_INCREMENTAL")
+    if on:
+        os.environ.pop("KUBE_BATCH_TPU_INCREMENTAL", None)
+    else:
+        os.environ["KUBE_BATCH_TPU_INCREMENTAL"] = "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("KUBE_BATCH_TPU_INCREMENTAL", None)
+        else:
+            os.environ["KUBE_BATCH_TPU_INCREMENTAL"] = old
+
+
 def _register(device):
     """The port's default plugins and actions in its own registries."""
     from kube_batch_tpu_torch.actions.factory import register_default_actions
@@ -303,8 +324,16 @@ def session_phase(cuda_solver, card) -> int:
     through the cache's ingestion, then one cold and five warm sessions of
     open_session -> TpuAllocateAction(cuda, float32) -> close_session,
     every bound pod echoed back unchanged between sessions (bench.py
-    measure_full_session), so each sees the same backlog.  Returns the
-    kernel launches of those sessions."""
+    measure_full_session), so each sees the same backlog.  Run as the
+    KUBE_BATCH_TPU_INCREMENTAL=0 arm: with incremental sessions on, an
+    unchanged backlog ships clean and reuses the previous solve, and this
+    phase measures the full session.  Returns the kernel launches of
+    those sessions."""
+    with incremental_arm(False):
+        return _session_phase(cuda_solver, card)
+
+
+def _session_phase(cuda_solver, card) -> int:
     from kube_batch_tpu_torch.actions.tpu_allocate import TpuAllocateAction
     from kube_batch_tpu_torch.api import pod_key
     from kube_batch_tpu_torch.models.synthetic import make_synthetic_cache
@@ -423,6 +452,226 @@ def session_vs_cpu_phase(cuda_solver) -> None:
           identical=True)
 
 
+def bound_of(cuda_solver, inp, kout) -> dict:
+    """The least time the card could take for one solve on ``inp``: each
+    buffer the kernel reads once and each it writes once over the HBM
+    rate, against the placing node scans (this run's steps x the node
+    axis x OPS_PER_NODE_SCAN) over the float32 lane rate."""
+    ops = cuda_solver._operands(inp)
+    in_bytes = sum(t.numel() * t.element_size()
+                   for t in (*ops.bufs, ops.task_data, ops.task_sig,
+                             ops.sig_mask, ops.sig_bonus, ops.nport, ops.nsel,
+                             ops.total, ops.score_shift))
+    out_bytes = (kout[0].assignment.shape[0] * 4 * 4 + 4
+                 + sum(t.numel() * t.element_size() for t in kout[1]))
+    n_pad = ops.bufs.node_int.shape[1]
+    steps = int(kout[0].step)
+    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
+    ops_ms = steps * n_pad * OPS_PER_NODE_SCAN / LANE_OPS_PER_S * 1e3
+    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    return dict(bound_ms=bound_ms, bound_by=bound_by,
+                bytes_moved=in_bytes + out_bytes, bytes_bound_ms=bytes_ms,
+                lane_ops=steps * n_pad * OPS_PER_NODE_SCAN,
+                ops_bound_ms=ops_ms)
+
+
+def gathered_cases(dtype, device=None):
+    """The node axes a steady session's candidate-row launch takes: C = 8,
+    512 (1% churn at the north star: about 500 pending tasks of one
+    profile) and 1,280 rows gathered out of a larger resident axis, the
+    last row of the two larger cases a padding row, as
+    ops/solver._gather_candidate_inputs builds them."""
+    from kube_batch_tpu_torch.models.synthetic import make_synthetic_inputs
+    from kube_batch_tpu_torch.ops.solver import _gather_candidate_inputs
+    for rows in (8, 512, 1280):
+        inp, cfg = make_synthetic_inputs(3 * rows, 4 * rows, 6, 2, seed=rows,
+                                         dtype=dtype, device=device)
+        rng = np.random.default_rng(rows)
+        idx = np.sort(rng.choice(4 * rows, size=rows, replace=False))
+        valid = np.ones(rows, bool)
+        valid[-1] = rows == 8
+        dev = inp.node_idle.device
+        yield f"gathered-c{rows}", (_gather_candidate_inputs(
+            inp, torch.from_numpy(idx).long().to(dev),
+            torch.from_numpy(valid).to(dev)), cfg)
+
+
+def steady_run(cuda_solver, shape, rounds, *, n_signatures=1, control=False,
+               device="cuda", check_kernel=True):
+    """The steady state of the reference's measure_steady_session
+    (bench.py) on the port: make_synthetic_cache(*shape), one cold session,
+    then ``rounds`` rounds of 1% churn (models/synthetic.SteadyChurn: new
+    gangs in, pods of two rounds before retired, binds and pod-group
+    statuses echoed back), each an open_session -> TpuAllocateAction ->
+    close_session.  ``control`` runs it with KUBE_BATCH_TPU_INCREMENTAL=0.
+
+    Returns one record per session (the cold one first): kind, reason,
+    route, candidate rows, launches, reuse, stages, the session's trace
+    spans summed by name (``spans_ms``: the snapshot and each plugin's
+    open and close, apply and fit deltas, ...), wall time, and the
+    round's bind map and events.  Where ``check_kernel``, each solve of a
+    gathered program is launched once more directly on the gathered
+    inputs and must equal solve_allocate_plain on them, and the action's
+    binds must be that launch's placements."""
+    from kube_batch_tpu_torch.actions.tpu_allocate import TpuAllocateAction
+    from kube_batch_tpu_torch.models import incremental
+    from kube_batch_tpu_torch.models.synthetic import (SteadyChurn,
+                                                       make_synthetic_cache)
+    from kube_batch_tpu_torch.ops.solver import _gather_candidate_inputs
+    from kube_batch_tpu_torch.trace import flight_recorder
+    from kube_batch_tpu_torch.trace import spans as tspans
+
+    with incremental_arm(not control):
+        tiers = _register(device)
+        cache, binder = make_synthetic_cache(*shape,
+                                             n_signatures=n_signatures)
+        churn = SteadyChurn(cache, binder, shape[0], shape[3], churn=0.01)
+        action = TpuAllocateAction(device=device, dtype=torch.float32)
+        records = []
+        for rnd in range(rounds + 1):
+            if rnd:
+                churn.inject(rnd)
+            cache.events.clear()
+            cuda_solver.solve_allocate_cuda.launches = 0
+            sid = tspans.begin_session(bench="steady")
+            try:
+                stages, wall = _run_session(cache, tiers, action)
+            finally:
+                tspans.end_session()
+            launches = cuda_solver.solve_allocate_cuda.launches
+            spans_ms = {}
+            for sp in flight_recorder.get(sid).spans:
+                name = sp.name + (f".{sp.args['on']}"
+                                  if sp.args and "on" in sp.args else "")
+                spans_ms[name] = spans_ms.get(name, 0.0) + sp.dur / 1e3
+            last = action.last
+            st = incremental.state_for(cache, create=False)
+            cand = last.candidates
+            rec = dict(round=rnd, kind=st.last_kind if st else "control",
+                       reason=st.last_reason if st else "",
+                       route=last.route, reused=last.reused,
+                       candidate_rows=cand.count if cand else None,
+                       gathered_rows=int(cand.idx.shape[0]) if cand else None,
+                       launches=launches, wall_s=wall,
+                       stages_ms={k: v * 1e3 for k, v in stages.items()},
+                       spans_ms=spans_ms, binds=dict(binder.binds),
+                       events=list(cache.events))
+            if cand is not None and check_kernel and not last.reused:
+                # The gathered inputs of this round's launch, rebuilt from
+                # the resident inputs before the next ship rewrites them.
+                dev = last.inputs.node_idle.device
+                sub = _gather_candidate_inputs(
+                    last.inputs, torch.from_numpy(cand.idx).long().to(dev),
+                    torch.from_numpy(cand.valid).to(dev))
+                times = []
+                for _ in range(3):
+                    start = torch.cuda.Event(enable_timing=True)
+                    stop = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    kout = cuda_solver.solve_allocate_cuda(
+                        sub, last.snap.config)
+                    stop.record()
+                    wait_device(f"the gathered kernel in round {rnd}")
+                    times.append(start.elapsed_time(stop))
+                t0 = time.perf_counter()
+                pout = cuda_solver.solve_allocate_plain(sub, last.snap.config)
+                torch.cuda.synchronize()
+                rec["plain_ms"] = (time.perf_counter() - t0) * 1e3
+                rec["kernel_ms"] = float(np.median(times))
+                rec["max_abs_err"] = compare(kout, pout)
+                rec.update(bound_of(cuda_solver, sub, kout))
+                local = kout[0].assignment.cpu().numpy()
+                placed = kout[0].kind.cpu().numpy() > 0
+                full = np.where(placed, cand.remap[np.clip(
+                    local, 0, len(cand.remap) - 1)], -1)
+                rec["action_equals_launch"] = bool(np.array_equal(
+                    np.where(last.kind > 0, last.assignment, -1), full))
+            records.append(rec)
+            phase("steady-round", shape=list(shape), control=control,
+                  signatures=n_signatures,
+                  **{k: v for k, v in rec.items()
+                     if k not in ("binds", "events")},
+                  binds_n=len(rec["binds"]), events_n=len(rec["events"]))
+            churn.echo()
+        return records
+
+
+def steady_phase(cuda_solver, card) -> int:
+    """The steady state at the north star on the card, both arms, then
+    5k x 1k with four signatures (the sig-mask patch), both arms.
+    Asserts the binds and events of every round equal between the arms;
+    rounds 3 to 6 of the default arm micro sessions on the candidate
+    route, each one launch of the kernel on gathered inputs of at most
+    1,280 rows that equals the plain version exactly.  Rounds 1 and 2
+    re-absorb the cold session's echo (every node, then every pod-group
+    status) and take the reference's fallback.  Returns the kernel
+    launches of the default arm's run."""
+    rounds = 6
+    default = steady_run(cuda_solver, NORTH_STAR, rounds)
+    control = steady_run(cuda_solver, NORTH_STAR, rounds, control=True,
+                         check_kernel=False)
+    for d, c in zip(default, control):
+        if d["binds"] != c["binds"] or d["events"] != c["events"]:
+            raise AssertionError(f"steady round {d['round']}: the default "
+                                 f"arm and INCREMENTAL=0 differ")
+        if not d["binds"]:
+            raise AssertionError(f"steady round {d['round']} bound nothing")
+    for d in default[3:]:
+        if d["kind"] != "micro" or d["candidate_rows"] is None:
+            raise AssertionError(f"steady round {d['round']}: {d['kind']} "
+                                 f"({d['reason']}), candidate rows "
+                                 f"{d['candidate_rows']}")
+        if d["launches"] != 1 or d["route"] != "cuda" or d["reused"]:
+            raise AssertionError(f"steady round {d['round']}: "
+                                 f"{d['launches']} launches on {d['route']}")
+        if d["gathered_rows"] > 1280 or d["max_abs_err"] \
+                or not d["action_equals_launch"]:
+            raise AssertionError(f"steady round {d['round']}: gathered "
+                                 f"{d['gathered_rows']} rows, err "
+                                 f"{d['max_abs_err']}, action equals launch "
+                                 f"{d['action_equals_launch']}")
+    launches = sum(d["launches"] for d in default)
+
+    def summary(records):
+        walls = [r["wall_s"] * 1e3 for r in records]
+        return dict(wall_ms_median=float(np.median(walls)),
+                    wall_ms_p90=float(np.percentile(walls, 90)),
+                    wall_ms_all=walls,
+                    stage_ms_median={k: float(np.median(
+                        [r["stages_ms"][k] for r in records]))
+                        for k in records[0]["stages_ms"]},
+                    span_ms_median={k: float(np.median(
+                        [r["spans_ms"].get(k, 0.0) for r in records]))
+                        for k in records[-1]["spans_ms"]},
+                    kinds=[r["kind"] for r in records])
+
+    micro = default[3:]
+    phase("steady", shape=list(NORTH_STAR), rounds=rounds,
+          default_rounds_2_6=summary(default[2:]),
+          default_micro_rounds_3_6=summary(micro),
+          control_rounds_2_6=summary(control[2:]),
+          candidate_rows=[d["candidate_rows"] for d in default],
+          gathered_rows=[d["gathered_rows"] for d in default],
+          kernel_ms_gathered=[d["kernel_ms"] for d in micro],
+          plain_ms_gathered=[d["plain_ms"] for d in micro],
+          bound_ms_gathered=[d["bound_ms"] for d in micro],
+          bound_by_gathered=micro[0]["bound_by"],
+          launches=launches, identical_arms=True, card=card)
+
+    small = (5_000, 1_000, 200, 4)
+    hetero = [steady_run(cuda_solver, small, 4, n_signatures=4,
+                         control=arm) for arm in (False, True)]
+    for d, c in zip(*hetero):
+        if d["binds"] != c["binds"] or d["events"] != c["events"]:
+            raise AssertionError(f"hetero steady round {d['round']}: the "
+                                 f"arms differ")
+    phase("steady-hetero", shape=list(small), signatures=4,
+          kinds=[d["kind"] for d in hetero[0]],
+          candidate_rows=[d["candidate_rows"] for d in hetero[0]],
+          binds=[len(d["binds"]) for d in hetero[0]], identical_arms=True)
+    return launches + sum(d["launches"] for d in hetero[0])
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -536,7 +785,6 @@ def main() -> int:
 
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
-    ops = cuda_solver._operands(shipped)
     reps = 3
     kernel_ms = []
     for _ in range(reps):
@@ -548,35 +796,26 @@ def main() -> int:
     kernel_ms = float(np.median(kernel_ms))
     phase("kernel-phases", **phase_split(cuda_solver, shipped, cfg))
 
-    in_bytes = sum(t.numel() * t.element_size()
-                   for t in (*ops.bufs, ops.task_data, ops.task_sig,
-                             ops.sig_mask, ops.sig_bonus, ops.nport, ops.nsel,
-                             ops.total, ops.score_shift))
-    out_bytes = (kout[0].assignment.shape[0] * 4 * 4 + 4
-                 + sum(t.numel() * t.element_size() for t in kout[1]))
-    n_pad = ops.bufs.node_int.shape[1]
-    bytes_ms = (in_bytes + out_bytes) / HBM_BYTES_PER_S * 1e3
-    ops_ms = steps * n_pad * OPS_PER_NODE_SCAN / LANE_OPS_PER_S * 1e3
-    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+    bound = bound_of(cuda_solver, shipped, kout)
+    bound_ms, bound_by = bound["bound_ms"], bound["bound_by"]
 
     phase("main-path", shape=list(NORTH_STAR), placed=placed, steps=steps,
           launches=launches, dispatch_fetch_ms_median=float(np.median(rounds)),
           dispatch_fetch_ms_p90=float(np.percentile(rounds, 90)),
           dispatch_fetch_ms_all=rounds, kernel_ms=kernel_ms,
-          plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-          bytes_moved=in_bytes + out_bytes, bytes_bound_ms=bytes_ms,
-          lane_ops=steps * n_pad * OPS_PER_NODE_SCAN, ops_bound_ms=ops_ms,
-          card=card)
+          plain_ms=plain_ms, **bound, card=card)
 
     session_launches = session_phase(cuda_solver, card)
     session_vs_cpu_phase(cuda_solver)
+    steady_launches = steady_phase(cuda_solver, card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "solve_session", "route": "cuda",
         "source": "kube_batch_tpu_torch/csrc/solve_session.cu",
         "replaces": "kube_batch_tpu/ops/pallas_solver.py:60",
-        "launches": session_launches, "max_abs_err": max_err,
+        "launches": session_launches + steady_launches,
+        "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": None}]}), flush=True)

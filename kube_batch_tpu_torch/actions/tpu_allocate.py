@@ -13,11 +13,17 @@ The action owns its device and float key type: CUDA unless the caller
 asks for the CPU, float32 unless it asks for float64.  Unlike the
 reference it never degrades to the host path on a device failure: a
 failing ship, dispatch, fetch or validation raises out of ``execute``
-(the breaker and degradation come with ROADMAP queue 1 item 11).  The
-reference's fused one-dispatch program, incremental micro-sessions and
-candidate-row prefilter are not ported yet; this action runs their
-control arms (FUSED=0, INCREMENTAL=0), which the reference proves
-bind-identical to its defaults.
+(the breaker and degradation come with ROADMAP queue 1 item 11).
+
+Steady state: a byte-clean ship at an unchanged shipper generation
+reuses the previous validated result (models/incremental.py), and a
+micro session solves only the prefiltered candidate node rows
+(ops/prefilter.py) — one launch of the same kernel on the gathered
+inputs.  ``KUBE_BATCH_TPU_INCREMENTAL=0`` and
+``KUBE_BATCH_TPU_CANDIDATE_SOLVE=0`` are the controls.  The reference's
+fused one-dispatch program is not ported yet; this action runs its
+control arm (FUSED=0), which the reference proves bind-identical to its
+default.
 """
 
 from __future__ import annotations
@@ -38,15 +44,21 @@ log = logging.getLogger(__name__)
 
 class SessionRecord(NamedTuple):
     """What the last ``execute`` staged, shipped and solved, and the
-    host seconds of each stage (tensorize, ship, dispatch_fetch, apply)."""
+    host seconds of each stage (tensorize, ship, prefilter,
+    dispatch_fetch, apply).  ``candidates`` is the prefilter's
+    CandidateSet when the solve ran on gathered rows, else None;
+    ``reused`` says the result came from the generation-keyed cache (no
+    launch)."""
     route: str
     snap: object
     inputs: object          # the shipped SolverInputs, on the device
-    assignment: object      # numpy [P]
+    assignment: object      # numpy [P], full-space node rows
     kind: object
     order: object
     ordered: object         # placed task ids in placement order
     stages: dict
+    candidates: object = None
+    reused: bool = False
 
 
 class TpuAllocateAction(Action):
@@ -150,31 +162,87 @@ class TpuAllocateAction(Action):
             route, _mesh = choose_solver_mesh(inputs)
             trace.set_meta(solver_route=route, mesh_devices=1)
 
-            # Dispatch, overlap the result-independent apply preparation
-            # with the executing device program, then block only when the
-            # result is consumed.  Every session is a full session: the
-            # reference's FUSED=0 and INCREMENTAL=0 arms (the fused
-            # program and the candidate-row prefilter come with ROADMAP
-            # queue 1 items 4 and 1).
+            # Generation-keyed solve reuse (models/incremental.py,
+            # doc/INCREMENTAL.md): a CLEAN ship at an unchanged shipper
+            # generation proves the inputs are byte-identical to the
+            # previous dispatch, and the solver is deterministic — so the
+            # cached result IS this session's result, no device
+            # round-trip needed.  KUBE_BATCH_TPU_INCREMENTAL=0 (or any
+            # byte change, or an invalidated shipper) disables reuse.
+            from ..models import incremental
+            inc_state = (incremental.state_for(ssn.cache, create=False)
+                         if incremental.incremental_enabled() else None)
+            cached_solve = None
+            if (inc_state is not None
+                    and shipper.last_mode == "clean"
+                    and inc_state.solve_gen == shipper.generation
+                    and inc_state.solve_cfg == snap.config
+                    and inc_state.solve_result is not None):
+                cached_solve = inc_state.solve_result
+            # Candidate-row solve prefilter (ops/prefilter.py,
+            # doc/INCREMENTAL.md "floors"): on a micro build the host
+            # derives the provably-sufficient candidate node set from
+            # the staged start tensors, and the dispatch gathers only
+            # those rows out of the resident inputs — the per-placement
+            # device scan drops from O(N) to O(C).  Full sessions (and
+            # the INCREMENTAL=0 / CANDIDATE_SOLVE=0 controls) keep the
+            # whole node bucket.
+            candidates = None
+            t0 = time.perf_counter()
+            if (cached_solve is None and inc_state is not None
+                    and inc_state.last_kind == "micro"):
+                from ..ops.prefilter import derive_candidates
+                with trace.span("prefilter"):
+                    candidates = derive_candidates(snap, route)
+                if candidates is not None:
+                    trace.set_meta(candidate_rows=candidates.count)
+            stages["prefilter"] = time.perf_counter() - t0
+
             solve_start = time.perf_counter()
-            with trace.span("dispatch"):
-                pending = dispatch_solve(inputs, snap.config)
-            metrics.note_candidate_solve(False, 0)
-            overlap_start = time.perf_counter()
-            with trace.span("host_overlap"):
-                scaffold = prepare_apply_scaffold(snap)
-            metrics.observe_host_overlap_latency(
-                time.perf_counter() - overlap_start)
-            wait_start = time.perf_counter()
-            with trace.span("device_wait"):
-                fetching, pending = pending, None
-                assignment, kind, order, ordered = fetch_solve(fetching)
-            wait_elapsed = time.perf_counter() - wait_start
-            stages["dispatch_fetch"] = time.perf_counter() - solve_start
-            metrics.observe_device_wait_latency(wait_elapsed)
-            metrics.set_cycle_floor("solve_wait", wait_elapsed)
-            metrics.observe_tpu_solve_latency(stages["dispatch_fetch"])
+            if cached_solve is not None:
+                with trace.span("solve.reuse",
+                                generation=shipper.generation,
+                                route=inc_state.solve_route):
+                    assignment, kind, order, ordered = cached_solve
+                    scaffold = prepare_apply_scaffold(snap)
+                metrics.note_generation_reuse(True)
+                metrics.set_cycle_floor("solve_wait", 0.0)
+                stages["dispatch_fetch"] = time.perf_counter() - solve_start
+            else:
+                # Dispatch, overlap the result-independent apply
+                # preparation with the executing device program, then
+                # block only when the result is consumed.  No fused
+                # program holds this solve: the reference's FUSED=0 arm
+                # (ROADMAP queue 1 item 4).
+                with trace.span("dispatch"):
+                    pending = dispatch_solve(inputs, snap.config,
+                                             candidates=candidates)
+                metrics.note_candidate_solve(
+                    candidates is not None,
+                    candidates.count if candidates is not None else 0)
+                overlap_start = time.perf_counter()
+                with trace.span("host_overlap"):
+                    scaffold = prepare_apply_scaffold(snap)
+                metrics.observe_host_overlap_latency(
+                    time.perf_counter() - overlap_start)
+                wait_start = time.perf_counter()
+                with trace.span("device_wait"):
+                    fetching, pending = pending, None
+                    assignment, kind, order, ordered = fetch_solve(fetching)
+                wait_elapsed = time.perf_counter() - wait_start
+                stages["dispatch_fetch"] = time.perf_counter() - solve_start
+                metrics.observe_device_wait_latency(wait_elapsed)
+                metrics.set_cycle_floor("solve_wait", wait_elapsed)
+                metrics.observe_tpu_solve_latency(stages["dispatch_fetch"])
             self._validate_result(snap, assignment, kind, order, ordered)
+            if inc_state is not None and cached_solve is None:
+                # Cache AFTER validation only: a poisoned readback must
+                # never become a reusable "known-good" result.
+                inc_state.solve_gen = shipper.generation
+                inc_state.solve_cfg = snap.config
+                inc_state.solve_result = (assignment, kind, order, ordered)
+                inc_state.solve_route = route
+                metrics.note_generation_reuse(False)
         except BaseException:
             if pending is not None:
                 # The dispatch landed before the failure: retire the
@@ -221,7 +289,8 @@ class TpuAllocateAction(Action):
         if trace.current_session_id() is not None:
             self._record_why_tallies(ssn, snap, kind)
         self.last = SessionRecord(route, snap, inputs, assignment, kind,
-                                  order, ordered, stages)
+                                  order, ordered, stages, candidates,
+                                  cached_solve is not None)
 
     @staticmethod
     def _record_why_tallies(ssn, snap, kind) -> None:

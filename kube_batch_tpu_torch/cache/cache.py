@@ -154,6 +154,71 @@ class _EventDeque(_deque):
             self.append(item)
 
 
+class _SnapState:
+    """The generation-keyed snapshot map (doc/INCREMENTAL.md "floors"):
+    the previous cycle's ClusterInfo entries, kept in TRUTH-DICT ORDER so
+    an incremental refresh walks only epoch-dirty objects while handing
+    the session a dict whose iteration order is bit-identical to the full
+    walk's (plugin-open float accumulation is order-dependent; a reordered
+    jobs dict would break the INCREMENTAL=0 parity gate).
+
+    Order discipline: every (re)insertion into the truth dicts stamps a
+    monotone ``_ins_seq``, so truth iteration order == ascending seq
+    order.  The map mirrors that: in-place value replacement keeps a
+    key's position; an insertion whose seq tops the high-water mark
+    appends; anything else (a node flipping back to Ready, a no-spec job
+    regaining its PodGroup) forces one seq-sort rebuild of the map — rare
+    by construction, O(dirty) otherwise.
+
+    All fields are guarded by the owning cache's mutex (informer threads
+    feed the dirty sets, the scheduling thread consumes them)."""
+
+    __slots__ = ("jobs", "nodes", "jobs_seq", "nodes_seq", "job_hw",
+                 "node_hw", "dirty_jobs", "dirty_nodes", "no_spec",
+                 "valid", "full", "close_active", "recloned_jobs",
+                 "close_walk_all", "agg_valid", "agg_total", "grid_cap",
+                 "grid_used", "grid_max")
+
+    def __init__(self):
+        self.jobs: Dict[str, JobInfo] = {}
+        self.nodes: Dict[str, NodeInfo] = {}
+        self.jobs_seq: Dict[str, int] = {}
+        self.nodes_seq: Dict[str, int] = {}
+        self.job_hw = -1          # high-water _ins_seq present in jobs
+        self.node_hw = -1
+        self.dirty_jobs: set = set()
+        self.dirty_nodes: set = set()
+        # Spec-less jobs (no PodGroup/PDB): the full walk emits one
+        # FailedScheduling event per walk for each — replayed in seq
+        # order on incremental walks so the event stream stays
+        # bit-identical to the control.
+        self.no_spec: Dict[str, int] = {}
+        self.valid = False        # a full walk has populated the map
+        self.full = False         # next snapshot must run the full walk
+        # close_session bookkeeping: uids whose last close was NOT
+        # provably silent (they must be re-processed every cycle), and
+        # the uids the latest snapshot re-cloned (fresh clones carry no
+        # quiet verdict yet).
+        self.close_active: set = set()
+        self.recloned_jobs: set = set()
+        self.close_walk_all = True
+        # Node-open aggregates (doc/INCREMENTAL.md "floors"): the
+        # cluster total-allocatable sum and the per-node quantized
+        # (cap, used) grid entries the drf/proportion/nodeorder opens
+        # otherwise rebuild O(nodes) every session — maintained from the
+        # same entry changes the map itself sees.  agg_total is None
+        # whenever ANY node's allocatable has a non-integer dimension
+        # (float re-association would break bit parity; the plugins then
+        # keep their own walk — the exactness gate of
+        # models/incremental.resource_exact).  grid_max is None when a
+        # component maximum may have shrunk (lazy recompute at read).
+        self.agg_valid = False
+        self.agg_total = None   # {"cpu","mem","sc"} exact-int floats
+        self.grid_cap: Dict[str, tuple] = {}
+        self.grid_used: Dict[str, tuple] = {}
+        self.grid_max = None
+
+
 class SchedulerCache(Cache):
     """In-memory cluster mirror (cache.go:73-105).
 
@@ -214,10 +279,10 @@ class SchedulerCache(Cache):
         self._pooled_nodes: Dict[str, tuple] = {}  # guarded-by: mutex
         self._mem_pool = memledger.ledger("snapshot_pool").track(
             self, sizer=_pool_actual_nbytes)
-        # Incremental snapshot: dict-order seq counter + the snapshot map.
-        # The map stays None, the reference's INCREMENTAL=0 arm (the
-        # generation-keyed map comes with incremental sessions, ROADMAP
-        # queue 1 item 1), so every dirty mark below is a no-op.
+        # Incremental snapshot (doc/INCREMENTAL.md "floors"): dict-order
+        # seq counter + the generation-keyed snapshot map; None while the
+        # control arm (KUBE_BATCH_TPU_INCREMENTAL=0) runs, so the full
+        # walk stays the unmodified oracle.
         self._obj_seq: int = 0                     # guarded-by: mutex
         self._snap_state = None                    # guarded-by: mutex
 
@@ -780,13 +845,24 @@ class SchedulerCache(Cache):
         the periodic full-session floor force the full walk, which is
         also the KUBE_BATCH_TPU_INCREMENTAL=0 control (bit-identical
         dicts and events either way — the churn parity gate pins it)."""
+        from ..models.incremental import incremental_enabled
+
         flush = self.mirror_flush
         if flush is not None:  # before mutex: flush re-enters ingestion
             flush()
         with self.mutex:
-            # The full walk every session: the reference's INCREMENTAL=0
-            # arm (ROADMAP queue 1 item 1).
-            info = self._snapshot_full_locked()
+            st = self._snap_state
+            if not incremental_enabled():
+                # Control arm: drop any map so a later re-enable starts
+                # from a fresh full walk instead of a stale baseline.
+                self._snap_state = None
+                info = self._snapshot_full_locked(None)
+            elif st is None or not st.valid or st.full:
+                if st is None:
+                    st = self._snap_state = _SnapState()
+                info = self._snapshot_full_locked(st)
+            else:
+                info = self._snapshot_incremental_locked(st)
             # The walk above is the pool's only GROWTH chokepoint
             # (_clone_job_locked and the node loops insert); re-price
             # once per snapshot instead of per insert.
@@ -819,10 +895,13 @@ class SchedulerCache(Cache):
                 clone.priority = pc.value
         return clone
 
-    def _snapshot_full_locked(self) -> ClusterInfo:  # holds-lock: mutex
-        """The reference full walk (the INCREMENTAL=0 control)."""
+    def _snapshot_full_locked(self, st) -> ClusterInfo:  # holds-lock: mutex
+        """The reference full walk (the INCREMENTAL=0 control), doubling
+        as the map (re)build when ``st`` is given."""
         info = ClusterInfo()
         pooled_n = self._pooled_nodes
+        if st is not None:
+            st.no_spec.clear()
         for name, node in self.nodes.items():
             if not node.ready():
                 continue  # OutOfSync/NotReady nodes excluded (cache.go:638-643)
@@ -842,6 +921,8 @@ class SchedulerCache(Cache):
             if job.pod_group is None and job.pdb is None:
                 self.events.append(
                     ("FailedScheduling", uid, "job without PodGroup"))
+                if st is not None:
+                    st.no_spec[uid] = self._obj_seq_of(job)
                 continue
             # Jobs whose queue is missing are skipped (cache.go:658-662).
             if job.queue not in info.queues:
@@ -849,7 +930,306 @@ class SchedulerCache(Cache):
             info.jobs[uid] = self._clone_job_locked(uid, job)
         walked = len(self.nodes) + len(self.jobs)
         metrics.set_snapshot_objects(walked, 0)
+        if st is not None:
+            st.jobs = dict(info.jobs)
+            st.nodes = dict(info.nodes)
+            st.jobs_seq = {uid: self._obj_seq_of(self.jobs[uid])
+                           for uid in info.jobs}
+            st.nodes_seq = {name: self._obj_seq_of(self.nodes[name])
+                            for name in info.nodes}
+            st.job_hw = self._obj_seq
+            st.node_hw = self._obj_seq
+            st.dirty_jobs.clear()
+            st.dirty_nodes.clear()
+            st.valid = True
+            st.full = False
+            st.recloned_jobs = set(info.jobs)
+            st.close_walk_all = True
+            self._agg_rebuild_locked(st, info.nodes)
         return info
+
+    def _agg_rebuild_locked(self, st, nodes: Dict) -> None:  # holds-lock: mutex
+        """Node-open aggregates from scratch (the full-walk path): the
+        exact-int total-allocatable sum and the quantized grid entries —
+        vectorized like plugins/nodeorder.GridUsage (column quantization
+        is value-identical to per-value quantize_value)."""
+        import numpy as np
+
+        from ..models.incremental import resource_exact
+        from ..ops.resources import quantize_columns
+
+        total = {"cpu": 0.0, "mem": 0.0, "sc": {}}
+        exact = True
+        names = list(nodes)
+        clones = list(nodes.values())
+        for clone in clones:
+            al = clone.allocatable
+            if exact and not resource_exact(al):
+                exact = False
+            total["cpu"] += al.milli_cpu
+            total["mem"] += al.memory
+            if al.scalar_resources:
+                sc = total["sc"]
+                for k, v in al.scalar_resources.items():
+                    sc[k] = sc.get(k, 0.0) + v
+        if names:
+            arr = np.empty((len(names), 2), np.float64)
+            arr[:, 0] = [c.allocatable.milli_cpu for c in clones]
+            arr[:, 1] = [c.allocatable.memory for c in clones]
+            caps = quantize_columns(arr)
+            arr[:, 0] = [c.used.milli_cpu for c in clones]
+            arr[:, 1] = [c.used.memory for c in clones]
+            useds = quantize_columns(arr)
+            st.grid_cap = {n: (int(c), int(m)) for n, (c, m)
+                           in zip(names, caps.tolist())}
+            st.grid_used = {n: (int(c), int(m)) for n, (c, m)
+                            in zip(names, useds.tolist())}
+        else:
+            st.grid_cap = {}
+            st.grid_used = {}
+        st.grid_max = None
+        st.agg_total = total if exact else None
+        st.agg_valid = True
+
+    def _agg_apply_locked(self, st, name: str, old, new) -> None:  # holds-lock: mutex
+        """Apply one map-entry change (old clone -> new clone, either
+        side None) to the node-open aggregates.  Exact by the integer
+        gate: removing a previously-added integer value and adding the
+        replacement reassociates nothing a fresh sum would not."""
+        if not st.agg_valid or old is new:
+            return
+        from ..models.incremental import resource_exact
+        from ..ops.resources import quantize_value
+
+        t = st.agg_total
+        if t is not None:
+            for clone, sign in ((old, -1.0), (new, 1.0)):
+                if clone is None:
+                    continue
+                al = clone.allocatable
+                if not resource_exact(al):
+                    st.agg_total = t = None
+                    break
+                t["cpu"] += sign * al.milli_cpu
+                t["mem"] += sign * al.memory
+                if al.scalar_resources:
+                    sc = t["sc"]
+                    for k, v in al.scalar_resources.items():
+                        sc[k] = sc.get(k, 0.0) + sign * v
+        if new is None:
+            old_cap = st.grid_cap.pop(name, None)
+            st.grid_used.pop(name, None)
+            if (old_cap is not None and st.grid_max is not None
+                    and (old_cap[0] >= st.grid_max[0]
+                         or old_cap[1] >= st.grid_max[1])):
+                st.grid_max = None  # a component max may have shrunk
+            return
+        cap = (quantize_value(new.allocatable.milli_cpu, 0),
+               quantize_value(new.allocatable.memory, 1))
+        old_cap = st.grid_cap.get(name)
+        st.grid_cap[name] = cap
+        st.grid_used[name] = (quantize_value(new.used.milli_cpu, 0),
+                              quantize_value(new.used.memory, 1))
+        if st.grid_max is not None:
+            if (old_cap is not None
+                    and (old_cap[0] >= st.grid_max[0]
+                         or old_cap[1] >= st.grid_max[1])
+                    and (cap[0] < old_cap[0] or cap[1] < old_cap[1])):
+                st.grid_max = None
+            else:
+                st.grid_max = (max(st.grid_max[0], cap[0]),
+                               max(st.grid_max[1], cap[1]))
+
+    def node_open_aggregates(self):
+        """(total_allocatable | None, grid_cap, grid_used, shift) for
+        the session the latest snapshot produced, or None when the map
+        is cold / the control arm runs.  Dicts are fresh copies (the
+        nodeorder GridUsage mutates its ``used`` live); the total is a
+        private Resource.  total is None — with the grids still served —
+        when some allocatable dimension is fractional (the exactness
+        gate; callers keep their own walk for the total then)."""
+        from ..api.resource import Resource
+        from ..models.incremental import incremental_enabled
+        from ..ops.resources import score_shift_for
+
+        if not incremental_enabled():
+            return None
+        with self.mutex:
+            st = self._snap_state
+            if st is None or not st.agg_valid:
+                return None
+            if st.grid_max is None:
+                st.grid_max = (
+                    max((c[0] for c in st.grid_cap.values()), default=0),
+                    max((c[1] for c in st.grid_cap.values()), default=0))
+            shift = (score_shift_for(st.grid_max[0]),
+                     score_shift_for(st.grid_max[1]))
+            total = None
+            if st.agg_total is not None:
+                total = Resource.__new__(Resource)
+                total.milli_cpu = st.agg_total["cpu"]
+                total.memory = st.agg_total["mem"]
+                total.scalar_resources = dict(st.agg_total["sc"])
+                total.max_task_num = 0
+            return total, dict(st.grid_cap), dict(st.grid_used), shift
+
+    @staticmethod
+    def _snap_insert(target: Dict, seqmap: Dict, hw: int,
+                     inserts: List[tuple]) -> int:
+        """Insert (seq, key, value) rows into an order-kept map: appends
+        when every new seq tops the high-water mark (the steady case —
+        fresh truth insertions), otherwise one seq-sort rebuild (re-ready
+        node / job regaining its spec)."""
+        if not inserts:
+            return hw
+        inserts.sort()
+        if inserts[0][0] > hw:
+            for seq, key, value in inserts:
+                target[key] = value
+                seqmap[key] = seq
+            return inserts[-1][0]
+        items = sorted(
+            [(seqmap[k], k, v) for k, v in target.items()]
+            + inserts)
+        target.clear()
+        seqmap.clear()
+        for seq, key, value in items:
+            target[key] = value
+            seqmap[key] = seq
+        return items[-1][0] if items else -1
+
+    def _snapshot_incremental_locked(self, st) -> ClusterInfo:  # holds-lock: mutex
+        """O(dirty) walk: revalidate exactly the objects whose epoch
+        moved (or whose clone the last session mutated), splice them into
+        the order-kept map, and replay the per-walk no-spec events."""
+        info = ClusterInfo()
+        walked = 0
+
+        inserts: List[tuple] = []
+        for name in st.dirty_nodes:
+            walked += 1
+            old = st.nodes.get(name)
+            node = self.nodes.get(name)
+            if node is None or not node.ready():
+                st.nodes.pop(name, None)
+                st.nodes_seq.pop(name, None)
+                if old is not None:
+                    self._agg_apply_locked(st, name, old, None)
+                continue
+            entry = self._pooled_nodes.get(name)
+            if entry is not None and entry[0] == node.mod_epoch:
+                clone = entry[1]
+            else:
+                clone = node.snapshot_clone()
+                clone.snap_epoch = node.mod_epoch
+                self._pooled_nodes[name] = (node.mod_epoch, clone)
+            self._agg_apply_locked(st, name, old, clone)
+            seq = self._obj_seq_of(node)
+            if st.nodes_seq.get(name) == seq:
+                st.nodes[name] = clone  # same position, new value
+            else:
+                st.nodes.pop(name, None)
+                st.nodes_seq.pop(name, None)
+                inserts.append((seq, name, clone))
+        st.node_hw = self._snap_insert(st.nodes, st.nodes_seq, st.node_hw,
+                                       inserts)
+        st.dirty_nodes.clear()
+
+        for name, queue in self.queues.items():
+            info.queues[name] = QueueInfo(queue)
+
+        # recloned accumulates across walks and is consumed per close
+        # (note_close_results): with the global engine every close
+        # consumes the whole set (bit-identical to the old wholesale
+        # replace); with the tenancy engine each shard's close consumes
+        # only its own jobs, so a fresh clone of shard B's job survives
+        # shard A's intervening snapshot/close pair.
+        inserts = []
+        for uid in st.dirty_jobs:
+            walked += 1
+            job = self.jobs.get(uid)
+            if job is None:
+                st.jobs.pop(uid, None)
+                st.jobs_seq.pop(uid, None)
+                st.no_spec.pop(uid, None)
+                st.recloned_jobs.discard(uid)
+                continue
+            if job.pod_group is None and job.pdb is None:
+                st.jobs.pop(uid, None)
+                st.jobs_seq.pop(uid, None)
+                st.no_spec[uid] = self._obj_seq_of(job)
+                st.recloned_jobs.discard(uid)
+                continue
+            st.no_spec.pop(uid, None)
+            if job.queue not in info.queues:
+                st.jobs.pop(uid, None)
+                st.jobs_seq.pop(uid, None)
+                st.recloned_jobs.discard(uid)
+                continue
+            clone = self._clone_job_locked(uid, job)
+            st.recloned_jobs.add(uid)
+            seq = self._obj_seq_of(job)
+            if st.jobs_seq.get(uid) == seq:
+                st.jobs[uid] = clone
+            else:
+                st.jobs.pop(uid, None)
+                st.jobs_seq.pop(uid, None)
+                inserts.append((seq, uid, clone))
+        st.job_hw = self._snap_insert(st.jobs, st.jobs_seq, st.job_hw,
+                                      inserts)
+        st.dirty_jobs.clear()
+        st.close_walk_all = False
+
+        # The control emits one FailedScheduling event per spec-less job
+        # on EVERY walk, in truth order — replay for event bit-parity.
+        if st.no_spec:
+            for uid, _seq in sorted(st.no_spec.items(),
+                                    key=lambda kv: kv[1]):
+                self.events.append(
+                    ("FailedScheduling", uid, "job without PodGroup"))
+
+        info.nodes = dict(st.nodes)
+        info.jobs = dict(st.jobs)
+        metrics.set_snapshot_objects(
+            walked, len(info.nodes) + len(info.jobs) + len(st.no_spec))
+        return info
+
+    # ------------------------------------------------------------------
+    # close_session bookkeeping (shared with the tenancy ShardView)
+
+    def close_plan(self):
+        """close_session's O(touched) walk plan: (active, recloned,
+        seqmap), or None when the whole-session walk must run (first
+        session, full snapshot, control arm).  See _SnapState."""
+        with self.mutex:
+            st = self._snap_state
+            if st is None or st.close_walk_all:
+                return None
+            return (set(st.close_active), set(st.recloned_jobs),
+                    dict(st.jobs_seq))
+
+    def note_close_results(self, active: set, universe=None) -> None:
+        """Record which jobs' close outcome was NOT provably silent —
+        the re-process set for the next incremental close.
+
+        ``universe`` scopes the result to the jobs this close actually
+        walked (the tenancy ShardView's shard slice): verdicts for jobs
+        OUTSIDE the universe are preserved instead of replaced, so one
+        shard's close cannot clear another shard's active flags.  None
+        (the global engine) replaces wholesale, the pre-tenancy
+        behavior.  Either way, the walked jobs' pending fresh-reclone
+        marks are consumed (see _snapshot_incremental_locked)."""
+        with self.mutex:
+            st = self._snap_state
+            if st is None:
+                return
+            if universe is None:
+                st.close_active = set(active)
+                st.recloned_jobs.clear()
+            else:
+                scope = set(universe)
+                st.close_active = (st.close_active - scope) | set(active)
+                st.recloned_jobs -= scope
 
     # ------------------------------------------------------------------
     # effectors (cache.go:425-535)

@@ -1040,10 +1040,17 @@ def open_session(cache, tiers: List[Tier],
     # Gate invalid jobs (gang minAvailable) out of the session, recording the
     # unschedulable condition (session.go:89-108).
     #
-    # Every job runs the validator chain: the reference's INCREMENTAL=0
-    # arm (its per-job column fast pass comes with incremental sessions,
-    # ROADMAP queue 1 item 1).
+    # Wire fast path: jobs provably passing (valid >= minAvailable from
+    # the persistent per-job columns, the only check the stock gang
+    # validator performs) skip the validator chain — a passing job is
+    # unobservable through this gate, so the skip is bit-parity
+    # (models/incremental.job_valid_pass_uids; None = control arm or a
+    # non-stock validator registered, full walk below).
+    from ..models.incremental import job_valid_pass_uids
+    fast_pass = job_valid_pass_uids(ssn)
     for job in list(ssn.jobs.values()):
+        if fast_pass is not None and job.uid in fast_pass:
+            continue
         vr = ssn.job_valid(job)
         if vr is not None and not vr.pass_:
             if job.pod_group is not None:
@@ -1143,14 +1150,48 @@ def close_session(ssn: Session) -> None:
     # clones reusable by the snapshot pool (events and pod conditions are
     # still recorded every cycle, as the reference does).
     #
-    # Every job is walked: the reference's INCREMENTAL=0 arm (the
-    # incremental close comes with incremental sessions, ROADMAP queue 1
-    # item 1).
+    # Incremental close (doc/INCREMENTAL.md "floors"): after an
+    # incremental snapshot, only the session's touched jobs, the freshly
+    # re-cloned ones, and the jobs whose last close was not provably
+    # silent are walked — every skipped job is bit-unchanged since a
+    # close that observably did nothing, so the event stream, condition
+    # writes, and status pushes are identical to the full walk (the
+    # churn parity gate pins it).  Candidates run in truth (seq) order so
+    # multi-job event interleaving matches the control exactly.
+    from ..models import incremental
     close_start = time.perf_counter()
+    plan = None
+    if incremental.incremental_enabled():
+        close_plan = getattr(ssn.cache, "close_plan", None)
+        if close_plan is not None:
+            plan = close_plan()
     walked = 0
-    for job in ssn.jobs.values():
-        walked += 1
-        _close_one_job(ssn, job)
+    if plan is None:
+        active = set()
+        for job in ssn.jobs.values():
+            walked += 1
+            if not _close_one_job(ssn, job):
+                active.add(job.uid)
+        if incremental.incremental_enabled():
+            note = getattr(ssn.cache, "note_close_results", None)
+            if note is not None:
+                note(active)
+    else:
+        old_active, recloned, seqmap = plan
+        process = old_active | recloned | set(ssn.mutated_jobs)
+        active = set(old_active)
+        tail = float("inf")
+        for uid in sorted(process, key=lambda u: seqmap.get(u, tail)):
+            job = ssn.jobs.get(uid)
+            if job is None:
+                active.discard(uid)
+                continue
+            walked += 1
+            if _close_one_job(ssn, job):
+                active.discard(uid)
+            else:
+                active.add(uid)
+        ssn.cache.note_close_results(active)
     metrics.set_close_objects_walked(walked)
     metrics.set_cycle_floor("close", time.perf_counter() - close_start)
 
@@ -1169,6 +1210,9 @@ def close_session(ssn: Session) -> None:
     # churn the NEXT cycle's plan reports (models/incremental.py).
     metrics.set_session_mutations(len(ssn.mutated_jobs),
                                   len(ssn.mutated_nodes))
+    from ..models import incremental
+    incremental.note_session_mutations(ssn.cache, len(ssn.mutated_jobs),
+                                       len(ssn.mutated_nodes))
 
     # Per-session memory footprint: which ledgers this session grew or
     # shrank, annotated onto the trace ("which session peaked the stage

@@ -380,6 +380,102 @@ def make_synthetic_cache(n_tasks, n_nodes, n_jobs, n_queues,
     return cache, binder
 
 
+class SteadyChurn:
+    """The steady-state churn protocol of the reference's
+    ``measure_steady_session`` (bench.py), on a cache from
+    ``make_synthetic_cache``: each round ``inject`` adds ``churn`` x
+    n_tasks new pending pods in fresh pod groups of ``per_group`` (min
+    member 4/5 of the group, round-robin over the queues, 500m CPU and
+    1 GiB each) and retires the pods and groups of two rounds before;
+    ``echo`` then plays the informer, bringing every bind back as a
+    Running pod on its node and every pod-group status the fake updater
+    recorded back into the cache."""
+
+    def __init__(self, cache, binder, n_tasks: int, n_queues: int,
+                 churn: float = 0.01, per_group: int = 25):
+        from ..api import pod_key
+        self.cache = cache
+        self.binder = binder
+        self.n_queues = n_queues
+        self.per_group = per_group
+        self.k = max(1, int(n_tasks * churn))
+        self.next_uid = n_tasks
+        self.podmap = {pod_key(t.pod): t.pod for job in cache.jobs.values()
+                       for t in job.tasks.values()}
+        self.retire = []
+
+    def inject(self, rnd: int) -> None:
+        """Round ``rnd``'s new pods, then the retirement of the pods the
+        round two before added (with their pod groups)."""
+        from ..api import (Container, ObjectMeta, Pod, PodSpec, PodStatus,
+                           pod_key)
+        from ..apis.scheduling import v1alpha1
+        from ..apis.scheduling.v1alpha1 import GroupNameAnnotationKey
+        cache = self.cache
+        new_keys, pgs = [], []
+        remaining, g = self.k, 0
+        while remaining > 0:
+            size = min(self.per_group, remaining)
+            pg_name = f"churn-{rnd}-{g}"
+            pgs.append(pg_name)
+            cache.add_pod_group(v1alpha1.PodGroup(
+                metadata=ObjectMeta(name=pg_name, namespace="bench"),
+                spec=v1alpha1.PodGroupSpec(
+                    min_member=max(1, size * 4 // 5),
+                    queue=f"q{g % self.n_queues}")))
+            for _ in range(size):
+                uid = self.next_uid
+                self.next_uid += 1
+                pod = Pod(
+                    metadata=ObjectMeta(
+                        name=f"c{uid}", namespace="bench", uid=f"c{uid}",
+                        annotations={GroupNameAnnotationKey: pg_name},
+                        creation_timestamp=float(uid)),
+                    spec=PodSpec(containers=[Container(
+                        requests={"cpu": "500m", "memory": "1Gi"})]),
+                    status=PodStatus(phase="Pending"))
+                self.podmap[pod_key(pod)] = pod
+                new_keys.append(pod_key(pod))
+                cache.add_pod(pod)
+            remaining -= size
+            g += 1
+        if len(self.retire) >= 2:
+            old_pgs, old_keys = self.retire.pop(0)
+            for key in old_keys:
+                pod = self.podmap.pop(key, None)
+                if pod is not None:
+                    cache.delete_pod(pod)
+            for pg_name in old_pgs:
+                cache.delete_pod_group(v1alpha1.PodGroup(
+                    metadata=ObjectMeta(name=pg_name, namespace="bench"),
+                    spec=v1alpha1.PodGroupSpec(min_member=1)))
+        self.retire.append((pgs, new_keys))
+
+    def echo(self) -> int:
+        """Every bind back as a Running pod on its node, and every
+        recorded pod-group status back into the cache; returns the binds
+        echoed."""
+        import dataclasses as dc
+
+        from ..api import PodStatus
+        binds = dict(self.binder.binds)
+        self.binder.binds.clear()
+        for key, node in binds.items():
+            old = self.podmap.get(key)
+            if old is None:
+                continue
+            new = dc.replace(old, spec=dc.replace(old.spec, node_name=node),
+                             status=PodStatus(phase="Running"))
+            self.podmap[key] = new
+            self.cache.update_pod(old, new)
+        updater = self.cache.status_updater
+        if getattr(updater, "pod_groups", None):
+            for pg in updater.pod_groups:
+                self.cache.add_pod_group(pg)
+            updater.pod_groups.clear()
+        return len(binds)
+
+
 def with_scalar_dims(built, r: int, seed: int = 0):
     """``built`` = (inputs, config) widened to ``r`` resource dims: the
     dims past the inputs' own are scalar resources (GPUs, hugepages,

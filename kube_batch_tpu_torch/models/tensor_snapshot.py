@@ -1086,31 +1086,20 @@ def tensorize_session(ssn, dtype: torch.dtype) -> TensorSnapshot:
         return _tensorize_session_impl(ssn, dtype)
     finally:
         # An aborted build — a fallback early-return or an exception
-        # (injected chaos faults included) — leaves the persistent arrays
-        # and job blocks rebound with the finish-time re-price never
-        # reached, so the tensor_cache ledger would under-count until the
-        # next COMPLETED build on this cache.  Settle it on every exit;
-        # on the completed path this repeats the finish hook idempotently.
+        # (injected chaos faults included) between begin_tensorize and
+        # finish_tensorize — leaves the persistent arrays and job
+        # blocks rebound with the finish-time re-price never reached,
+        # so the incremental / tensor_cache ledgers would under-count
+        # until the next COMPLETED build on this cache (or forever, for
+        # an abandoned cache).  Settle both on every exit; on the
+        # completed path these repeat the finish hooks idempotently.
+        from . import incremental as _inc
+        st = _inc.state_for(ssn.cache, create=False)
+        if st is not None:
+            st._mem_refresh()
         tc = getattr(ssn.cache, "_tensor_cache", None)
         if tc is not None:
             tc._mem_refresh()
-
-
-def _dirty_node_rows(node_names, node_objs, mutated_nodes,
-                     pack) -> List[tuple]:
-    """The node rows whose snapshot epoch moved past the pack's stamp
-    (plus session-mutated ones): the pack refresh's walk
-    (kube_batch_tpu/models/incremental.py ``_dirty_node_rows``)."""
-    dirty = []
-    for ix, name in enumerate(node_names):
-        if name in mutated_nodes:
-            dirty.append((ix, None))
-            continue
-        ep = getattr(node_objs[ix], "snap_epoch", None)
-        if ep is not None and pack.epochs[ix] == ep:
-            continue
-        dirty.append((ix, ep))
-    return dirty
 
 
 def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
@@ -1142,15 +1131,24 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
     w_podaff = struct["w_podaff"]
     w_nodeaff = struct["w_nodeaff"]
 
-    # Cross-session tensor cache.  No incremental session plan: the
-    # reference's INCREMENTAL=0 arm (micro sessions come with ROADMAP
-    # queue 1 item 1), so every build scans the whole session.
+    # Cross-session tensor cache + the incremental session plan: the
+    # plan (models/incremental.py) classifies this build micro / full /
+    # fallback from the dirty sets BEFORE any O(cluster) scan runs.  A
+    # micro plan revalidates the resource axis from dirty objects only
+    # and precomputes the dirty node rows the pack refresh consumes;
+    # KUBE_BATCH_TPU_INCREMENTAL=0 keeps this exactly the pre-plan path.
     tc = _tensor_cache(ssn.cache)
     mutated_jobs = getattr(ssn, "mutated_jobs", set())
     mutated_nodes = getattr(ssn, "mutated_nodes", set())
     node_names = sorted(ssn.nodes)  # must match utils.get_node_list order
     node_objs = [ssn.nodes[name] for name in node_names]
-    axis = _resource_axis(ssn)
+    from . import incremental as _inc
+    plan = _inc.begin_tensorize(ssn, tc, node_names, node_objs,
+                                mutated_jobs, mutated_nodes, struct)
+    if plan is not None and plan.axis is not None:
+        axis = list(plan.axis)
+    else:
+        axis = _resource_axis(ssn)
     snap.resource_names = axis
     r = len(axis)
 
@@ -1208,9 +1206,15 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
         # Same membership: refresh only rows whose snapshot epoch moved
         # (or whose session clone was already mutated this cycle).  When a
         # large fraction is dirty (e.g. the informer echo of a mass bind),
-        # the vectorized full build beats per-row numpy calls.
-        dirty = _dirty_node_rows(node_names, node_objs, mutated_nodes,
-                                 pack)
+        # the vectorized full build beats per-row numpy calls.  A micro
+        # plan already ran this exact walk (incremental._dirty_node_rows
+        # — the shared helper) and hands the rows over, so the epoch
+        # pass happens once per session.
+        if plan is not None and plan.node_dirty is not None:
+            dirty = plan.node_dirty
+        else:
+            dirty = _inc._dirty_node_rows(node_names, node_objs,
+                                          mutated_nodes, pack)
         node_dirty_rows = [ix for ix, _ep in dirty]
         if len(dirty) > max(64, n_real // 5):
             epochs = pack.epochs  # keep clean rows' stamps
@@ -1377,9 +1381,8 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
     from ..metrics.metrics import set_cycle_floor as _set_floor
     from ..metrics.metrics import set_stage_rows as _set_stage_rows
     stage_start = time.perf_counter()
-    # The full concatenation: the reference's INCREMENTAL=0 arm (its
-    # persistent staging comes with ROADMAP queue 1 item 1).
-    fast_stage = False
+    fast_stage = (tc.persistent and _inc.wire_fast_enabled()
+                  and _inc.incremental_enabled())
     sig_cand = None
     if fast_stage:
         (tasks, task_res, task_req_q64, task_res_q64, sig_cand,
@@ -1536,7 +1539,7 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
         # state a later session patches in place).
         occ_start = time.perf_counter()
         occ_key = (tuple(used_pg), tuple(used_sel), n_pad, np_pad, ns_pad)
-        persist = False  # the reference's INCREMENTAL=0 arm (queue 1 item 1)
+        persist = tc.persistent and _inc.incremental_enabled()
         if (persist and tc.occ_key == occ_key
                 and tc.occ_ports is not None
                 and node_dirty_rows is not None
@@ -1622,7 +1625,15 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
     # cliff a heterogeneous 64-signature x 10k-node session would hit,
     # while unique per-node labels (kubernetes.io/hostname) drop out
     # unless a signature actually selects on them.
-    if sig_tuples:
+    patched = (_inc.patch_sig_mask(plan, ssn, sig_tuples, node_objs,
+                                   n_pad, w_nodeaff)
+               if plan is not None and sig_tuples else None)
+    if patched is not None:
+        # Micro path: the persistent mask with only dirty node columns
+        # re-evaluated — bit-identical to the profile build below
+        # (models/incremental.patch_sig_mask documents why).
+        sig_mask, sig_bonus = patched
+    elif sig_tuples:
         from ..plugins.nodeorder import node_affinity_score
         label_keys = set()
         for sel, _tol, aff, pref in sig_tuples:
@@ -1686,8 +1697,12 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
         if n_real:
             sig_mask[:, :n_real] = prof_mask[:, profile_of]
             sig_bonus[:, :n_real] = prof_bonus[:, profile_of]
+        if plan is not None:
+            _inc.store_sig_mask(plan, sig_tuples, sig_mask, sig_bonus)
     else:
         sig_mask[:, :n_real] = True
+        if plan is not None:
+            _inc.store_sig_mask(plan, (), None, None)
     # Fragmentation-aware topology bonus (doc/TOPOLOGY.md): the topology
     # plugin computed the at-open bonus ONCE in on_session_open and
     # stashed the exact integers on the session — folding the same array
@@ -1837,5 +1852,6 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
         has_pod_affinity=bool(aff_rows or anti_rows) and has_predicates,
         has_pod_affinity_score=bool(paff_rows or panti_rows),
         weights=weights)
+    _inc.finish_tensorize(plan, ssn, snap.resource_names, n_real, j_real)
     tc._mem_refresh()
     return snap

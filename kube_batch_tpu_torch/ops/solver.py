@@ -9,7 +9,9 @@ tensor it is that kernel's plain PyTorch version.
 
 ``dispatch_solve`` enqueues the solve without blocking; ``fetch_solve``
 reads back assignment, kind, order and the placement permutation as one
-transfer.
+transfer.  A candidate-row solve (ops/prefilter.py) gathers the
+prefiltered node rows out of the resident inputs and runs the same route
+on them; the fetch scatters the assignment back to full-space rows.
 """
 
 from __future__ import annotations
@@ -116,10 +118,13 @@ class PendingSolve(NamedTuple):
     """A dispatched solve that has not been fetched.  On the card,
     ``packed`` is a pinned host tensor that a non-blocking copy fills and
     ``ready`` is the CUDA event recorded after that copy.  On the CPU the
-    solve ran synchronously and ``ready`` is None.  Every dispatched
-    handle ends in exactly one ``fetch_solve`` or ``discard_solve``."""
+    solve ran synchronously and ``ready`` is None.  ``remap`` (numpy [C]
+    int32, candidate-row solves only) maps each gathered row back to its
+    full-space node row.  Every dispatched handle ends in exactly one
+    ``fetch_solve`` or ``discard_solve``."""
     packed: torch.Tensor       # [4, P] i32: assignment/kind/order/perm
     ready: object = None       # torch.cuda.Event, or None on the CPU
+    remap: object = None       # np [C] int32, or None for a full solve
 
 
 # In-flight dispatch ledger (process-wide): dispatched-but-not-consumed
@@ -148,12 +153,68 @@ def discard_solve(pending: PendingSolve) -> None:
         _note_dispatch(-1)
 
 
-def dispatch_solve(inp: SolverInputs, cfg: SolverConfig) -> PendingSolve:
+def _gather_candidate_inputs(inp: SolverInputs, idx: torch.Tensor,
+                             valid: torch.Tensor) -> SolverInputs:
+    """Rebucket the node axis to the candidate rows (ascending full-space
+    order, so first-max tie-breaks survive the gather): node-major leaves
+    take rows of the resident inputs, [S, N] leaves take columns, on the
+    device that holds them, and padding rows are masked out through
+    node_exists (their data repeats the last real candidate, so
+    downstream math stays well-defined).  ``index_select`` allocates, so
+    every gathered leaf is a copy: a later delta ship that rewrites the
+    resident buffer in place cannot change a pending gathered solve.
+    Everything replicated (tasks/jobs/queues/cluster, including
+    total_res and score_shift — the DRF denominator and score grid stay
+    full-cluster) passes through untouched.  ``node_coords`` stays
+    [N, 8], as in the reference: the solve never reads it
+    (ops/cuda_solver.build_buffers takes no topology row)."""
+    def take(a):
+        return torch.index_select(a, 0, idx)
+
+    return inp._replace(
+        node_idle=take(inp.node_idle),
+        node_releasing=take(inp.node_releasing),
+        node_used=take(inp.node_used),
+        node_alloc=take(inp.node_alloc),
+        node_count=take(inp.node_count),
+        node_max_tasks=take(inp.node_max_tasks),
+        node_exists=take(inp.node_exists) & valid,
+        node_ports=take(inp.node_ports),
+        node_selcnt=take(inp.node_selcnt),
+        sig_mask=torch.index_select(inp.sig_mask, 1, idx),
+        sig_bonus=torch.index_select(inp.sig_bonus, 1, idx))
+
+
+def _solve_candidates(inp: SolverInputs, cfg: SolverConfig,
+                      candidates) -> SolveResult:
+    """The candidate-row program: gather [C] rows out of the resident
+    inputs and run the session solve on them, on the route
+    ``choose_solver_mesh`` picks for the gathered inputs (the kernel on
+    the card, its plain version on the CPU).  Placement-identical to the
+    full program by the prefilter's exactness argument (ops/prefilter.py;
+    tests/test_torch_prefilter.py holds it)."""
+    dev = inp.node_idle.device
+    # The index and valid rows go to the device once per session.
+    idx = torch.as_tensor(candidates.idx, dtype=torch.long, device=dev)
+    valid = torch.as_tensor(candidates.valid, device=dev)
+    return best_solve_allocate(_gather_candidate_inputs(inp, idx, valid),
+                               cfg)
+
+
+def dispatch_solve(inp: SolverInputs, cfg: SolverConfig,
+                   candidates=None) -> PendingSolve:
     """Route and dispatch the solve without blocking on its result.  On
     the card the kernel, the packing and a non-blocking copy into pinned
     host memory are enqueued on the current stream, followed by an event;
-    on the CPU everything runs synchronously."""
-    result = best_solve_allocate(inp, cfg)
+    on the CPU everything runs synchronously.  ``candidates``
+    (ops/prefilter.CandidateSet) narrows the node axis to the
+    prefiltered rows; the fetch remaps the result to full space."""
+    if candidates is not None:
+        result = _solve_candidates(inp, cfg, candidates)
+        remap = candidates.remap
+    else:
+        result = best_solve_allocate(inp, cfg)
+        remap = None
     packed = _pack_result_ordered(result.assignment, result.kind,
                                   result.order)
     if packed.is_cuda:
@@ -161,9 +222,9 @@ def dispatch_solve(inp: SolverInputs, cfg: SolverConfig) -> PendingSolve:
         host.copy_(packed, non_blocking=True)
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(packed.device))
-        pending = PendingSolve(host, ready)
+        pending = PendingSolve(host, ready, remap)
     else:
-        pending = PendingSolve(packed)
+        pending = PendingSolve(packed, None, remap)
     _note_dispatch(+1)
     return pending
 
@@ -173,7 +234,11 @@ def fetch_solve(pending: PendingSolve):
 
     Returns numpy (assignment, kind, order, ordered) where ``ordered`` is
     the placed task ids in placement order: the device-computed
-    equivalent of ``placed[np.argsort(order[placed], kind="stable")]``."""
+    equivalent of ``placed[np.argsort(order[placed], kind="stable")]``.
+    A candidate-row solve's assignment column is scattered back to
+    full-space node rows here (unplaced rows keep -1), so consumers never
+    see program-local indices; ``perm`` indexes tasks, not nodes, and
+    passes through unchanged."""
     try:
         if pending.ready is not None:
             pending.ready.synchronize()
@@ -183,6 +248,20 @@ def fetch_solve(pending: PendingSolve):
         # handle from the in-flight ledger.
         _note_dispatch(-1)
     assignment, kind, order, perm = packed
+    if pending.remap is not None:
+        # A placement outside the gathered program's C rows is a
+        # malformed result: raise, where the reference clips (the action
+        # validates the remapped rows against N in turn).
+        remap = pending.remap
+        placed = kind > 0
+        local = assignment[placed]
+        if local.size and (int(local.min()) < 0
+                           or int(local.max()) >= len(remap)):
+            raise RuntimeError(
+                f"malformed candidate solve result: node row outside the "
+                f"{len(remap)} gathered rows")
+        assignment = assignment.copy()
+        assignment[placed] = remap[local]
     n_placed = int(np.count_nonzero(kind > 0))
     return assignment, kind, order, perm[:n_placed]
 

@@ -22,15 +22,33 @@ SHARE_DELTA = 0.000001
 
 
 class _DrfAttr:
-    """Per-job DRF state, built eagerly at session open (the
-    reference's INCREMENTAL=0 arm; its lazy per-clone cache comes with
-    incremental sessions, ROADMAP queue 1 item 1)."""
+    """Per-job DRF state.  ``allocated`` materializes lazily on the fast
+    path: the open-time vectorized share (models/incremental.
+    drf_open_shares) needs only the float columns, so the per-job
+    Resource clone — O(jobs) allocations per session — is deferred until
+    something actually reads it (preemption path, allocate/deallocate
+    event handlers).  The materialized value is the cached per-clone
+    open walk cloned out, exactly what the control arm assigns
+    eagerly."""
 
-    __slots__ = ("share", "allocated")
+    __slots__ = ("share", "_alloc", "_job")
 
     def __init__(self):
         self.share = 0.0
-        self.allocated = Resource.empty()
+        self._alloc = Resource.empty()
+        self._job = None
+
+    @property
+    def allocated(self) -> Resource:
+        res = self._alloc
+        if res is None:
+            from ..models.incremental import _drf_alloc_of
+            res = self._alloc = _drf_alloc_of(self._job).clone()
+        return res
+
+    @allocated.setter
+    def allocated(self, res: Resource) -> None:
+        self._alloc = res
 
 
 class DrfPlugin(Plugin):
@@ -55,27 +73,74 @@ class DrfPlugin(Plugin):
         attr.share = self._calculate_share(attr.allocated)
 
     def on_session_open(self, ssn) -> None:
-        # The O(nodes) total and O(allocated tasks) per-job walks: the
-        # reference's INCREMENTAL=0 arm (its cached aggregates and
-        # vectorized shares come with incremental sessions, ROADMAP
-        # queue 1 item 1).
-        for node in ssn.nodes.values():
-            self.total_resource.add(node.allocatable)
+        from ..models.incremental import (cluster_total_allocatable,
+                                          plugin_cache_enabled)
+        reuse = plugin_cache_enabled(ssn.cache)
 
+        # Total allocatable from the snapshot map's exact-int running
+        # sum when available (doc/INCREMENTAL.md "floors"); the O(nodes)
+        # walk stays for the control arm and fractional clusters.
+        cached_total = cluster_total_allocatable(ssn)
+        if cached_total is not None:
+            self.total_resource = cached_total
+        else:
+            for node in ssn.nodes.values():
+                self.total_resource.add(node.allocatable)
+
+        # Incremental open (doc/INCREMENTAL.md): the per-job allocated
+        # aggregate is cached on the job CLONE, so the O(all allocated
+        # tasks) walk runs only for clones the informers (or a session)
+        # touched — clone identity is the validity token (a mutated
+        # clone is discarded from the snapshot pool and never served
+        # again).  Exact by construction: the cached Resource was built
+        # by this very walk and is cloned back out, so shares equal the
+        # uncached path bit for bit.  KUBE_BATCH_TPU_INCREMENTAL=0
+        # restores the unconditional walk (the parity control).
         # Per-tenant accounting rider (metrics/tenants.py): the largest
-        # job share inside each queue, collected in the SAME walk.
+        # job share inside each queue, collected in the SAME walk (one
+        # compare per job, both churn-A/B arms identical).
+        #
+        # Wire fast path (doc/INCREMENTAL.md "Wire fast path"): the
+        # per-job ``_calculate_share`` recompute — a Python loop over
+        # resource names per job, the drf half of the plugin floor —
+        # collapses into ONE vectorized column op over the persistent
+        # per-job allocation matrix, patched for dirty jobs only
+        # (models/incremental.drf_open_shares documents the bit-parity
+        # argument).  KUBE_BATCH_TPU_WIRE_FAST=0 restores this loop.
+        from ..models.incremental import drf_open_shares
+        agg = drf_open_shares(ssn, self.total_resource) if reuse else None
         q_max: dict = {}
-        for job in ssn.jobs.values():
-            attr = _DrfAttr()
-            for status, tasks in job.task_status_index.items():
-                if allocated_status(status):
-                    for t in tasks.values():
-                        attr.allocated.add(t.resreq)
-            self._update_share(attr)
-            self.job_attrs[job.uid] = attr
-            q_cur = q_max.get(job.queue)
-            if q_cur is None or attr.share > q_cur:
-                q_max[job.queue] = attr.share
+        if agg is not None:
+            shares = agg.shares
+            index = agg.index
+            for uid, job in ssn.jobs.items():
+                attr = _DrfAttr()
+                attr._alloc = None  # lazy: _drf_open_alloc.clone()
+                attr._job = job
+                attr.share = float(shares[index[uid]])
+                self.job_attrs[uid] = attr
+                q_cur = q_max.get(job.queue)
+                if q_cur is None or attr.share > q_cur:
+                    q_max[job.queue] = attr.share
+        else:
+            for job in ssn.jobs.values():
+                attr = _DrfAttr()
+                cached = getattr(job, "_drf_open_alloc", None) if reuse \
+                    else None
+                if cached is not None:
+                    attr.allocated = cached.clone()
+                else:
+                    for status, tasks in job.task_status_index.items():
+                        if allocated_status(status):
+                            for t in tasks.values():
+                                attr.allocated.add(t.resreq)
+                    if reuse:
+                        job._drf_open_alloc = attr.allocated.clone()
+                self._update_share(attr)
+                self.job_attrs[job.uid] = attr
+                q_cur = q_max.get(job.queue)
+                if q_cur is None or attr.share > q_cur:
+                    q_max[job.queue] = attr.share
         from ..metrics.tenants import tenant_table
         # Shard-scoped sessions merge over their own queue universe —
         # the shard map's membership test, so deleted queues still

@@ -81,9 +81,11 @@ class GangPlugin(Plugin):
         plus a re-read of this session's mutated jobs) so ready jobs
         cost no Python visit.  Unready jobs run the identical per-job
         body; KUBE_BATCH_TPU_WIRE_FAST=0 restores the full walk."""
-        # The full walk: the reference's WIRE_FAST=0 arm (its per-job
-        # columns come with incremental sessions, ROADMAP queue 1 item 1).
-        unready_jobs = [job for job in ssn.jobs.values() if not job.ready()]
+        from ..models.incremental import gang_close_unready
+        unready_jobs = gang_close_unready(ssn)
+        if unready_jobs is None:
+            unready_jobs = [job for job in ssn.jobs.values()
+                            if not job.ready()]
         unschedulable_jobs = 0
         for job in unready_jobs:
             unready = job.min_available - job.ready_task_num()

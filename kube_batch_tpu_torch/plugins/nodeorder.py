@@ -48,9 +48,20 @@ class GridUsage:
     def __init__(self, ssn):
         self.cap: Dict[str, Tuple[int, int]] = {}
         self.used: Dict[str, Tuple[int, int]] = {}
-        # The column pass: the reference's INCREMENTAL=0 arm (its snapshot
-        # map aggregates come with incremental sessions, ROADMAP queue 1
-        # item 1).
+        # Snapshot-map fast path (doc/INCREMENTAL.md "floors"): the
+        # quantized per-node entries and the shift are maintained from
+        # map-entry changes — same ints as the column pass below (the
+        # per-value/column quantization identity this class documents).
+        # The accessor hands private copies, so the live ``used``
+        # mutation by the event handlers touches nothing shared.
+        from ..models.incremental import node_open_aggregates
+        agg = node_open_aggregates(ssn)
+        if agg is not None:
+            _total, cap, used, shift = agg
+            self.cap = cap
+            self.used = used
+            self.shift = shift
+            return
         names = list(ssn.nodes)
         if names:
             # Column-wise quantization (identical ints to per-value

@@ -54,15 +54,39 @@ class ProportionPlugin(Plugin):
         attr.share = res
 
     def on_session_open(self, ssn) -> None:
-        # The O(nodes) walk: the reference's INCREMENTAL=0 arm (its cached
-        # total comes with incremental sessions, ROADMAP queue 1 item 1).
-        for node in ssn.nodes.values():
-            self.total_resource.add(node.allocatable)
+        from ..models.incremental import cluster_total_allocatable
+        cached_total = cluster_total_allocatable(ssn)
+        if cached_total is not None:
+            # Snapshot-map running sum (exact-int gated): identical
+            # floats to the walk below (doc/INCREMENTAL.md "floors").
+            self.total_resource = cached_total
+        else:
+            for node in ssn.nodes.values():
+                self.total_resource.add(node.allocatable)
 
-        # Aggregate allocated/request per queue (proportion.go:69-99),
-        # one per-task walk: the reference's INCREMENTAL=0 arm (its cached
-        # per-job subtotals come with incremental sessions, ROADMAP queue
-        # 1 item 1).
+        # Aggregate allocated/request per queue (proportion.go:69-99).
+        # Incremental open (doc/INCREMENTAL.md): a job clone the
+        # informers have not touched contributes the same per-task add
+        # sequence every cycle, so its (allocated, request) subtotal is
+        # cached on the clone and added in ONE step.  Caching is gated
+        # on every contributing value being an exact binary integer
+        # (models/incremental.resource_exact): integer partial sums are
+        # exactly representable, so the collapsed add equals the
+        # per-task sequence bit for bit — fractional quantities keep
+        # the original walk and are never cached.  The clone is the
+        # validity token (mutated clones leave the snapshot pool).
+        # KUBE_BATCH_TPU_INCREMENTAL=0 restores the unconditional walk.
+        from ..models.incremental import (plugin_cache_enabled,
+                                          resource_exact)
+        reuse = plugin_cache_enabled(ssn.cache)
+        # Per-queue rolling exactness: a collapsed add is only exact
+        # while the queue ACCUMULATOR is still an exact integer — one
+        # fractional job earlier in the walk poisons every later
+        # collapsed add of that queue (acc + (t1+..+tn) reassociates vs
+        # ((acc+t1)+..)+tn once acc is fractional).  The prefix before
+        # the first fractional contribution is integer-exact in both
+        # arms, so gating consumption on the running flag is airtight.
+        q_exact: Dict[str, bool] = {}
         # Per-tenant fairness accounting (metrics/tenants.py): pending
         # demand + the oldest still-waiting job per queue, tracked inside
         # the SAME O(jobs) walk the open already does (two dict ops per
@@ -90,6 +114,46 @@ class ProportionPlugin(Plugin):
                     pend[0] += 1
                     if ts < pend[1]:
                         pend[1] = ts
+            qe = q_exact.get(job.queue, True)
+            cached = getattr(job, "_prop_open_agg", None) \
+                if reuse and qe else None
+            if cached is not None:
+                # Cached subtotals are exact by construction, so the
+                # queue accumulator stays exact.
+                attr.allocated.add(cached[0])
+                attr.request.add(cached[1])
+                continue
+            if reuse and qe:
+                alloc_sub = Resource.empty()
+                req_sub = Resource.empty()
+                exact = True
+                for status, tasks in job.task_status_index.items():
+                    if allocated_status(status):
+                        for t in tasks.values():
+                            attr.allocated.add(t.resreq)
+                            attr.request.add(t.resreq)
+                            alloc_sub.add(t.resreq)
+                            req_sub.add(t.resreq)
+                            if exact and not resource_exact(t.resreq):
+                                exact = False
+                    elif status == TaskStatus.Pending:
+                        for t in tasks.values():
+                            attr.request.add(t.resreq)
+                            req_sub.add(t.resreq)
+                            if exact and not resource_exact(t.resreq):
+                                exact = False
+                # Subtotal bound too: requests are non-negative, so an
+                # in-range subtotal bounds every partial sum the control
+                # walk passes through — the collapsed add stays exact.
+                if exact and resource_exact(alloc_sub) \
+                        and resource_exact(req_sub):
+                    job._prop_open_agg = (alloc_sub, req_sub)
+                else:
+                    # The accumulator may be fractional from here on:
+                    # no later job of this queue may consume a cached
+                    # subtotal this session.
+                    q_exact[job.queue] = False
+                continue
             for status, tasks in job.task_status_index.items():
                 if allocated_status(status):
                     for t in tasks.values():

@@ -49,6 +49,21 @@ def test_slices_cover_nodes_once(n, dtype):
 
 
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("rows", [8, 512, 1_280])
+def test_gathered_candidate_rows_plan_small_clusters(rows, dtype):
+    """A steady session's candidate-row launch gathers C rows (about one
+    per pending task, 512 at 1% churn of the north star; 8 and 1,280
+    bracket it) with the north star's job and queue axes: one CTA while
+    the slice fits SLICE_NODES, two beyond, and every row on chip."""
+    plan = _plan((rows, 2, 0, 0, 2_048, 8), DTYPES[dtype])
+    assert plan.cluster == (1 if rows <= cuda_solver.SLICE_NODES else 2)
+    assert plan.slice * plan.cluster >= rows
+    assert plan.smem_rows == plan.rows
+    assert plan.jsta_smem and plan.jwork_smem and plan.queue_smem
+    assert plan.smem_bytes <= SMEM_PER_CTA
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
 @pytest.mark.parametrize("shape", [NORTH_STAR, FEATURES],
                          ids=["north-star", "features"])
 def test_north_star_state_fits_on_chip(shape, dtype):

@@ -4,10 +4,11 @@ tests/conftest.py imports jax into this process, so the check runs in a
 fresh interpreter.  A ``sys.meta_path`` hook there refuses ``jax``,
 ``jaxlib`` and ``kube_batch_tpu`` (and their submodules, but not
 ``kube_batch_tpu_torch``); under it the subprocess imports every module of
-the port, runs one small ship -> dispatch -> fetch on the CPU, runs one
-whole ``open_session -> tpu-allocate -> close_session`` on the CPU, and
-checks that ``TpuAllocateAction()`` without a device raises when there is
-no CUDA.
+the port, runs one small ship -> dispatch -> fetch on the CPU, runs three
+whole ``open_session -> tpu-allocate -> close_session`` sessions on one
+cache with churn between them on the CPU (the third a micro session on
+the candidate route), and checks that ``TpuAllocateAction()`` without a
+device raises when there is no CUDA.
 """
 
 import pkgutil
@@ -51,7 +52,9 @@ assert ordered.size > 0 and (kind > 0).sum() == ordered.size
 from kube_batch_tpu_torch.actions.factory import register_default_actions
 from kube_batch_tpu_torch.actions.tpu_allocate import TpuAllocateAction
 from kube_batch_tpu_torch.framework import close_session, open_session
-from kube_batch_tpu_torch.models.synthetic import make_synthetic_cache
+from kube_batch_tpu_torch.models import incremental
+from kube_batch_tpu_torch.models.synthetic import (SteadyChurn,
+                                                   make_synthetic_cache)
 from kube_batch_tpu_torch.plugins.factory import register_default_plugins
 from kube_batch_tpu_torch.scheduler import (DEFAULT_SCHEDULER_CONF,
                                             parse_scheduler_conf)
@@ -59,14 +62,22 @@ from kube_batch_tpu_torch.scheduler import (DEFAULT_SCHEDULER_CONF,
 register_default_plugins()
 register_default_actions(device="cpu")
 cache, binder = make_synthetic_cache(300, 40, 12, 3)
+churn = SteadyChurn(cache, binder, 300, 3, churn=0.02)
 tiers = parse_scheduler_conf(DEFAULT_SCHEDULER_CONF).tiers
 action = TpuAllocateAction(device="cpu", dtype=torch.float32)
-ssn = open_session(cache, tiers)
-try:
-    action.execute(ssn)
-finally:
-    close_session(ssn)
-assert action.last.route == "torch" and len(binder.binds) > 0
+for session in range(3):
+    if session:
+        churn.inject(session)
+    ssn = open_session(cache, tiers)
+    try:
+        action.execute(ssn)
+    finally:
+        close_session(ssn)
+    assert action.last.route == "torch" and len(binder.binds) > 0
+state = incremental.state_for(cache)
+assert state.last_kind == "micro", (state.last_kind, state.last_reason)
+assert action.last.candidates is not None
+assert action.last.candidates.count < len(cache.nodes)
 if not torch.cuda.is_available():
     try:
         TpuAllocateAction()

@@ -193,8 +193,8 @@ def test_port_session_records_its_route_and_stages():
     last = out["action"].last
     assert last.route == "torch"
     assert last.inputs.job_ts.dtype == torch.float32
-    assert set(last.stages) == {"tensorize", "ship", "dispatch_fetch",
-                                "apply"}
+    assert set(last.stages) == {"tensorize", "ship", "prefilter",
+                                "dispatch_fetch", "apply"}
     assert [k for k, _ in out["binds"]] == [
         f"{last.snap.tasks[t].pod.metadata.namespace}/"
         f"{last.snap.tasks[t].pod.metadata.name}"

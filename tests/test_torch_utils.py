@@ -15,6 +15,7 @@ SolverInputs and SolverConfig.
 
 import contextlib
 import copy
+import dataclasses
 import os
 import types
 
@@ -293,3 +294,201 @@ def assert_session_parity(spec, *, x64=True, mutate=None, env=None,
     for js, ts in zip(jax_out["snaps"], torch_out["snaps"]):
         assert_same_snapshot(js, ts)
     return jax_out, torch_out
+
+
+class Arm:
+    """One package's long-lived synthetic cluster, driven session by
+    session for the incremental and candidate-row cases: the port
+    (``pkg="torch"``, float64 keys when ``x64`` else float32) or the JAX
+    package (every call under ``jax.enable_x64(x64)``).  Each step takes
+    the same arguments in both packages, so two arms run one schedule of
+    churn twice and the tests compare what they observe."""
+
+    def __init__(self, pkg, shape, *, n_signatures=1, x64=True, conf=None):
+        self.pkg = pkg
+        self.x64 = x64
+        self.m = m = _package(pkg)
+        self.dtype = torch.float64 if x64 else torch.float32
+        if pkg == "torch":
+            from kube_batch_tpu_torch.models import incremental
+            from kube_batch_tpu_torch.models.synthetic import \
+                make_synthetic_cache
+            m.plugins.register_default_plugins()
+            m.actions.register_default_actions(device="cpu",
+                                               dtype=self.dtype)
+            self.action = TpuAllocateAction(device="cpu", dtype=self.dtype)
+        else:
+            from kube_batch_tpu.actions.tpu_allocate import \
+                TpuAllocateAction as JaxTpuAllocate
+            from kube_batch_tpu.models import incremental
+            from kube_batch_tpu.models.synthetic import make_synthetic_cache
+            m.plugins.register_default_plugins()
+            m.actions.register_default_actions()
+            self.action = JaxTpuAllocate()
+        self.incremental = incremental
+        self.tiers = self.tiers_of(conf or m.scheduler.DEFAULT_SCHEDULER_CONF)
+        with self.ctx():
+            self.cache, self.binder = make_synthetic_cache(
+                *shape, n_signatures=n_signatures)
+
+    def ctx(self):
+        if self.pkg == "jax":
+            return jax.enable_x64(self.x64)
+        return contextlib.nullcontext()
+
+    def tiers_of(self, conf):
+        if self.pkg == "jax":
+            return self.m.scheduler.load_scheduler_conf(conf)[1]
+        return self.m.scheduler.parse_scheduler_conf(conf).tiers
+
+    def open(self, tiers=None):
+        with self.ctx():
+            return self.m.framework.open_session(self.cache,
+                                                 tiers or self.tiers)
+
+    def close(self, ssn):
+        with self.ctx():
+            self.m.framework.close_session(ssn)
+
+    def tensorize(self, ssn):
+        with self.ctx():
+            if self.pkg == "jax":
+                return self.m.tensorize.tensorize_session(ssn)
+            return self.m.tensorize.tensorize_session(ssn, self.dtype)
+
+    def cycle(self, echo=True):
+        """One open -> tpu-allocate -> close session; returns the new
+        binds as a sorted tuple, then echoes them when ``echo``."""
+        ssn = self.open()
+        try:
+            with self.ctx():
+                self.action.execute(ssn)
+        finally:
+            self.close(ssn)
+        binds = tuple(sorted(self.binder.binds.items()))
+        if echo:
+            self.echo()
+        return binds
+
+    def echo(self):
+        """The informer echo: binds back as Running pods, pod-group
+        status writes back into the cache."""
+        api = self.m.api
+        podmap = {api.pod_key(t.pod): t.pod
+                  for job in self.cache.jobs.values()
+                  for t in job.tasks.values()}
+        for key, node in sorted(self.binder.binds.items()):
+            old = podmap.get(key)
+            if old is None:
+                continue
+            new = dataclasses.replace(
+                old, spec=dataclasses.replace(old.spec, node_name=node),
+                status=api.PodStatus(phase="Running"))
+            self.cache.update_pod(old, new)
+        self.binder.binds.clear()
+        updater = self.cache.status_updater
+        for pg in updater.pod_groups:
+            self.cache.add_pod_group(pg)
+        updater.pod_groups.clear()
+
+    def pod_group(self, name, min_member=1, queue="q0", ns="bench"):
+        v1 = self.m.v1alpha1
+        return v1.PodGroup(
+            metadata=self.m.api.ObjectMeta(name=name, namespace=ns),
+            spec=v1.PodGroupSpec(min_member=min_member, queue=queue))
+
+    def add_churn_job(self, tag, n_pods=3, cpu="500m", mem="1Gi",
+                      queue="q0", ports=None, min_member=1, ts=1e6):
+        api = self.m.api
+        pg = f"churn-{tag}"
+        self.cache.add_pod_group(self.pod_group(pg, min_member, queue))
+        pods = []
+        for i in range(n_pods):
+            pod = api.Pod(
+                metadata=api.ObjectMeta(
+                    name=f"{pg}-{i}", namespace="bench", uid=f"{pg}-{i}",
+                    annotations={
+                        self.m.v1alpha1.GroupNameAnnotationKey: pg},
+                    creation_timestamp=ts + i),
+                spec=api.PodSpec(containers=[api.Container(
+                    requests={"cpu": cpu, "memory": mem},
+                    ports=[api.ContainerPort(host_port=p, protocol="TCP")
+                           for p in (ports or [])])]),
+                status=api.PodStatus(phase="Pending"))
+            self.cache.add_pod(pod)
+            pods.append(pod)
+        return pg, pods
+
+    def running_task(self):
+        jobs = self.cache.jobs
+        for uid in sorted(jobs):
+            for tuid in sorted(jobs[uid].tasks):
+                t = jobs[uid].tasks[tuid]
+                if t.node_name:
+                    return t
+        raise AssertionError("no running task")
+
+    def update_node_alloc(self, name, cpu="32", memory="128Gi", pods=200):
+        node = self.cache.nodes[name].node
+        alloc = {"cpu": cpu, "memory": memory, "pods": pods}
+        self.cache.update_node(node, dataclasses.replace(
+            node, status=self.m.api.NodeStatus(allocatable=dict(alloc),
+                                               capacity=dict(alloc))))
+
+    def add_node(self, name, alloc):
+        api = self.m.api
+        self.cache.add_node(api.Node(
+            metadata=api.ObjectMeta(name=name, uid=name), spec=api.NodeSpec(),
+            status=api.NodeStatus(allocatable=dict(alloc),
+                                  capacity=dict(alloc))))
+
+    def state(self):
+        return self.incremental.state_for(self.cache, create=False)
+
+    def oracle_snapshot(self, ssn):
+        """From-scratch tensorize of the SAME session: every persistent
+        cache detached and KUBE_BATCH_TPU_INCREMENTAL=0."""
+        cache = ssn.cache
+        saved = {}
+        attrs = ("_tensor_cache", "_inc_state", "_ship_cache")
+        for attr in attrs:
+            if hasattr(cache, attr):
+                saved[attr] = getattr(cache, attr)
+                delattr(cache, attr)
+        try:
+            with environ({self.incremental.INCREMENTAL_ENV: "0"}):
+                return self.tensorize(ssn)
+        finally:
+            for attr in attrs:
+                if hasattr(cache, attr):
+                    delattr(cache, attr)
+            for attr, value in saved.items():
+                setattr(cache, attr, value)
+
+
+def assert_same_inputs(a, b, ctx=""):
+    """Two tensorizations of one package (or of both) equal: names,
+    orders, config and every SolverInputs leaf, dtype included."""
+    assert a.needs_fallback == b.needs_fallback, ctx
+    if a.needs_fallback:
+        return
+    assert a.node_names == b.node_names, ctx
+    assert a.job_uids == b.job_uids, ctx
+    assert a.queue_ids == b.queue_ids, ctx
+    assert list(a.resource_names) == list(b.resource_names), ctx
+    assert [t.uid for t in a.tasks] == [t.uid for t in b.tasks], ctx
+    assert [t.uid for t in a.tasks_extra] == \
+        [t.uid for t in b.tasks_extra], ctx
+    assert np.array_equal(a.task_job, b.task_job), ctx
+    assert np.array_equal(a.task_res_f64, b.task_res_f64), ctx
+    assert tuple(a.config.job_key_order) == tuple(b.config.job_key_order)
+    for field in ("queue_key_order", "has_gang", "has_proportion",
+                  "has_ports", "has_pod_affinity", "has_pod_affinity_score"):
+        assert getattr(a.config, field) == getattr(b.config, field), \
+            (ctx, field)
+    assert tuple(a.config.weights) == tuple(b.config.weights), ctx
+    la, lb = _leaves(a.inputs), _leaves(b.inputs)
+    assert list(la) == list(lb), ctx
+    for name in la:
+        assert la[name].dtype == lb[name].dtype, (ctx, name)
+        assert np.array_equal(la[name], lb[name]), (ctx, name)
