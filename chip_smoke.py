@@ -32,7 +32,24 @@ Phases, each printed on its own line:
      the wall time (median, p90) and the kernel's share;
   6. session-vs-cpu: one 5k x 1k session on the card and on the CPU (the
      plain route) must give the same binds in the same order and the
-     same pod-group statuses.
+     same pod-group statuses;
+  7. steady and steady-hetero: the steady state at 1% churn per round,
+     default arm against KUBE_BATCH_TPU_INCREMENTAL=0 (see steady_phase);
+  8. evict: the eviction engine at the north star — the shipped
+     four-action conf (reclaim, tpu-allocate, backfill, preempt) on
+     make_churn_cache(50k, 10k, 2k, 4), one warm cycle per
+     KUBE_BATCH_TPU_BATCH_EVICT arm then off/on/on/off on fresh caches;
+     prints per-action medians and p90s per arm, the evictions and their
+     split by action, the scanner's stats, the trace spans and the
+     session kernel's launches; both arms must evict the same victims in
+     the same order with the same binds, each batched session must make
+     one batched dispatch on the card, each session one kernel launch,
+     and the tasks that stay on a node must fit its allocatable; the
+     batched eviction solve is replayed on the session's staged inputs
+     on the card and on the CPU and must be equal (max abs err 0);
+  9. evict-vs-cpu: the four-action session at 5k x 1k on the card and on
+     the CPU, both arms: the same victims, victim order, binds and
+     events.
 The kernel-vs-plain matrix includes the shapes the kernel once refused:
 2,500 queues in float64 (the queue piece in global memory) and 10 and 20
 resource dims.
@@ -45,6 +62,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -317,6 +335,28 @@ def over_allocatable(node) -> bool:
         return True
     return any(v > (alloc.scalar_resources or {}).get(k, 0.0)
                for k, v in (used.scalar_resources or {}).items())
+
+
+def over_committed(node) -> bool:
+    """Whether the tasks that stay on a node — every resident but the
+    Releasing victims, which leave — hold more than its allocatable in
+    any dimension, or more pods than its cap (exact compares).  After an
+    eviction ``node.used`` still counts the victims until they exit, and
+    a preemptor pipelined onto their room counts as well, so used alone
+    may exceed the allocatable by design."""
+    from kube_batch_tpu_torch.api import Resource, TaskStatus
+    stay = [t for t in node.tasks.values()
+            if t.status is not TaskStatus.Releasing]
+    held = Resource.empty()
+    for t in stay:
+        held.add(t.resreq)
+    alloc = node.allocatable
+    if held.milli_cpu > alloc.milli_cpu or held.memory > alloc.memory:
+        return True
+    if len(stay) > alloc.max_task_num:
+        return True
+    return any(v > (alloc.scalar_resources or {}).get(k, 0.0)
+               for k, v in (held.scalar_resources or {}).items())
 
 
 def session_phase(cuda_solver, card) -> int:
@@ -672,6 +712,340 @@ def steady_phase(cuda_solver, card) -> int:
     return launches + sum(d["launches"] for d in hetero[0])
 
 
+SHIPPED_CONF = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            "config", "kube-batch-conf.yaml")
+
+
+def shipped_conf() -> str:
+    """The shipped four-action conf with tpu-allocate in place of
+    allocate (bench.py measure_action_pipeline does the same)."""
+    with open(SHIPPED_CONF) as fh:
+        conf = fh.read()
+    old = '"reclaim, allocate, backfill, preempt"'
+    if old not in conf:
+        raise AssertionError(f"{SHIPPED_CONF} no longer ships {old}")
+    return conf.replace(old, '"reclaim, tpu-allocate, backfill, preempt"')
+
+
+@contextlib.contextmanager
+def gc_posture():
+    """The production GC posture that bench.py's measure_action_pipeline
+    times the session under: collect, freeze and disable the collector
+    for the block."""
+    import gc
+    gc.collect()
+    gc.freeze()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.unfreeze()
+        gc.enable()
+
+
+@contextlib.contextmanager
+def batch_evict_arm(on: bool):
+    """KUBE_BATCH_TPU_BATCH_EVICT for the block: the batched eviction
+    engine (1) or its sequential control (0)."""
+    name = "KUBE_BATCH_TPU_BATCH_EVICT"
+    old = os.environ.get(name)
+    os.environ[name] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def allocate_vs_plain(cuda_solver, action) -> dict:
+    """tpu-allocate's solve in an evict session held against the
+    kernel's plain version on the same inputs: the assignment, kind and
+    order that the action fetched from its launch must equal
+    solve_allocate_plain's exactly (max abs err 0).  Run right after the
+    action, before a later ship can rewrite the resident inputs.  A
+    gathered (candidate-row) solve is compared on its gathered inputs,
+    its placements mapped back to full-space rows."""
+    from kube_batch_tpu_torch.ops.solver import _gather_candidate_inputs
+    last = action.last
+    if last is None or last.reused:
+        raise AssertionError("tpu-allocate solved nothing on the device in "
+                             "the evict session")
+    inputs, cand = last.inputs, last.candidates
+    dev = inputs.node_idle.device
+    if cand is not None:
+        inputs = _gather_candidate_inputs(
+            inputs, torch.from_numpy(cand.idx).long().to(dev),
+            torch.from_numpy(cand.valid).to(dev))
+    t0 = time.perf_counter()
+    res, _ = cuda_solver.solve_allocate_plain(inputs, last.snap.config)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    assignment = res.assignment.cpu().numpy().astype(np.int64)
+    kind = res.kind.cpu().numpy().astype(np.int64)
+    order = res.order.cpu().numpy().astype(np.int64)
+    got_assignment = np.asarray(last.assignment, np.int64)
+    if cand is not None:
+        placed = kind > 0
+        assignment = np.where(placed, cand.remap[np.clip(
+            assignment, 0, len(cand.remap) - 1)], -1)
+        got_assignment = np.where(placed, got_assignment, -1)
+    err = 0
+    for name, got, want in (("assignment", got_assignment, assignment),
+                            ("kind", last.kind, kind),
+                            ("order", last.order, order)):
+        got = np.asarray(got, np.int64)
+        if got.shape != want.shape:
+            raise AssertionError(f"tpu-allocate's {name} has shape "
+                                 f"{got.shape}, the plain version's "
+                                 f"{want.shape}")
+        if got.size:
+            err = max(err, int(np.abs(got - want).max()))
+    if err:
+        raise AssertionError(f"tpu-allocate's launch in the evict session "
+                             f"!= the plain version: max abs err {err}")
+    return dict(route=last.route, gathered=cand is not None,
+                placed=int((kind > 0).sum()), steps=int(res.step),
+                plain_ms=plain_ms, max_abs_err=err)
+
+
+def evict_cycle(cuda_solver, shape, batched: bool, device="cuda",
+                check_plain=False) -> dict:
+    """One session of the shipped four-action conf (reclaim, tpu-allocate,
+    backfill, preempt) on a fresh make_churn_cache(*shape) on ``device``,
+    float32, under the production GC posture (gc_posture).  Returns each
+    action's host-clock time, the victims in order, the binds, the cache
+    events, the evictions by action, the shared scanner's stats, the
+    session's trace spans summed by name and the session kernel's
+    launches (the count set to 0 just before the session and read just
+    after).  With ``check_plain``, tpu-allocate's solve is held against
+    the plain version right after the action, outside its clock
+    (allocate_vs_plain; the record is under ``vs_plain``).  Raises if
+    the tasks that stay on a node end over its allocatable
+    (over_committed)."""
+    from kube_batch_tpu_torch.framework import close_session, open_session
+    from kube_batch_tpu_torch.metrics.metrics import evictions_by_action
+    from kube_batch_tpu_torch.models.synthetic import make_churn_cache
+    from kube_batch_tpu_torch.scheduler import load_scheduler_conf
+    from kube_batch_tpu_torch.trace import flight_recorder
+    from kube_batch_tpu_torch.trace import spans as tspans
+
+    _register(device)
+    actions, tiers = load_scheduler_conf(shipped_conf())
+    names = [a.name() for a in actions]
+    if names != ["reclaim", "tpu-allocate", "backfill", "preempt"]:
+        raise AssertionError(f"the shipped conf loaded {names}")
+    t0 = time.perf_counter()
+    cache, binder = make_churn_cache(*shape)
+    build_s = time.perf_counter() - t0
+    with batch_evict_arm(batched), gc_posture():
+        before = evictions_by_action()
+        cuda_solver.solve_allocate_cuda.launches = 0
+        sid = tspans.begin_session(bench="evict")
+        ssn = open_session(cache, tiers)
+        action_ms = {}
+        vs_plain = None
+        try:
+            for a in actions:
+                t0 = time.perf_counter()
+                a.execute(ssn)
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                action_ms[a.name()] = (time.perf_counter() - t0) * 1e3
+                if check_plain and a.name() == "tpu-allocate":
+                    vs_plain = allocate_vs_plain(cuda_solver, a)
+            launches = cuda_solver.solve_allocate_cuda.launches
+            over = [name for name, node in ssn.nodes.items()
+                    if over_committed(node)]
+            scanner = getattr(ssn, "_shared_scanner", None)
+        finally:
+            close_session(ssn)
+            tspans.end_session()
+        after = evictions_by_action()
+    spans_ms = {}
+    for sp in flight_recorder.get(sid).spans:
+        spans_ms[sp.name] = spans_ms.get(sp.name, 0.0) + sp.dur / 1e3
+    if over:
+        raise AssertionError(f"{len(over)} nodes over their allocatable "
+                             f"after the session, e.g. {over[:3]}")
+    split = {k: after.get(k, 0) - before.get(k, 0) for k in after}
+    return dict(action_ms=action_ms, build_s=build_s, launches=launches,
+                evicts=list(cache.evictor.evicts),
+                binds=dict(binder.binds), events=list(cache.events),
+                split={k: v for k, v in split.items() if v},
+                spans_ms=spans_ms, scanner=scanner, vs_plain=vs_plain,
+                stats=dict(scanner.stats) if scanner is not None else None)
+
+
+def evict_solve_vs_cpu(scanner) -> dict:
+    """The batched eviction solve (ops/evict_solver.evict_batch_solve,
+    PyTorch tensor code with no kernel of its own) replayed on the
+    session's staged inputs on the card and on the CPU, its plain
+    version: the [K, N] scores and the victim permutation must be equal
+    (max abs err 0).  Times both: CUDA events around the card's call,
+    the host clock around the CPU's."""
+    from kube_batch_tpu_torch.ops.evict_solver import evict_batch_solve
+
+    dyn, trows, node_p, rank_p = scanner.last_batch
+    args = (scanner.cfg, scanner.r, scanner.np_pad, scanner.ns_pad)
+
+    def run(device, statics):
+        return evict_batch_solve(
+            *args, statics, torch.as_tensor(dyn, device=device),
+            torch.as_tensor(trows, device=device),
+            torch.as_tensor(node_p, device=device),
+            torch.as_tensor(rank_p, device=device))
+
+    card_statics = scanner.statics
+    cpu_statics = type(card_statics)(*(t.cpu() for t in card_statics))
+    run("cuda", card_statics)          # warm the card's allocator
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    card_ms = []
+    for _ in range(5):
+        start.record()
+        card = run("cuda", card_statics)
+        stop.record()
+        torch.cuda.synchronize()
+        card_ms.append(start.elapsed_time(stop))
+    t0 = time.perf_counter()
+    cpu = run("cpu", cpu_statics)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = 0
+    for a, b in zip(card, cpu):
+        a = a.cpu()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"evict solve shape/dtype {a.shape} "
+                                 f"{a.dtype} vs {b.shape} {b.dtype}")
+        err = max(err, int((a.long() - b.long()).abs().max()))
+    if err:
+        raise AssertionError(f"evict solve on the card != the CPU: max abs "
+                             f"err {err}")
+    n = int(card_statics.node_exists.shape[0])
+    return dict(profiles=int(trows.shape[0]), victims=int(node_p.shape[0]),
+                nodes=n, max_abs_err=err, ms=float(np.median(card_ms)),
+                plain_ms=plain_ms)
+
+
+def _stats_ms(runs) -> dict:
+    """Median, p90 by nearest rank (bench.py's _stats) and every sample
+    of an arm's timed cycles.  With two cycles per arm the p90 is the
+    slower of the two: a max of two, not a tail."""
+    ranked = sorted(runs)
+    p90 = ranked[min(len(ranked) - 1,
+                     max(0, math.ceil(0.9 * len(ranked)) - 1))]
+    return dict(median=float(np.median(runs)), p90=float(p90),
+                all=list(runs))
+
+
+def evict_phase(cuda_solver, card) -> int:
+    """The eviction engine at the north star: the shipped four-action conf
+    (reclaim, tpu-allocate, backfill, preempt) on make_churn_cache(50k,
+    10k, 2k, 4) — every node full of low-priority Running pods and a
+    10,000-pod high-priority pending wave split between the occupied
+    queues (preempt) and a starved queue (reclaim) — float32 on the card.
+    The protocol of bench.py measure_action_pipeline: one warm cycle per
+    KUBE_BATCH_TPU_BATCH_EVICT arm, then off/on/on/off, each cycle on a
+    fresh cache.  Both arms must evict, with the same victims in the same
+    order and the same binds; each batched session makes exactly one
+    batched dispatch, on the card; each session launches the session
+    kernel exactly once; no node ends over its allocatable.  In each
+    arm's warm cycle tpu-allocate's launch is held against the plain
+    version on its inputs (allocate_vs_plain), and every timed cycle
+    must end as its arm's warm cycle did.  Returns the kernel launches
+    of all six cycles."""
+    shape = NORTH_STAR
+    per_arm = {True: {}, False: {}}
+    footprint = {}
+    launches = 0
+    split = None
+    stats = []
+    replay = None
+    vs_plain = {}
+    spans = {True: {}, False: {}}
+    for i, arm in enumerate((True, False, False, True, True, False)):
+        warm = i < 2
+        out = evict_cycle(cuda_solver, shape, arm, check_plain=warm)
+        launches += out["launches"]
+        if out["launches"] != 1:
+            raise AssertionError(f"evict cycle {i} launched the session "
+                                 f"kernel {out['launches']} times")
+        if not out["evicts"]:
+            raise AssertionError(f"evict cycle {i} evicted nothing")
+        key = (out["evicts"], out["binds"])
+        if footprint.setdefault(arm, key) != key:
+            raise AssertionError(f"evict cycle {i} differs from its arm's "
+                                 f"warm cycle")
+        if warm:
+            vs_plain["batched" if arm else "sequential"] = out["vs_plain"]
+            phase("evict-allocate-vs-plain", batched=arm, **out["vs_plain"])
+            continue
+        for name, ms in out["action_ms"].items():
+            per_arm[arm].setdefault(name, []).append(ms)
+        for name, ms in out["spans_ms"].items():
+            spans[arm].setdefault(name, []).append(ms)
+        if arm:
+            sc = out["scanner"]
+            if (sc is None or out["stats"]["batch_dispatches"] != 1
+                    or sc.device.type != "cuda"
+                    or not sc.statics.node_exists.is_cuda):
+                raise AssertionError(
+                    f"evict cycle {i}: not one batched dispatch on the "
+                    f"card ({out['stats']})")
+            stats.append(out["stats"])
+            split = split or out["split"]
+            if replay is None:
+                replay = evict_solve_vs_cpu(sc)
+        phase("evict-cycle", cycle=i - 2, batched=arm, build_s=out["build_s"],
+              action_ms=out["action_ms"], evictions=len(out["evicts"]),
+              evictions_by_action=out["split"], binds=len(out["binds"]),
+              scanner_stats=out["stats"], launches=out["launches"],
+              spans_ms=out["spans_ms"])
+    if footprint[True] != footprint[False]:
+        raise AssertionError("the batched arm's victims or binds differ "
+                             "from the sequential arm's")
+    evicts = footprint[True][0]
+    phase("evict", shape=list(shape), conf="config/kube-batch-conf.yaml "
+          "with tpu-allocate", dtype="float32",
+          action_ms_batched={k: _stats_ms(v)
+                             for k, v in per_arm[True].items()},
+          action_ms_sequential={k: _stats_ms(v)
+                                for k, v in per_arm[False].items()},
+          evictions=len(evicts), evictions_by_action=split,
+          binds=len(footprint[True][1]), scanner_stats=stats,
+          span_ms_median_batched={k: float(np.median(v))
+                                  for k, v in spans[True].items()},
+          span_ms_median_sequential={k: float(np.median(v))
+                                     for k, v in spans[False].items()},
+          kernel_launches=launches, identical_arms=True,
+          evict_solve=replay, allocate_vs_plain=vs_plain, card=card)
+    return launches
+
+
+def evict_vs_cpu_phase(cuda_solver) -> None:
+    """The four-action session at 5k x 1k on the card and on the CPU
+    (device="cpu", the plain route of every device step), in both
+    KUBE_BATCH_TPU_BATCH_EVICT arms: the same victims in the same order,
+    the same binds and the same cache events."""
+    shape = (5_000, 1_000, 200, 4)
+    for arm in (True, False):
+        out = {d: evict_cycle(cuda_solver, shape, arm, device=d)
+               for d in ("cuda", "cpu")}
+        card, cpu = out["cuda"], out["cpu"]
+        for key in ("evicts", "binds", "events"):
+            if card[key] != cpu[key]:
+                raise AssertionError(f"evict session at {shape}: the "
+                                     f"card's {key} differ from the CPU's")
+        if not card["evicts"]:
+            raise AssertionError("the 5k x 1k evict session evicted nothing")
+        phase("evict-vs-cpu", shape=list(shape), batched=arm,
+              evictions=len(card["evicts"]), binds=len(card["binds"]),
+              events=len(card["events"]), identical=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -808,13 +1182,15 @@ def main() -> int:
     session_launches = session_phase(cuda_solver, card)
     session_vs_cpu_phase(cuda_solver)
     steady_launches = steady_phase(cuda_solver, card)
+    evict_launches = evict_phase(cuda_solver, card)
+    evict_vs_cpu_phase(cuda_solver)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "solve_session", "route": "cuda",
         "source": "kube_batch_tpu_torch/csrc/solve_session.cu",
         "replaces": "kube_batch_tpu/ops/pallas_solver.py:60",
-        "launches": session_launches + steady_launches,
+        "launches": session_launches + steady_launches + evict_launches,
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,

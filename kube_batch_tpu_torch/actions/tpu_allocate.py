@@ -23,7 +23,9 @@ inputs.  ``KUBE_BATCH_TPU_INCREMENTAL=0`` and
 ``KUBE_BATCH_TPU_CANDIDATE_SOLVE=0`` are the controls.  The reference's
 fused one-dispatch program is not ported yet; this action runs its
 control arm (FUSED=0), which the reference proves bind-identical to its
-default.
+default.  ``KUBE_BATCH_TPU_PIPELINE=0`` runs the sequential solve: one
+launch read back in one transfer, no host-overlap window and no
+prefilter, placement-identical to the pipelined default.
 """
 
 from __future__ import annotations
@@ -34,12 +36,17 @@ from typing import NamedTuple
 
 import torch
 
+from .. import knobs
 from ..device import check_float_dtype, resolve_device
 from ..framework import Action
 from ..metrics import metrics
 from ..trace import spans as trace
 
 log = logging.getLogger(__name__)
+
+# =0 runs the sequential path (solve barrier, then apply preparation):
+# the A/B control and parity oracle for the pipelined engine.
+PIPELINE_ENV = knobs.PIPELINE.env
 
 
 class SessionRecord(NamedTuple):
@@ -111,12 +118,15 @@ class TpuAllocateAction(Action):
                     "unplaced tasks")
 
     def execute(self, ssn) -> None:
+        import numpy as np
+
         from ..models.shipping import resident_shipper
         from ..models.tensor_snapshot import (build_apply_aggregates,
                                               prepare_apply_scaffold,
                                               tensorize_session)
-        from ..ops.solver import (choose_solver_mesh, discard_solve,
-                                  dispatch_solve, fetch_solve)
+        from ..ops.solver import (best_solve_allocate, choose_solver_mesh,
+                                  discard_solve, dispatch_solve,
+                                  fetch_result, fetch_solve)
 
         stages = {}
         start = time.time()
@@ -179,6 +189,7 @@ class TpuAllocateAction(Action):
                     and inc_state.solve_cfg == snap.config
                     and inc_state.solve_result is not None):
                 cached_solve = inc_state.solve_result
+            pipelined = knobs.PIPELINE.enabled()
             # Candidate-row solve prefilter (ops/prefilter.py,
             # doc/INCREMENTAL.md "floors"): on a micro build the host
             # derives the provably-sufficient candidate node set from
@@ -189,7 +200,8 @@ class TpuAllocateAction(Action):
             # whole node bucket.
             candidates = None
             t0 = time.perf_counter()
-            if (cached_solve is None and inc_state is not None
+            if (pipelined and cached_solve is None
+                    and inc_state is not None
                     and inc_state.last_kind == "micro"):
                 from ..ops.prefilter import derive_candidates
                 with trace.span("prefilter"):
@@ -208,7 +220,7 @@ class TpuAllocateAction(Action):
                 metrics.note_generation_reuse(True)
                 metrics.set_cycle_floor("solve_wait", 0.0)
                 stages["dispatch_fetch"] = time.perf_counter() - solve_start
-            else:
+            elif pipelined:
                 # Dispatch, overlap the result-independent apply
                 # preparation with the executing device program, then
                 # block only when the result is consumed.  No fused
@@ -234,6 +246,21 @@ class TpuAllocateAction(Action):
                 metrics.observe_device_wait_latency(wait_elapsed)
                 metrics.set_cycle_floor("solve_wait", wait_elapsed)
                 metrics.observe_tpu_solve_latency(stages["dispatch_fetch"])
+            else:
+                # KUBE_BATCH_TPU_PIPELINE=0: the sequential solve, one
+                # launch read back in one transfer; the scaffold is built
+                # after it, at apply.
+                with trace.span("solve"):
+                    result = best_solve_allocate(inputs, snap.config)
+                    assignment, kind, order = fetch_result(result)
+                metrics.note_candidate_solve(False, 0)
+                stages["dispatch_fetch"] = time.perf_counter() - solve_start
+                metrics.set_cycle_floor("solve_wait",
+                                        stages["dispatch_fetch"])
+                metrics.observe_tpu_solve_latency(stages["dispatch_fetch"])
+                placed = np.nonzero(kind > 0)[0]
+                ordered = placed[np.argsort(order[placed], kind="stable")]
+                scaffold = None
             self._validate_result(snap, assignment, kind, order, ordered)
             if inc_state is not None and cached_solve is None:
                 # Cache AFTER validation only: a poisoned readback must
@@ -256,6 +283,8 @@ class TpuAllocateAction(Action):
         # ssn.allocate/pipeline calls (Session.batch_apply_solved).
         apply_start = time.perf_counter()
         with trace.span("apply", placed=int(ordered.size)):
+            if scaffold is None:
+                scaffold = prepare_apply_scaffold(snap)
             agg = build_apply_aggregates(snap, assignment, kind, ordered,
                                          scaffold=scaffold)
             from ..framework.commit import batch_commit_enabled

@@ -11,12 +11,14 @@ testable under failure (doc/CHAOS.md):
 ``plan``    — the seed-deterministic fault plan: named injection sites
               threaded through the real code paths, each a no-op single
               branch when ``KUBE_BATCH_TPU_CHAOS`` is unset.
-
-The port has no ``breaker``: its tpu-allocate raises on a device failure
-instead of degrading to the host path (ROADMAP queue 1 item 11).
+``breaker`` — the device circuit breaker and the solve deadline.  The
+              eviction scanner consults it; nothing feeds it until the
+              degradation path comes (ROADMAP queue 1 item 11): a device
+              failure raises instead of degrading to the host path.
 """
 
-from . import plan
+from . import breaker, plan
 from .plan import CHAOS_ENV, Fault, FaultPlan, plan_from_spec
 
-__all__ = ["plan", "CHAOS_ENV", "Fault", "FaultPlan", "plan_from_spec"]
+__all__ = ["breaker", "plan", "CHAOS_ENV", "Fault", "FaultPlan",
+           "plan_from_spec"]

@@ -24,7 +24,14 @@ Design rules:
 * **Lifetime-tied.**  Components are keyed to their owning store via
   ``track(owner, subkey, sizer)``; a ``weakref.finalize`` drops the
   bytes AND the auditor when the store is garbage collected, so
-  per-test / per-arm store churn cannot accrete phantom bytes.
+  per-test / per-arm store churn cannot accrete phantom bytes.  The
+  finalizer only queues the key, without a lock, and every locked
+  section drains the queue first: a collection can run at any
+  allocation, also one made with this ledger's mutex (or the metrics'
+  lock) held by the same thread, where a finalizer that took the mutex
+  would wait on itself forever.  (The reference's ledger,
+  kube_batch_tpu/metrics/memledger.py, drops under the mutex from the
+  finalizer and can deadlock that way.)
 * **Watermarks carry provenance.**  Each ledger records its
   high-watermark and the session id (trace/spans) active when the
   watermark was set — "which session peaked the stage buffers" is a
@@ -44,6 +51,7 @@ from __future__ import annotations
 
 import threading
 import weakref
+from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
 
 from .. import knobs
@@ -100,7 +108,7 @@ class Ledger:
 
     __slots__ = ("name", "publish_granularity", "_lock", "_components",
                  "_auditors", "_total", "_watermark", "_watermark_sid",
-                 "_published", "__weakref__")
+                 "_published", "_dropped", "__weakref__")
 
     def __init__(self, name: str, publish_granularity: int = 0):
         self.name = name
@@ -117,6 +125,9 @@ class Ledger:
         self._watermark = 0                        # guarded-by: _lock
         self._watermark_sid: Optional[int] = None  # guarded-by: _lock
         self._published: Optional[int] = None      # guarded-by: _lock
+        # Keys of owners that died, queued by their finalizers without a
+        # lock (deque.append is atomic) and drained under _lock.
+        self._dropped: deque = deque()
 
     # -- registration --------------------------------------------------
 
@@ -131,18 +142,20 @@ class Ledger:
         key = (id(owner), subkey)
         ref = weakref.ref(owner)
         with self._lock:
+            drained = self._drain_locked()
             self._components.setdefault(key, 0)
             if sizer is not None:
                 self._auditors[key] = (ref, sizer)
-        weakref.finalize(owner, self.drop, key)
+            publish = self._decide_publish_locked() if drained else None
+        self._publish(publish)
+        weakref.finalize(owner, self._dropped.append, key)
         return key
 
     def drop(self, key: tuple) -> None:
-        """Forget one component (owner died or store dismantled)."""
+        """Forget one component (store dismantled)."""
         with self._lock:
-            gone = self._components.pop(key, 0)
-            self._auditors.pop(key, None)
-            self._total -= gone
+            self._drain_locked()
+            self._forget_locked(key)
             publish = self._decide_publish_locked()
         self._publish(publish)
 
@@ -153,6 +166,7 @@ class Ledger:
         recompute at a chokepoint: tensorize end, snapshot walk end)."""
         nbytes = int(nbytes)
         with self._lock:
+            self._drain_locked()
             old = self._components.get(key, 0)
             self._components[key] = nbytes
             self._total += nbytes - old
@@ -165,6 +179,7 @@ class Ledger:
         if not delta:
             return
         with self._lock:
+            self._drain_locked()
             self._components[key] = self._components.get(key, 0) + int(delta)
             self._total += int(delta)
             publish = self._decide_publish_locked()
@@ -174,6 +189,7 @@ class Ledger:
 
     def total(self) -> int:
         with self._lock:
+            self._drain_locked()
             return self._total
 
     def watermark(self) -> Tuple[int, Optional[int]]:
@@ -182,6 +198,7 @@ class Ledger:
 
     def component_count(self) -> int:
         with self._lock:
+            self._drain_locked()
             return len(self._components)
 
     # -- audit ---------------------------------------------------------
@@ -192,6 +209,7 @@ class Ledger:
         lock); components whose owner died between finalize scheduling
         and now are skipped on both sides."""
         with self._lock:
+            self._drain_locked()
             auditors = list(self._auditors.items())
             accounted_by_key = dict(self._components)
         accounted = 0
@@ -211,6 +229,7 @@ class Ledger:
     def reset(self) -> None:
         """Test hook: zero bytes and watermark, keep registrations."""
         with self._lock:
+            self._drain_locked()
             for key in self._components:
                 self._components[key] = 0
             self._total = 0
@@ -220,6 +239,21 @@ class Ledger:
         self._publish((0, 0))
 
     # -- internals -----------------------------------------------------
+
+    # holds-lock: _lock
+    def _forget_locked(self, key: tuple) -> None:
+        self._total -= self._components.pop(key, 0)
+        self._auditors.pop(key, None)
+
+    # holds-lock: _lock
+    def _drain_locked(self) -> bool:
+        """Forget the components of every owner that died since the last
+        locked section; True if there was one."""
+        drained = False
+        while self._dropped:
+            self._forget_locked(self._dropped.popleft())
+            drained = True
+        return drained
 
     # holds-lock: _lock
     def _decide_publish_locked(self) -> Optional[Tuple[int, int]]:

@@ -5,7 +5,9 @@ benchmarks, scale runs and tests.  ``make_synthetic_inputs`` draws the
 same numbers from the same seed as the reference, so both packages see
 the same cluster; the device and the float key dtype are explicit.
 ``make_synthetic_cache`` builds the same kind of cluster as objects,
-through a SchedulerCache's normal ingestion, for whole sessions.
+through a SchedulerCache's normal ingestion, for whole sessions;
+``make_churn_cache`` builds the eviction storm the four-action pipeline
+(reclaim, tpu-allocate, backfill, preempt) runs on.
 """
 
 from __future__ import annotations
@@ -376,6 +378,108 @@ def make_synthetic_cache(n_tasks, n_nodes, n_jobs, n_queues,
                 requests={"cpu": cpus[i % 4], "memory": mems[(i // 2) % 4]})],
                 node_selector=selector, tolerations=tolerations,
                 affinity=affinity),
+            status=PodStatus(phase="Pending")))
+    return cache, binder
+
+
+def make_churn_cache(n_tasks=50_000, n_nodes=10_000, n_jobs=2_000,
+                     n_queues=4, running_fraction=0.8):
+    """SchedulerCache for the shipped 4-action pipeline at kubemark scale
+    (kube_batch_tpu/models/synthetic.py, line for line; kube-batch's
+    cross-queue e2e scenario is test/e2e/queue.go:26-70 and the preempt
+    loop preempt.go:44-254):
+
+    - every node is FULL of low-priority ("p10") Running pods, so
+      allocate alone cannot place anything;
+    - a high-priority ("p1000") Pending wave arrives, split between the
+      occupied queues (the intra-queue preempt path) and a starved
+      queue that owns no running pods (the cross-queue reclaim path,
+      gated by proportion's Overused).
+
+    Nodes are sized so running pods exactly fill CPU:
+    per-node capacity = (running tasks / n_nodes) * 2 cpu.
+    """
+    from ..api import (Container, Node, NodeSpec, NodeStatus, ObjectMeta,
+                       Pod, PodSpec, PodStatus)
+    from ..api.objects import PriorityClass
+    from ..api.queue_info import Queue
+    from ..apis.scheduling import v1alpha1
+    from ..apis.scheduling.v1alpha1 import GroupNameAnnotationKey
+    from ..cache import (FakeBinder, FakeEvictor, FakeStatusUpdater,
+                         FakeVolumeBinder, SchedulerCache)
+
+    binder = FakeBinder()
+    cache = SchedulerCache(binder=binder, evictor=FakeEvictor(),
+                           status_updater=FakeStatusUpdater(),
+                           volume_binder=FakeVolumeBinder())
+    cache.add_priority_class(PriorityClass(
+        metadata=ObjectMeta(name="p10"), value=10))
+    cache.add_priority_class(PriorityClass(
+        metadata=ObjectMeta(name="p1000"), value=1000))
+    for q in range(n_queues):
+        cache.add_queue(Queue(
+            metadata=ObjectMeta(name=f"q{q}", creation_timestamp=float(q)),
+            weight=1))
+
+    n_running = int(n_tasks * running_fraction)
+    n_pending = n_tasks - n_running
+    per_node = max(1, n_running // n_nodes)
+    cpu = per_node * 2          # 2 cpu per running pod fills the node
+    alloc = {"cpu": str(cpu), "memory": f"{per_node * 4}Gi", "pods": 110}
+    for i in range(n_nodes):
+        cache.add_node(Node(
+            metadata=ObjectMeta(name=f"n{i:05d}", uid=f"n{i}"),
+            spec=NodeSpec(),
+            status=NodeStatus(allocatable=dict(alloc),
+                              capacity=dict(alloc))))
+
+    # Low-priority running jobs live in queues q0..q{n-2}; the last
+    # queue is the starved reclaimer.
+    run_queues = max(1, n_queues - 1)
+    per_job = max(1, n_tasks // n_jobs)
+    n_run_jobs = max(1, n_running // per_job)
+    for j in range(n_run_jobs):
+        cache.add_pod_group(v1alpha1.PodGroup(
+            metadata=ObjectMeta(name=f"low{j}", namespace="churn"),
+            spec=v1alpha1.PodGroupSpec(
+                min_member=1, queue=f"q{j % run_queues}",
+                priority_class_name="p10")))
+    for i in range(n_running):
+        j = min(i // per_job, n_run_jobs - 1)
+        cache.add_pod(Pod(
+            metadata=ObjectMeta(
+                name=f"low{i:06d}", namespace="churn", uid=f"low{i}",
+                annotations={GroupNameAnnotationKey: f"low{j}"},
+                creation_timestamp=float(i)),
+            spec=PodSpec(
+                node_name=f"n{i % n_nodes:05d}", priority=10,
+                priority_class_name="p10",
+                containers=[Container(requests={"cpu": "2",
+                                                "memory": "2Gi"})]),
+            status=PodStatus(phase="Running")))
+
+    # High-priority pending wave: half into the occupied queues
+    # (preempt), half into the starved last queue (reclaim).
+    n_pend_jobs = max(2, n_pending // per_job)
+    for j in range(n_pend_jobs):
+        queue = (f"q{n_queues - 1}" if j % 2 == 0
+                 else f"q{j % run_queues}")
+        cache.add_pod_group(v1alpha1.PodGroup(
+            metadata=ObjectMeta(name=f"high{j}", namespace="churn"),
+            spec=v1alpha1.PodGroupSpec(
+                min_member=max(1, per_job * 4 // 5), queue=queue,
+                priority_class_name="p1000")))
+    for i in range(n_pending):
+        j = min(i // per_job, n_pend_jobs - 1)
+        cache.add_pod(Pod(
+            metadata=ObjectMeta(
+                name=f"high{i:06d}", namespace="churn", uid=f"high{i}",
+                annotations={GroupNameAnnotationKey: f"high{j}"},
+                creation_timestamp=float(n_running + i)),
+            spec=PodSpec(
+                priority=1000, priority_class_name="p1000",
+                containers=[Container(requests={"cpu": "2",
+                                                "memory": "2Gi"})]),
             status=PodStatus(phase="Pending")))
     return cache, binder
 

@@ -9,9 +9,11 @@ tensor it is that kernel's plain PyTorch version.
 
 ``dispatch_solve`` enqueues the solve without blocking; ``fetch_solve``
 reads back assignment, kind, order and the placement permutation as one
-transfer.  A candidate-row solve (ops/prefilter.py) gathers the
-prefiltered node rows out of the resident inputs and runs the same route
-on them; the fetch scatters the assignment back to full-space rows.
+transfer.  ``fetch_result`` is the blocking readback of the sequential
+path (``KUBE_BATCH_TPU_PIPELINE=0``).  A candidate-row solve
+(ops/prefilter.py) gathers the prefiltered node rows out of the resident
+inputs and runs the same route on them; the fetch scatters the
+assignment back to full-space rows.
 """
 
 from __future__ import annotations
@@ -264,6 +266,16 @@ def fetch_solve(pending: PendingSolve):
         assignment[placed] = remap[local]
     n_placed = int(np.count_nonzero(kind > 0))
     return assignment, kind, order, perm[:n_placed]
+
+
+def fetch_result(result: SolveResult):
+    """Blocking readback of (assignment, kind, order) as one transfer:
+    the sequential (``KUBE_BATCH_TPU_PIPELINE=0``) counterpart of
+    ``dispatch_solve`` -> ``fetch_solve``.  ``torch.stack`` allocates, so
+    the numpy rows never alias the solver's tensors."""
+    packed = torch.stack([result.assignment, result.kind,
+                          result.order]).cpu().numpy()
+    return packed[0], packed[1], packed[2]
 
 
 def choose_solver_mesh(inp: SolverInputs):

@@ -53,10 +53,12 @@ def parse_scheduler_conf(conf_str: str) -> SchedulerConfiguration:
 
 def load_scheduler_conf(conf_str: str) -> Tuple[List[Action], List[Tier]]:
     """Parse the YAML conf into (actions, tiers) (reference
-    scheduler/util.go:44-73).  Every action must be registered: the port
-    registers allocate and tpu-allocate (actions/factory.py), so the
-    default conf's backfill raises KeyError until the eviction engine is
-    ported; ``parse_scheduler_conf(conf).tiers`` reads its tiers."""
+    scheduler/util.go:44-73).  Every action must be registered
+    (actions/factory.py registers allocate, preempt, reclaim, backfill
+    and tpu-allocate); an unknown name raises KeyError.  The default conf
+    loads whole, and so does the shipped four-action conf
+    (config/kube-batch-conf.yaml) with tpu-allocate in place of
+    allocate."""
     conf = parse_scheduler_conf(conf_str)
     actions = []
     for name in conf.actions.split(","):

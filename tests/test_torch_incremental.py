@@ -19,6 +19,7 @@ import jax
 import pytest
 
 from tests.test_torch_utils import Arm, assert_same_inputs, environ
+from tests.test_torch_utils import reference_gc_guard  # noqa: F401
 
 MODES = {"x64": True, "f32": False}
 MUTATIONS = ["none", "bind_echo", "evict", "pipeline", "job_add",

@@ -7,8 +7,10 @@ fresh interpreter.  A ``sys.meta_path`` hook there refuses ``jax``,
 the port, runs one small ship -> dispatch -> fetch on the CPU, runs three
 whole ``open_session -> tpu-allocate -> close_session`` sessions on one
 cache with churn between them on the CPU (the third a micro session on
-the candidate route), and checks that ``TpuAllocateAction()`` without a
-device raises when there is no CUDA.
+the candidate route), loads the default conf whole, runs one session of
+the shipped four-action conf (reclaim, tpu-allocate, backfill, preempt) on
+a small churn storm that must evict and bind, and checks that
+``TpuAllocateAction()`` without a device raises when there is no CUDA.
 """
 
 import pkgutil
@@ -78,6 +80,40 @@ state = incremental.state_for(cache)
 assert state.last_kind == "micro", (state.last_kind, state.last_reason)
 assert action.last.candidates is not None
 assert action.last.candidates.count < len(cache.nodes)
+# The default conf loads whole, and one session of the shipped four-action
+# conf runs on a small churn storm (two empty nodes added, so tpu-allocate
+# has room to bind) with the batched eviction engine on the CPU.
+from kube_batch_tpu_torch.api import Node, NodeSpec, NodeStatus, ObjectMeta
+from kube_batch_tpu_torch.models.synthetic import make_churn_cache
+from kube_batch_tpu_torch.scheduler import load_scheduler_conf
+
+names = [a.name() for a in load_scheduler_conf(DEFAULT_SCHEDULER_CONF)[0]]
+assert names == ["tpu-allocate", "backfill"], names
+with open("config/kube-batch-conf.yaml") as fh:
+    conf = fh.read().replace('"reclaim, allocate, backfill, preempt"',
+                             '"reclaim, tpu-allocate, backfill, preempt"')
+actions, storm_tiers = load_scheduler_conf(conf)
+names = [a.name() for a in actions]
+assert names == ["reclaim", "tpu-allocate", "backfill", "preempt"], names
+import os
+os.environ["KUBE_BATCH_TPU_SCAN_MIN_NODES"] = "0"   # the scanner at 42 nodes
+storm, storm_binder = make_churn_cache(300, 40, 12, 3)
+for i in range(2):
+    alloc = {"cpu": "32", "memory": "64Gi", "pods": 110}
+    storm.add_node(Node(metadata=ObjectMeta(name=f"spare{i}", uid=f"spare{i}"),
+                        spec=NodeSpec(),
+                        status=NodeStatus(allocatable=dict(alloc),
+                                          capacity=dict(alloc))))
+ssn = open_session(storm, storm_tiers)
+try:
+    for a in actions:
+        a.execute(ssn)
+    scanner = ssn._shared_scanner
+finally:
+    close_session(ssn)
+assert storm.evictor.evicts and storm_binder.binds
+assert scanner is not None and scanner.stats["batch_dispatches"] == 1
+
 if not torch.cuda.is_available():
     try:
         TpuAllocateAction()
@@ -89,7 +125,8 @@ if not torch.cuda.is_available():
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
-print("placed", ordered.size, "bound", len(binder.binds))
+print("placed", ordered.size, "bound", len(binder.binds), "evicted",
+      len(storm.evictor.evicts), "storm bound", len(storm_binder.binds))
 """
 
 
@@ -111,7 +148,15 @@ def test_port_runs_with_jax_and_the_reference_blocked():
             "kube_batch_tpu_torch.cache.cache",
             "kube_batch_tpu_torch.framework.session",
             "kube_batch_tpu_torch.plugins.factory",
-            "kube_batch_tpu_torch.scheduler"} <= set(modules)
+            "kube_batch_tpu_torch.scheduler",
+            "kube_batch_tpu_torch.models.scanner",
+            "kube_batch_tpu_torch.models.victim_index",
+            "kube_batch_tpu_torch.ops.scan",
+            "kube_batch_tpu_torch.ops.evict_solver",
+            "kube_batch_tpu_torch.chaos.breaker",
+            "kube_batch_tpu_torch.actions.preempt",
+            "kube_batch_tpu_torch.actions.reclaim",
+            "kube_batch_tpu_torch.actions.backfill"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, *modules],
                           cwd=str(ROOT), capture_output=True, text=True,
                           timeout=300, check=False)

@@ -26,6 +26,7 @@ from kube_batch_tpu_torch.ops import cuda_solver, prefilter, resources
 from kube_batch_tpu_torch.ops import scoring, solver
 from tests.test_torch_solver import jax_cfg, to_jax
 from tests.test_torch_utils import Arm, environ
+from tests.test_torch_utils import reference_gc_guard  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -21,6 +21,7 @@ import torch
 
 from tests.test_torch_utils import (assert_session_parity, build_cache,
                                     run_session, synthetic_cache)
+from tests.test_torch_utils import reference_gc_guard  # noqa: F401
 
 MODES = {"x64": True, "f32": False}
 
@@ -226,10 +227,14 @@ def test_registries_stay_per_package():
         for name in ("gang", "drf", "proportion", "nodeorder"):
             builder = registry.get_plugin_builder(name)
             assert builder.__module__.startswith(root), name
-    assert set(torch_registry.list_actions()) == {"allocate", "tpu-allocate"}
+    assert set(torch_registry.list_actions()) == {
+        "allocate", "tpu-allocate", "backfill", "preempt", "reclaim"}
 
 
 def test_default_conf_names_backfill_which_waits_for_the_eviction_slice():
+    """The default conf names backfill; since the eviction slice landed it
+    loads whole (it raised KeyError on backfill before), and an unknown
+    action still raises."""
     from kube_batch_tpu_torch.actions.factory import register_default_actions
     from kube_batch_tpu_torch.scheduler import (DEFAULT_SCHEDULER_CONF,
                                                 load_scheduler_conf,
@@ -239,8 +244,11 @@ def test_default_conf_names_backfill_which_waits_for_the_eviction_slice():
         DEFAULT_SCHEDULER_CONF).tiers for p in tier.plugins] == [
         "priority", "gang", "conformance", "drf", "predicates",
         "proportion", "nodeorder"]
-    with pytest.raises(KeyError, match="backfill"):
-        load_scheduler_conf(DEFAULT_SCHEDULER_CONF)
+    actions, _ = load_scheduler_conf(DEFAULT_SCHEDULER_CONF)
+    assert [a.name() for a in actions] == ["tpu-allocate", "backfill"]
+    with pytest.raises(KeyError, match="nope"):
+        load_scheduler_conf(DEFAULT_SCHEDULER_CONF.replace(
+            '"tpu-allocate, backfill"', '"tpu-allocate, nope"'))
     actions, _ = load_scheduler_conf(
         DEFAULT_SCHEDULER_CONF.replace('"tpu-allocate, backfill"',
                                        '"tpu-allocate"'))

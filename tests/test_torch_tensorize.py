@@ -14,6 +14,7 @@ import random
 import pytest
 
 from tests.test_torch_utils import assert_session_parity
+from tests.test_torch_utils import reference_gc_guard  # noqa: F401
 
 MODES = {"x64": True, "f32": False}
 SEEDS = {"releasing": [20, 21, 22, 23], "ports_affinity": [30, 31, 32, 33],

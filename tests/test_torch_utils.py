@@ -16,11 +16,13 @@ SolverInputs and SolverConfig.
 import contextlib
 import copy
 import dataclasses
+import gc
 import os
 import types
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 import kube_batch_tpu_torch.actions.factory as torch_actions
@@ -36,6 +38,29 @@ import kube_batch_tpu_torch.scheduler as torch_scheduler
 from kube_batch_tpu_torch.actions.tpu_allocate import TpuAllocateAction
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def reference_gc_guard():
+    """The JAX package's memory ledger drops a dead store's bytes from a
+    ``weakref.finalize`` callback that takes the ledger's own mutex
+    (kube_batch_tpu/metrics/memledger.py ``Ledger.track`` -> ``drop``):
+    a cyclic collection that starts at an allocation inside ``track``
+    runs that callback with the mutex held, and the process waits on
+    itself forever.  These tests build many stores of both packages in
+    one process, which makes the collision likely, so each test runs
+    with the collector off, and a full collection before and after it
+    runs the finalizers outside every ledger lock.  The port's ledger
+    queues drops without a lock (tests/test_torch_memledger.py).  A
+    test module that builds the JAX package's stores imports this
+    fixture."""
+    gc.collect()
+    gc.disable()
+    try:
+        yield
+    finally:
+        gc.enable()
+        gc.collect()
 
 
 def build_resource_list(cpu, memory, **scalars):
@@ -94,6 +119,119 @@ def _package(name):
         api=api, objects=objects, queue_info=queue_info, v1alpha1=v1alpha1,
         cache=cache, framework=framework, tensorize=tensorize,
         scheduler=scheduler, actions=actions, plugins=plugins)
+
+
+class Pkg:
+    """One package for the eviction twins: its modules by attribute (as
+    ``_package``), its registries filled, its actions by name (the port's
+    on the CPU with float64 keys when ``x64`` else float32), and the
+    float context to run a body in.  A twin runs one body per package and
+    compares what the two return."""
+
+    ACTIONS = ("allocate", "backfill", "preempt", "reclaim", "tpu_allocate")
+
+    def __init__(self, pkg, x64=True):
+        import importlib
+        self.pkg = pkg
+        self.x64 = x64
+        self.m = _package(pkg)
+        self.dtype = torch.float64 if x64 else torch.float32
+        root = "kube_batch_tpu_torch" if pkg == "torch" else "kube_batch_tpu"
+        self.mod = types.SimpleNamespace(**{
+            name.replace(".", "_"): importlib.import_module(f"{root}.{name}")
+            for name in ("models.scanner", "models.victim_index",
+                         "models.synthetic", "models.tensor_snapshot",
+                         "models.shipping", "framework.commit",
+                         "framework.events", "framework.statement",
+                         "metrics.metrics", "trace", "trace.spans",
+                         "trace.lineage", "chaos.plan", "chaos.breaker",
+                         "conf", "plugins.conformance",
+                         "plugins.nodeorder", "plugins.priority",
+                         "api.job_info", "utils.priority_queue",
+                         "ops.solver")
+            + tuple(f"actions.{a}" for a in self.ACTIONS)})
+        self.register()
+
+    def ctx(self):
+        if self.pkg == "jax":
+            return jax.enable_x64(self.x64)
+        return contextlib.nullcontext()
+
+    def register(self):
+        self.m.plugins.register_default_plugins()
+        if self.pkg == "jax":
+            self.m.actions.register_default_actions()
+        else:
+            self.m.actions.register_default_actions(device="cpu",
+                                                    dtype=self.dtype)
+
+    def action(self, name):
+        """A fresh action of this package: ``name`` is a module of
+        ``actions/`` (allocate, backfill, preempt, reclaim,
+        tpu_allocate)."""
+        module = getattr(self.mod, f"actions_{name}")
+        if self.pkg == "jax" or name == "allocate":
+            return module.new()
+        return module.new(device="cpu", dtype=self.dtype)
+
+    def load(self, conf=None):
+        """(actions, tiers) of ``conf`` (the default conf when None)."""
+        self.register()
+        return self.m.scheduler.load_scheduler_conf(
+            conf or self.m.scheduler.DEFAULT_SCHEDULER_CONF)
+
+    def tiers(self, conf=None):
+        return self.load(conf)[1]
+
+    def scanner(self, ssn, **kw):
+        """models/scanner.maybe_scanner, the port's on the CPU."""
+        if self.pkg == "torch":
+            kw = dict(kw, device="cpu", dtype=self.dtype)
+        return self.mod.models_scanner.maybe_scanner(ssn, **kw)
+
+    def empty_cache(self):
+        """(cache, binder, evictor) with the fake effectors."""
+        c = self.m.cache
+        binder, evictor = c.FakeBinder(), c.FakeEvictor()
+        cache = c.SchedulerCache(binder=binder, evictor=evictor,
+                                 status_updater=c.FakeStatusUpdater(),
+                                 volume_binder=c.FakeVolumeBinder())
+        return cache, binder, evictor
+
+    def queue(self, name, weight=1, ts=None):
+        meta = (self.m.api.ObjectMeta(name=name) if ts is None else
+                self.m.api.ObjectMeta(name=name, creation_timestamp=ts))
+        return self.m.queue_info.Queue(metadata=meta, weight=weight)
+
+    def pod_group(self, name, namespace, min_member=1, queue="q1"):
+        v1 = self.m.v1alpha1
+        return v1.PodGroup(
+            metadata=self.m.api.ObjectMeta(name=name, namespace=namespace),
+            spec=v1.PodGroupSpec(min_member=min_member, queue=queue))
+
+    def pod(self, *args, **kw):
+        return build_pod(*args, pkg=self.pkg, **kw)
+
+    def node(self, *args, **kw):
+        return build_node(*args, pkg=self.pkg, **kw)
+
+
+def session_state(ssn):
+    """Comparable end state of a session: per task its status and node."""
+    return sorted((t.uid, t.status.name, t.node_name)
+                  for job in ssn.jobs.values() for t in job.tasks.values())
+
+
+def twin(body, *, x64=True):
+    """Run ``body(p)`` for the JAX package and the port (``p`` a Pkg) and
+    assert the two return the same; returns the port's result."""
+    out = {}
+    for pkg in ("jax", "torch"):
+        p = Pkg(pkg, x64)
+        with p.ctx():
+            out[pkg] = body(p)
+    assert out["torch"] == out["jax"]
+    return out["torch"]
 
 
 def build_cache(spec, pkg="torch"):
