@@ -5,6 +5,8 @@
 Phases, each printed on its own line:
   1. device: the card's name and power limit; exits non-zero without CUDA;
   2. build: compiles csrc/solve_session.cu with nvcc and prints the seconds;
+     native: the C host walk (native/fastpath.c, built with cc at import)
+     must have loaded unless KUBE_BATCH_TPU_NO_NATIVE is set;
   3. kernel against plain: the session-solve kernel must equal its plain
      PyTorch version exactly (assignment, kind, order, step and the final
      node, job and queue buffers) on the test matrix and on cases that
@@ -21,15 +23,21 @@ Phases, each printed on its own line:
      size, shared memory, microseconds per phase, per placement, per
      pop); the same inputs with the cluster bound forced to 8 must equal
      the plain version too;
-  5. session, the slice's main path at the north star: make_synthetic_
-     cache through the SchedulerCache's ingestion, then one cold and five
-     warm sessions of open_session -> TpuAllocateAction(cuda, float32) ->
-     close_session, bound pods echoed back between them; each session
-     must take the cuda route without the host fallback, launch the
-     kernel once, bind exactly the kernel's placements (read off a direct
-     launch on its shipped inputs), leave no node over its allocatable
-     and no gang job below its minAvailable; prints the stage split,
-     the wall time (median, p90) and the kernel's share;
+  5. session, the slice's main path at the north star, in two arms: the
+     C host walk (the default) and the KUBE_BATCH_TPU_NO_NATIVE=1 control
+     (native_arm), taking turns.  Per arm, make_synthetic_cache through
+     the SchedulerCache's ingestion, then one cold and five warm sessions of
+     open_session -> TpuAllocateAction(cuda, float32) -> close_session,
+     bound pods echoed back between them; each session must take the cuda
+     route without the host fallback, launch the kernel once, bind
+     exactly the kernel's placements (read off a direct launch on its
+     shipped inputs), leave no node over its allocatable and no gang job
+     below its minAvailable; prints the stage split (median, p90), the
+     wall time and the kernel's share.  The arms must bind the same pods
+     in the same order and write the same pod-group statuses.  Then one
+     more warm session per arm under cProfile, outside the timed ones
+     (apply-profile: the functions of largest own time under
+     Session.batch_apply_solved and under tensorize_session);
   6. session-vs-cpu: one 5k x 1k session on the card and on the CPU (the
      plain route) must give the same binds in the same order and the
      same pod-group statuses;
@@ -49,7 +57,9 @@ Phases, each printed on its own line:
      on the card and on the CPU and must be equal (max abs err 0);
   9. evict-vs-cpu: the four-action session at 5k x 1k on the card and on
      the CPU, both arms: the same victims, victim order, binds and
-     events.
+     events;
+ 10. topo: topology-aware slice placement at the box scan's node ceiling
+     (see topo_phase), then topo-vs-cpu at 4x4x2.
 The kernel-vs-plain matrix includes the shapes the kernel once refused:
 2,500 queues in float64 (the queue piece in global memory) and 10 and 20
 resource dims.
@@ -265,22 +275,25 @@ def phase_split(cuda_solver, inp, cfg) -> dict:
 
 
 @contextlib.contextmanager
+def env_arm(env: dict):
+    """The KUBE_BATCH_TPU_* variables of ``env`` for the block."""
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def incremental_arm(on: bool):
     """Run the block with incremental sessions on (the default) or as the
     reference's KUBE_BATCH_TPU_INCREMENTAL=0 control; the knob is read at
     every call, so one process runs both arms."""
-    old = os.environ.get("KUBE_BATCH_TPU_INCREMENTAL")
-    if on:
-        os.environ.pop("KUBE_BATCH_TPU_INCREMENTAL", None)
-    else:
-        os.environ["KUBE_BATCH_TPU_INCREMENTAL"] = "0"
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop("KUBE_BATCH_TPU_INCREMENTAL", None)
-        else:
-            os.environ["KUBE_BATCH_TPU_INCREMENTAL"] = old
+    return env_arm({"KUBE_BATCH_TPU_INCREMENTAL": "1" if on else "0"})
 
 
 def _register(device):
@@ -359,106 +372,233 @@ def over_committed(node) -> bool:
                for k, v in (held.scalar_resources or {}).items())
 
 
+@contextlib.contextmanager
+def native_arm(on: bool):
+    """Run the block with the C host walk (the default) or as the
+    reference's KUBE_BATCH_TPU_NO_NATIVE=1 control, in this process: the
+    three bindings that the knob leaves None when the package is imported
+    — Session's ``native_apply``, the tensorizer's ``_pod_static`` (back
+    to its Python body) and ``native.clone_task_map`` (read at each call)
+    — are swapped for the block."""
+    from kube_batch_tpu_torch import native
+    from kube_batch_tpu_torch.framework import session as session_mod
+    from kube_batch_tpu_torch.models import tensor_snapshot
+    saved = (session_mod.native_apply, tensor_snapshot._pod_static,
+             native.clone_task_map)
+    if not on:
+        session_mod.native_apply = None
+        tensor_snapshot._pod_static = tensor_snapshot._pod_static_py
+        native.clone_task_map = None
+    try:
+        yield
+    finally:
+        (session_mod.native_apply, tensor_snapshot._pod_static,
+         native.clone_task_map) = saved
+
+
 def session_phase(cuda_solver, card) -> int:
-    """The slice's main path at the north star: make_synthetic_cache
-    through the cache's ingestion, then one cold and five warm sessions of
-    open_session -> TpuAllocateAction(cuda, float32) -> close_session,
-    every bound pod echoed back unchanged between sessions (bench.py
-    measure_full_session), so each sees the same backlog.  Run as the
-    KUBE_BATCH_TPU_INCREMENTAL=0 arm: with incremental sessions on, an
-    unchanged backlog ships clean and reuses the previous solve, and this
-    phase measures the full session.  Returns the kernel launches of
-    those sessions."""
-    with incremental_arm(False):
-        return _session_phase(cuda_solver, card)
-
-
-def _session_phase(cuda_solver, card) -> int:
+    """The slice's main path at the north star, in both native arms: the
+    C host walk and the NO_NATIVE=1 control (native_arm), each on its own
+    make_synthetic_cache built through the cache's ingestion.  One cold
+    and five warm sessions of open_session -> TpuAllocateAction(cuda,
+    float32) -> close_session per arm, the arms taking turns (C first in
+    even rounds, the control first in odd ones), every bound pod echoed
+    back unchanged between sessions (bench.py measure_full_session), so
+    each sees the same backlog.  Run as the KUBE_BATCH_TPU_INCREMENTAL=0
+    arm: with incremental sessions on, an unchanged backlog ships clean
+    and reuses the previous solve, and this phase measures the full
+    session.  The sessions run under the production GC posture, as
+    measure_full_session runs them.  The arms must bind the same pods in
+    the same order and write the same pod-group statuses.  After the
+    timed sessions, one more warm session per arm runs under cProfile
+    (apply_profile).  Returns the kernel launches of the timed
+    sessions."""
     from kube_batch_tpu_torch.actions.tpu_allocate import TpuAllocateAction
     from kube_batch_tpu_torch.api import pod_key
     from kube_batch_tpu_torch.models.synthetic import make_synthetic_cache
 
-    tiers = _register("cuda")
-    began = time.perf_counter()
-    cache, binder = make_synthetic_cache(*NORTH_STAR)
-    build_s = time.perf_counter() - began
-    pods = {pod_key(t.pod): t.pod for job in cache.jobs.values()
-            for t in job.tasks.values()}
-    job_of = {pod_key(t.pod): t.job for job in cache.jobs.values()
-              for t in job.tasks.values()}
-    min_avail = {uid: job.min_available for uid, job in cache.jobs.items()}
-    action = TpuAllocateAction(device="cuda", dtype=torch.float32)
-    runs = []
-    launches = 0
-    for i in range(6):
-        seen = len(binder.channel)
-        cuda_solver.solve_allocate_cuda.launches = 0
-        stages, wall = _run_session(cache, tiers, action)
-        got = cuda_solver.solve_allocate_cuda.launches
-        launches += got
-        last = action.last
-        binds = [(key, binder.binds[key]) for key in binder.channel[seen:]]
-        if last.route != "cuda" or last.snap.needs_fallback:
-            raise AssertionError(f"session {i}: route {last.route}, "
-                                 f"fallback {last.snap.fallback_reason}")
-        if got != 1:
-            raise AssertionError(f"session {i} launched the kernel {got} "
-                                 f"times")
-        # The bind map read off a direct launch on the shipped inputs,
-        # timed with CUDA events (the kernel's share of the session).
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        res, _ = cuda_solver.solve_allocate_cuda(last.inputs,
-                                                 last.snap.config)
-        stop.record()
-        stop.synchronize()
-        kernel_ms = start.elapsed_time(stop)
-        assignment = res.assignment.cpu().numpy()
-        kind = res.kind.cpu().numpy()
-        order = res.order.cpu().numpy()
-        placed = np.nonzero(kind > 0)[0]
-        ordered = placed[np.argsort(order[placed], kind="stable")]
-        expect = [(pod_key(last.snap.tasks[t].pod),
-                   last.snap.node_names[assignment[t]]) for t in ordered]
-        if int(res.step) != len(binds) or len(binds) != ordered.size:
-            raise AssertionError(f"session {i}: {len(binds)} binds for "
-                                 f"{int(res.step)} placements")
-        # A map: the binder sees each gang job's tasks together, in the
-        # order the jobs become ready, not in placement order.
-        if len(dict(binds)) != len(binds) or dict(binds) != dict(expect):
-            raise AssertionError(f"session {i}: the bind map differs from "
-                                 f"the kernel's placements on its inputs")
-        per_job = {}
-        for key, _host in binds:
-            per_job[job_of[key]] = per_job.get(job_of[key], 0) + 1
-        short = [uid for uid, n in per_job.items() if n < min_avail[uid]]
-        if short:
-            raise AssertionError(f"session {i}: gang jobs bound below "
-                                 f"minAvailable: {short[:3]}")
-        runs.append((stages, wall, len(binds), kernel_ms))
-        phase("session-run", session=i, cold=i == 0, wall_s=wall,
-              binds=len(binds), launches=got, kernel_ms=kernel_ms,
-              stages_ms={k: v * 1e3 for k, v in stages.items()})
-        for key, _host in binds:  # echo back unchanged (outside the clock)
-            cache.update_pod(pods[key], pods[key])
+    arms = {}
+    with incremental_arm(False):
+        tiers = _register("cuda")
+        for on in (True, False):
+            began = time.perf_counter()
+            cache, binder = make_synthetic_cache(*NORTH_STAR)
+            tasks = [t for job in cache.jobs.values()
+                     for t in job.tasks.values()]
+            arms[on] = dict(
+                name="native" if on else "no_native", cache=cache,
+                binder=binder, build_s=time.perf_counter() - began,
+                pods={pod_key(t.pod): t.pod for t in tasks},
+                job_of={pod_key(t.pod): t.job for t in tasks},
+                min_avail={uid: job.min_available
+                           for uid, job in cache.jobs.items()},
+                action=TpuAllocateAction(device="cuda", dtype=torch.float32),
+                runs=[], binds=[], launches=0)
+        with gc_posture():
+            for i in range(6):
+                for on in ((True, False) if i % 2 == 0 else (False, True)):
+                    with native_arm(on):
+                        timed_session(cuda_solver, arms[on], tiers, i)
+            for on in (True, False):
+                with native_arm(on):
+                    arms[on]["profile"] = apply_profile(
+                        arms[on]["cache"], tiers, arms[on]["action"])
+    summary = {on: arm_summary(arms[on], card) for on in (True, False)}
+    for on in (True, False):
+        phase("apply-profile", arm=arms[on]["name"], shape=list(NORTH_STAR),
+              **arms[on]["profile"], card=card)
+    for key in ("binds", "statuses"):
+        if summary[True][key] != summary[False][key]:
+            raise AssertionError(f"session: the C walk's {key} differ from "
+                                 f"the NO_NATIVE=1 arm's")
+    c, py = summary[True]["apply_ms"], summary[False]["apply_ms"]
+    phase("session-arms", identical_binds_and_statuses=True,
+          binds=sum(len(b) for b in arms[True]["binds"]),
+          statuses=len(summary[True]["statuses"]),
+          apply_ms_median_c=c, apply_ms_median_no_native=py,
+          apply_share_of_no_native=c / py,
+          apply_ms_c=[r[0]["apply"] * 1e3 for r in arms[True]["runs"][1:]],
+          apply_ms_no_native=[r[0]["apply"] * 1e3
+                              for r in arms[False]["runs"][1:]],
+          wall_ms_median_c=summary[True]["wall_ms"],
+          wall_ms_median_no_native=summary[False]["wall_ms"], card=card)
+    return arms[True]["launches"] + arms[False]["launches"]
+
+
+def timed_session(cuda_solver, arm, tiers, i) -> None:
+    """Session ``i`` of one arm of the session phase: checked against a
+    direct launch on its shipped inputs, then every bind echoed back
+    unchanged (outside the clock)."""
+    from kube_batch_tpu_torch.api import pod_key
+    cache, binder, action = arm["cache"], arm["binder"], arm["action"]
+    seen = len(binder.channel)
+    cuda_solver.solve_allocate_cuda.launches = 0
+    stages, wall = _run_session(cache, tiers, action)
+    got = cuda_solver.solve_allocate_cuda.launches
+    arm["launches"] += got
+    last = action.last
+    binds = [(key, binder.binds[key]) for key in binder.channel[seen:]]
+    arm["binds"].append(binds)
+    if last.route != "cuda" or last.snap.needs_fallback:
+        raise AssertionError(f"session {i}: route {last.route}, "
+                             f"fallback {last.snap.fallback_reason}")
+    if got != 1:
+        raise AssertionError(f"session {i} launched the kernel {got} times")
+    # The bind map read off a direct launch on the shipped inputs, timed
+    # with CUDA events (the kernel's share of the session).
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    res, _ = cuda_solver.solve_allocate_cuda(last.inputs, last.snap.config)
+    stop.record()
+    stop.synchronize()
+    kernel_ms = start.elapsed_time(stop)
+    assignment = res.assignment.cpu().numpy()
+    kind = res.kind.cpu().numpy()
+    order = res.order.cpu().numpy()
+    placed = np.nonzero(kind > 0)[0]
+    ordered = placed[np.argsort(order[placed], kind="stable")]
+    expect = [(pod_key(last.snap.tasks[t].pod),
+               last.snap.node_names[assignment[t]]) for t in ordered]
+    if int(res.step) != len(binds) or len(binds) != ordered.size:
+        raise AssertionError(f"session {i}: {len(binds)} binds for "
+                             f"{int(res.step)} placements")
+    # A map: the binder sees each gang job's tasks together, in the order
+    # the jobs become ready, not in placement order.
+    if len(dict(binds)) != len(binds) or dict(binds) != dict(expect):
+        raise AssertionError(f"session {i}: the bind map differs from the "
+                             f"kernel's placements on its inputs")
+    per_job = {}
+    for key, _host in binds:
+        job = arm["job_of"][key]
+        per_job[job] = per_job.get(job, 0) + 1
+    short = [uid for uid, n in per_job.items()
+             if n < arm["min_avail"][uid]]
+    if short:
+        raise AssertionError(f"session {i}: gang jobs bound below "
+                             f"minAvailable: {short[:3]}")
+    arm["runs"].append((stages, wall, len(binds), kernel_ms))
+    phase("session-run", arm=arm["name"], session=i, cold=i == 0,
+          wall_s=wall, binds=len(binds), launches=got, kernel_ms=kernel_ms,
+          stages_ms={k: v * 1e3 for k, v in stages.items()})
+    pods = arm["pods"]
+    for key, _host in binds:
+        cache.update_pod(pods[key], pods[key])
+
+
+def arm_summary(arm, card) -> dict:
+    """Prints one arm's ``session`` line (warm medians and p90s by stage,
+    the wall time, the kernel's share) and returns what the arms
+    compare."""
+    runs = arm["runs"]
     warm = runs[1:]
     walls = [w for _s, w, _b, _k in warm]
     split = {k: float(np.median([s[k] for s, _w, _b, _k in warm])) * 1e3
              for k in warm[0][0]}
+    split_p90 = {k: float(np.percentile([s[k] for s, _w, _b, _k in warm],
+                                        90)) * 1e3 for k in warm[0][0]}
     kernel_med = float(np.median([k for _s, _w, _b, k in warm]))
-    phase("session", shape=list(NORTH_STAR), build_s=build_s,
-          cold_wall_ms=runs[0][1] * 1e3,
-          warm_wall_ms_median=float(np.median(walls)) * 1e3,
+    wall_med = float(np.median(walls)) * 1e3
+    phase("session", arm=arm["name"], shape=list(NORTH_STAR),
+          build_s=arm["build_s"], cold_wall_ms=runs[0][1] * 1e3,
+          warm_wall_ms_median=wall_med,
           warm_wall_ms_p90=float(np.percentile(walls, 90)) * 1e3,
           warm_wall_ms_all=[w * 1e3 for w in walls],
-          stage_ms_median=split,
+          stage_ms_median=split, stage_ms_p90=split_p90,
           kernel_ms_median=kernel_med,
-          kernel_share_of_session=kernel_med / (float(np.median(walls))
-                                                * 1e3),
+          kernel_share_of_session=kernel_med / wall_med,
           binds_per_session=[b for _s, _w, b, _k in runs],
-          launches=launches, route="cuda", card=card)
-    return launches
+          launches=arm["launches"], route="cuda", card=card)
+    statuses = [(pg.metadata.namespace, pg.metadata.name, pg.status.phase,
+                 pg.status.running,
+                 [(c.type, c.status, c.reason, c.message)
+                  for c in pg.status.conditions])
+                for pg in arm["cache"].status_updater.pod_groups]
+    return dict(binds=arm["binds"], statuses=statuses,
+                apply_ms=split["apply"], wall_ms=wall_med)
+
+
+def apply_profile(cache, tiers, action, top: int = 12) -> dict:
+    """One session under cProfile, profiling only inside
+    Session.batch_apply_solved and inside tensorize_session: per function
+    the own time (tottime), the time with its callees and the call count,
+    the ``top`` largest own times of each, and each profile's total."""
+    import cProfile
+    import pstats
+
+    from kube_batch_tpu_torch.framework.session import Session
+    from kube_batch_tpu_torch.models import tensor_snapshot
+
+    profs = {"batch_apply_solved": cProfile.Profile(),
+             "tensorize_session": cProfile.Profile()}
+    apply_fn = Session.batch_apply_solved
+    tensorize_fn = tensor_snapshot.tensorize_session
+
+    def apply(self, *args, **kw):
+        return profs["batch_apply_solved"].runcall(apply_fn, self, *args,
+                                                   **kw)
+
+    def tensorize(*args, **kw):
+        return profs["tensorize_session"].runcall(tensorize_fn, *args, **kw)
+
+    Session.batch_apply_solved = apply
+    tensor_snapshot.tensorize_session = tensorize
+    try:
+        stages, wall = _run_session(cache, tiers, action)
+    finally:
+        Session.batch_apply_solved = apply_fn
+        tensor_snapshot.tensorize_session = tensorize_fn
+    out = dict(wall_ms=wall * 1e3,
+               stages_ms={k: v * 1e3 for k, v in stages.items()})
+    for name, prof in profs.items():
+        st = pstats.Stats(prof)
+        rows = sorted(st.stats.items(), key=lambda kv: kv[1][2],
+                      reverse=True)[:top]
+        out[name] = dict(total_ms=st.total_tt * 1e3, top=[dict(
+            fn=f"{os.path.basename(path)}:{line}({func})", calls=nc,
+            tottime_ms=tt * 1e3, cumtime_ms=ct * 1e3)
+            for (path, line, func), (_cc, nc, tt, ct, _callers) in rows])
+    return out
 
 
 def session_vs_cpu_phase(cuda_solver) -> None:
@@ -743,20 +883,10 @@ def gc_posture():
         gc.enable()
 
 
-@contextlib.contextmanager
 def batch_evict_arm(on: bool):
     """KUBE_BATCH_TPU_BATCH_EVICT for the block: the batched eviction
     engine (1) or its sequential control (0)."""
-    name = "KUBE_BATCH_TPU_BATCH_EVICT"
-    old = os.environ.get(name)
-    os.environ[name] = "1" if on else "0"
-    try:
-        yield
-    finally:
-        if old is None:
-            os.environ.pop(name, None)
-        else:
-            os.environ[name] = old
+    return env_arm({"KUBE_BATCH_TPU_BATCH_EVICT": "1" if on else "0"})
 
 
 def allocate_vs_plain(cuda_solver, action) -> dict:
@@ -1046,6 +1176,266 @@ def evict_vs_cpu_phase(cuda_solver) -> None:
               events=len(card["events"]), identical=True)
 
 
+TOPO_CONF = """
+actions: "topo-allocate, tpu-allocate, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: conformance
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+  - name: topology
+"""
+# The box scan's node ceiling: KUBE_BATCH_TPU_TOPO_MAX_NODES' default,
+# above which topo-allocate leaves slice jobs pending.
+TOPO_DIMS = (16, 16, 16)
+TOPO_SLICE = "4x4x4"
+
+
+def topo_cycle(cuda_solver, cache, actions, tiers, device) -> dict:
+    """One session of TOPO_CONF: each action's host-clock time, the box
+    scans dispatched, the node rows of the topology plugin's
+    fragmentation bonus that are not zero, and the session kernel's
+    launches by tpu-allocate (its count set to 0 just before the session
+    and read just after), each held against solve_allocate_plain on its
+    inputs (allocate_vs_plain) right after the action."""
+    from kube_batch_tpu_torch.framework import close_session, open_session
+    from kube_batch_tpu_torch.metrics.metrics import session_dispatch_counts
+
+    tpu = next(a for a in actions if a.name() == "tpu-allocate")
+    tpu.last = None
+    dispatches = session_dispatch_counts().get("topo", 0)
+    cuda_solver.solve_allocate_cuda.launches = 0
+    ssn = open_session(cache, tiers)
+    action_ms = {}
+    vs_plain = None
+    try:
+        bonus = ssn.prescan.get("topo_frag_bonus")
+        for a in actions:
+            t0 = time.perf_counter()
+            a.execute(ssn)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            action_ms[a.name()] = (time.perf_counter() - t0) * 1e3
+            if a is tpu and device == "cuda" and tpu.last is not None \
+                    and not tpu.last.reused:
+                vs_plain = allocate_vs_plain(cuda_solver, tpu)
+        launches = cuda_solver.solve_allocate_cuda.launches
+        over = [name for name, node in ssn.nodes.items()
+                if over_committed(node)]
+    finally:
+        close_session(ssn)
+    if over:
+        raise AssertionError(f"{len(over)} nodes over their allocatable "
+                             f"after a topo session, e.g. {over[:3]}")
+    if launches > 1 or (launches == 1) != (vs_plain is not None):
+        raise AssertionError(f"tpu-allocate launched {launches} times, "
+                             f"{'one' if vs_plain else 'none'} held against "
+                             f"the plain version")
+    return dict(action_ms=action_ms, launches=launches, vs_plain=vs_plain,
+                tpu_allocate=("launched" if launches else
+                              "no launch: nothing pending"
+                              if tpu.last is None else "no launch: reused"),
+                box_scans=session_dispatch_counts().get("topo", 0)
+                - dispatches,
+                frag_bonus_rows=(int(np.count_nonzero(bonus))
+                                 if bonus is not None else 0))
+
+
+def topo_arm(cuda_solver, device, defrag: bool, batch: bool,
+             dims=TOPO_DIMS, slice_shape=TOPO_SLICE) -> dict:
+    """The reference's two-cycle fragmentation-pressure protocol
+    (bench.py _run_topo_arm) on the port, under the production GC
+    posture: make_topo_cache(pods=("pod-a",), dims, slice_shape), cycle 1,
+    the evicted victims echoed as deletions, the fragmentation stats at
+    truth, cycle 2.  ``defrag`` and ``batch`` set KUBE_BATCH_TPU_TOPO_DEFRAG
+    and KUBE_BATCH_TPU_TOPO_BATCH (0: the numpy oracle)."""
+    from kube_batch_tpu_torch.api import pod_key
+    from kube_batch_tpu_torch.models.synthetic import make_topo_cache
+    from kube_batch_tpu_torch.models.topology import build_view
+    from kube_batch_tpu_torch.scheduler import load_scheduler_conf
+
+    env = {"KUBE_BATCH_TPU_TOPO_BATCH": "1" if batch else "0",
+           "KUBE_BATCH_TPU_TOPO_DEFRAG": "1" if defrag else "0"}
+    with env_arm(env), gc_posture():
+        _register(device)
+        actions, tiers = load_scheduler_conf(TOPO_CONF)
+        names = [a.name() for a in actions]
+        if names != ["topo-allocate", "tpu-allocate", "backfill"]:
+            raise AssertionError(f"the topology conf loaded {names}")
+        t0 = time.perf_counter()
+        cache, binder = make_topo_cache(pods=("pod-a",), dims=dims,
+                                        slice_shape=slice_shape)
+        build_s = time.perf_counter() - t0
+        podmap = {pod_key(t.pod): t.pod for job in cache.jobs.values()
+                  for t in job.tasks.values()}
+        first = topo_cycle(cuda_solver, cache, actions, tiers, device)
+        evicts = list(cache.evictor.evicts)
+        for key in evicts:
+            cache.delete_pod(podmap.pop(key))
+        view = build_view(cache.nodes)
+        free = np.asarray([not cache.nodes[n].tasks
+                           for n in view.node_names], bool) & view.valid
+        frag_after = view.frag_stats(free)
+        second = topo_cycle(cuda_solver, cache, actions, tiers, device)
+    binds = [(key, binder.binds[key]) for key in binder.channel]
+    statuses = [(pg.metadata.namespace, pg.metadata.name, pg.status.phase,
+                 [(c.type, c.status, c.reason, c.message)
+                  for c in pg.status.conditions])
+                for pg in cache.status_updater.pod_groups]
+    return dict(build_s=build_s, cycles=[first, second], evicts=evicts,
+                frag_after=frag_after, binds=binds, statuses=statuses,
+                slice_hosts=[host for key, host in binds if "slice0" in key],
+                topo_action=actions[0])
+
+
+def is_box(hosts, dims, shape) -> bool:
+    """Whether ``hosts`` (t-<pod>-<x>-<y>-<z>) are exactly one
+    axis-aligned box of ``shape`` on the ``dims`` torus."""
+    coords = sorted(tuple(int(v) for v in h.split("-")[2:]) for h in hosts)
+    if len({h.split("-")[1] for h in hosts}) != 1:
+        return False
+    for origin in coords:
+        box = sorted(tuple((origin[a] + off[a]) % dims[a] for a in range(3))
+                     for off in np.ndindex(*shape))
+        if box == coords:
+            return True
+    return False
+
+
+def box_scan_vs_cpu(topo_action) -> dict:
+    """The last batched box scan of ``topo_action`` replayed on its staged
+    inputs on the card and on the CPU (ops/topo_solver.box_scan, PyTorch
+    tensor code with no kernel of its own): the [N, 6] stats must be
+    equal.  Times the card with CUDA events (median of 5 after a warm
+    call) and the CPU with the host clock, and reads the card's peak
+    memory above the inputs for one scan."""
+    from kube_batch_tpu_torch.ops.topo_solver import (box_scan,
+                                                      stage_box_inputs)
+
+    host, shape, n = topo_action.last_scan
+    if topo_action.device.type != "cuda":
+        raise AssertionError("the batched box scan did not run on the card")
+    inp = stage_box_inputs(host, "cuda")
+    box_scan(inp, *shape)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    card = box_scan(inp, *shape)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    times = []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        box_scan(inp, *shape)
+        stop.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(stop))
+    cpu_inp = stage_box_inputs(host, "cpu")
+    t0 = time.perf_counter()
+    cpu = box_scan(cpu_inp, *shape)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    err = int((card.cpu().long() - cpu.long()).abs().max())
+    if card.shape != cpu.shape or card.dtype != cpu.dtype or err:
+        raise AssertionError(f"box scan on the card != the CPU: max abs err "
+                             f"{err}")
+    n_pad = int(inp.coords.shape[0])
+    return dict(nodes=n, n_pad=n_pad, shape=list(shape),
+                result_shape=list(card.shape), max_abs_err=err,
+                ms=float(np.median(times)), ms_all=times, plain_ms=plain_ms,
+                peak_bytes=int(peak), pairwise_int32_bytes=n_pad * n_pad * 12,
+                complete_origins=int((cpu[:n, 0] == 1).sum()))
+
+
+def topo_phase(cuda_solver, card) -> int:
+    """Topology-aware slice placement at the engine's node ceiling: the
+    reference's topology conf (topo-allocate, tpu-allocate, backfill with
+    the topology plugin) on make_topo_cache(dims=(16, 16, 16),
+    slice_shape="4x4x4") — 4,096 single-accelerator hosts, a checkerboard
+    of 2,048 low-priority Running fillers (free capacity everywhere, no
+    free box) and one high-priority 64-task slice gang — in three arms:
+    defrag batched, defrag with KUBE_BATCH_TPU_TOPO_BATCH=0 (the numpy
+    oracle) and capacity-only (TOPO_DEFRAG=0) batched.  The batched and
+    oracle arms must give the same binds and the same evictions in order;
+    in the defrag arms the 64 slice tasks bind to one axis-aligned 4x4x4
+    box in cycle 2; in the capacity arm the slice stays pending.  The last
+    batched box scan is replayed on the card and the CPU (equal).  Returns
+    the session kernel's launches of the cell."""
+    arms = {}
+    launches = 0
+    for name, defrag, batch in (("defrag-batched", True, True),
+                                ("defrag-oracle", True, False),
+                                ("capacity-batched", False, True)):
+        out = topo_arm(cuda_solver, "cuda", defrag, batch)
+        arms[name] = out
+        for i, cyc in enumerate(out["cycles"]):
+            launches += cyc["launches"]
+            phase("topo-cycle", arm=name, cycle=i + 1,
+                  action_ms=cyc["action_ms"], box_scans=cyc["box_scans"],
+                  tpu_allocate=cyc["tpu_allocate"],
+                  launches=cyc["launches"], vs_plain=cyc["vs_plain"],
+                  frag_bonus_rows=cyc["frag_bonus_rows"])
+        phase("topo-arm", arm=name, build_s=out["build_s"],
+              evictions=len(out["evicts"]), slice_binds=len(out["slice_hosts"]),
+              binds=len(out["binds"]), frag_after_cycle_1=out["frag_after"],
+              box_scans=[c["box_scans"] for c in out["cycles"]])
+    batched, oracle = arms["defrag-batched"], arms["defrag-oracle"]
+    for key in ("binds", "evicts", "frag_after", "statuses"):
+        if batched[key] != oracle[key]:
+            raise AssertionError(f"topo: the batched arm's {key} differ from "
+                                 f"the numpy oracle's")
+    vol = int(np.prod([int(v) for v in TOPO_SLICE.split("x")]))
+    shape = tuple(int(v) for v in TOPO_SLICE.split("x"))
+    for name in ("defrag-batched", "defrag-oracle"):
+        hosts = arms[name]["slice_hosts"]
+        if len(hosts) != vol or not is_box(hosts, TOPO_DIMS, shape):
+            raise AssertionError(f"topo {name}: the slice bound to {hosts[:8]}"
+                                 f"..., not one {TOPO_SLICE} box")
+        if not arms[name]["evicts"]:
+            raise AssertionError(f"topo {name}: nothing was evicted")
+    if arms["capacity-batched"]["slice_hosts"]:
+        raise AssertionError("topo capacity arm: the slice bound")
+    if any(c["box_scans"] != 1 for c in batched["cycles"]) \
+            or any(c["box_scans"] for c in oracle["cycles"]):
+        raise AssertionError("topo: not one box scan per batched session")
+    scan = box_scan_vs_cpu(batched["topo_action"])
+    phase("topo", dims=list(TOPO_DIMS), slice=TOPO_SLICE,
+          nodes=int(np.prod(TOPO_DIMS)), conf="TOPO_CONF (bench.py)",
+          identical_batched_and_oracle=True, slice_box=True,
+          capacity_arm_pending=True,
+          evictions=len(batched["evicts"]),
+          action_ms={name: [c["action_ms"] for c in out["cycles"]]
+                     for name, out in arms.items()},
+          frag_after_cycle_1={name: out["frag_after"]
+                              for name, out in arms.items()},
+          box_scan=scan, kernel_launches=launches, card=card)
+    return launches
+
+
+def topo_vs_cpu_phase(cuda_solver) -> None:
+    """The topology scenario at 4x4x2 (2x2x2 slice) on the card and on the
+    CPU in the three arms: the same binds, evictions in order,
+    fragmentation stats and pod-group statuses."""
+    for name, defrag, batch in (("defrag-batched", True, True),
+                                ("defrag-oracle", True, False),
+                                ("capacity-batched", False, True)):
+        out = {d: topo_arm(cuda_solver, d, defrag, batch, dims=(4, 4, 2),
+                           slice_shape="2x2x2") for d in ("cuda", "cpu")}
+        for key in ("binds", "evicts", "frag_after", "statuses"):
+            if out["cuda"][key] != out["cpu"][key]:
+                raise AssertionError(f"topo at 4x4x2 ({name}): the card's "
+                                     f"{key} differ from the CPU's")
+        phase("topo-vs-cpu", dims=[4, 4, 2], arm=name,
+              evictions=len(out["cuda"]["evicts"]),
+              slice_binds=len(out["cuda"]["slice_hosts"]), identical=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1064,6 +1454,11 @@ def main() -> int:
     cuda_solver.build_kernel()
     phase("build", seconds=time.perf_counter() - began,
           ptxas=cuda_solver._Kernel.build_log.strip().splitlines()[-6:])
+    from kube_batch_tpu_torch import native
+    phase("native", **native.status())
+    if not native.status()["loaded"] \
+            and not os.environ.get("KUBE_BATCH_TPU_NO_NATIVE"):
+        raise AssertionError("the C host walk did not load")
 
     for dtype in (torch.float32, torch.float64):
         for name, (inp, cfg) in matrix(dtype):
@@ -1184,13 +1579,16 @@ def main() -> int:
     steady_launches = steady_phase(cuda_solver, card)
     evict_launches = evict_phase(cuda_solver, card)
     evict_vs_cpu_phase(cuda_solver)
+    topo_launches = topo_phase(cuda_solver, card)
+    topo_vs_cpu_phase(cuda_solver)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "solve_session", "route": "cuda",
         "source": "kube_batch_tpu_torch/csrc/solve_session.cu",
         "replaces": "kube_batch_tpu/ops/pallas_solver.py:60",
-        "launches": session_launches + steady_launches + evict_launches,
+        "launches": (session_launches + steady_launches + evict_launches
+                     + topo_launches),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,

@@ -297,14 +297,18 @@ class JobInfo:
         # add_task_info: they are invariants of the task set.
         info.total_request = self.total_request.clone()
         info.allocated = self.allocated.clone()
-        # The C fast path (native/) is not ported: the Python loop, the
-        # reference's NO_NATIVE arm (ROADMAP queue 1 item 10).
-        tasks = info.tasks
-        index = info.task_status_index
-        for uid, task in self.tasks.items():
-            t = task.clone_lite()
-            tasks[uid] = t
-            index[t.status][uid] = t
+        from ..native import clone_task_map
+        if clone_task_map is not None:
+            tasks, index = clone_task_map(self.tasks)
+            info.tasks = tasks
+            info.task_status_index.update(index)
+        else:
+            tasks = info.tasks
+            index = info.task_status_index
+            for uid, task in self.tasks.items():
+                t = task.clone_lite()
+                tasks[uid] = t
+                index[t.status][uid] = t
         return info
 
     def __repr__(self) -> str:

@@ -338,9 +338,12 @@ class NodeInfo:
             res.tasks = LazyTaskDict.lazy_copy(src) if src \
                 else LazyTaskDict()
             return res
-        # The C fast path (native/) is not ported: the Python loop, the
-        # reference's NO_NATIVE arm (ROADMAP queue 1 item 10).
-        res.tasks = {key: task.clone_lite() for key, task in src.items()}
+        from ..native import clone_task_map
+        if clone_task_map is not None and src:
+            res.tasks = clone_task_map(src)[0]
+        else:
+            res.tasks = {key: task.clone_lite()
+                         for key, task in src.items()}
         return res
 
     def __repr__(self) -> str:

@@ -23,6 +23,7 @@ from ..api.pod_group_info import (PodGroupCondition, PodGroupPending,
                                   PodGroupUnschedulableType)
 from ..chaos import plan as chaos_plan
 from ..metrics import memledger, metrics
+from ..native import apply_placements as native_apply
 from ..trace import spans as trace
 from ..trace.lineage import lineage as pod_lineage
 from ..utils.priority_queue import PriorityQueue, SortedDrainQueue
@@ -583,47 +584,51 @@ class Session:
         # (same end state: index moves commute within the batch); the
         # whole-bucket case — every Pending task of a job allocated, the
         # norm for gang jobs — moves the bucket dict wholesale instead of
-        # one pop+insert per task.  The C fast path (native/) is not
-        # ported: the Python loop, the reference's NO_NATIVE arm (ROADMAP
-        # queue 1 item 10).
+        # one pop+insert per task.  The per-placement pass itself runs in
+        # C when the native extension built (kube_batch_tpu_torch/native).
         alloc_moves: dict = {}
         pipe_moves: dict = {}
-        for task, hostname, kind in placements:
-            job = jobs_get(task.job)
-            node = nodes_get(hostname)
-            if job is None or node is None:
-                skipped.append((task, hostname, kind))
-                continue
-            key = pod_key(task.pod)  # f"{namespace}/{name}", cached
-            if key in node.tasks:  # add_task would raise; log-and-skip
-                skipped.append((task, hostname, kind))
-                continue
-            if kind == 1:
-                if task.pod.spec.volumes:
-                    # Volume-less pods skip the binder round-trip:
-                    # every VolumeBinder is a no-op without claims,
-                    # and 50k no-op calls cost ~30 ms per cycle.
-                    try:
-                        allocate_volumes(task, hostname)
-                    except (KeyError, ValueError):
-                        # e.g. a missing PVC: skip this placement
-                        # exactly as the sequential path's per-task
-                        # catch would.
-                        skipped.append((task, hostname, kind))
-                        continue
-                if agg is None:
-                    job.move_task_status(task, allocated_st)
+        if agg is not None and native_apply is not None:
+            (applied, skipped, touched_jobs, alloc_moves,
+             pipe_moves) = native_apply(self.jobs, self.nodes, placements,
+                                        allocate_volumes)
+        else:
+            for task, hostname, kind in placements:
+                job = jobs_get(task.job)
+                node = nodes_get(hostname)
+                if job is None or node is None:
+                    skipped.append((task, hostname, kind))
+                    continue
+                key = pod_key(task.pod)  # f"{namespace}/{name}", cached
+                if key in node.tasks:  # add_task would raise; log-and-skip
+                    skipped.append((task, hostname, kind))
+                    continue
+                if kind == 1:
+                    if task.pod.spec.volumes:
+                        # Volume-less pods skip the binder round-trip:
+                        # every VolumeBinder is a no-op without claims,
+                        # and 50k no-op calls cost ~30 ms per cycle.
+                        try:
+                            allocate_volumes(task, hostname)
+                        except (KeyError, ValueError):
+                            # e.g. a missing PVC: skip this placement
+                            # exactly as the sequential path's per-task
+                            # catch would.
+                            skipped.append((task, hostname, kind))
+                            continue
+                    if agg is None:
+                        job.move_task_status(task, allocated_st)
+                    else:
+                        alloc_moves.setdefault(task.job, []).append(task)
                 else:
-                    alloc_moves.setdefault(task.job, []).append(task)
-            else:
-                if agg is None:
-                    job.move_task_status(task, pipelined_st)
-                else:
-                    pipe_moves.setdefault(task.job, []).append(task)
-            task.node_name = node.name
-            lazy_insert(node.tasks, key, task)
-            touched_jobs[task.job] = job
-            applied_append(task)
+                    if agg is None:
+                        job.move_task_status(task, pipelined_st)
+                    else:
+                        pipe_moves.setdefault(task.job, []).append(task)
+                task.node_name = node.name
+                lazy_insert(node.tasks, key, task)
+                touched_jobs[task.job] = job
+                applied_append(task)
 
         self._settle_batch(node_alloc, node_pipe, touched_jobs, applied,
                            skipped, agg, alloc_moves, pipe_moves)
@@ -820,8 +825,23 @@ class Session:
         if self._dirty_node_hook is not None:
             self._predeclare_nodes(set(node_names_arr[n_idx].tolist()))
 
-        # The C columns walk (native/) is not ported: the Python columnar
-        # path, the reference's NO_NATIVE arm (ROADMAP queue 1 item 10).
+        # Native columns walk: the same C per-placement pass the tuple
+        # path runs (kube_batch_tpu_torch/native), fed three parallel lists —
+        # no per-placement tuple packing.  Returns exactly the settle
+        # inputs, with touched_jobs/moves in first-touch placement
+        # order by dict-insertion construction.
+        if native_apply is not None:
+            (applied, skipped, touched_jobs, alloc_moves,
+             pipe_moves) = native_apply(
+                self.jobs, self.nodes,
+                (tasks_arr[sel].tolist(), node_names_arr[n_idx].tolist(),
+                 kind[sel].tolist()),
+                self.cache.allocate_volumes)
+            self._settle_batch(agg.node_alloc, agg.node_pipe,
+                               touched_jobs, applied, skipped, agg,
+                               alloc_moves, pipe_moves)
+            return
+
         # Python columnar fallback: object fan-out resolves each unique
         # node/job once, then numpy takes; the per-task loop keeps only
         # the work that is inherently per object.

@@ -629,3 +629,103 @@ def with_scalar_dims(built, r: int, seed: int = 0):
                              torch.as_tensor(total, dtype=fdt).to(dev)]),
         eps=eps_vector(r, device=dev).to(inp.eps.dtype),
         scalar_dims=scalar_dims_mask(r, device=dev)), cfg
+
+
+def make_topo_cache(pods=("pod-a",), dims=(4, 4, 2), checkerboard=True,
+                    slice_shape="2x2x2", slice_tasks=None, n_queues=2,
+                    slice_priority=1000, filler_priority=10):
+    """SchedulerCache on a coordinate-labeled torus under fragmentation
+    pressure (doc/TOPOLOGY.md): every pod is a ``dims`` torus of
+    single-accelerator hosts; ``checkerboard`` fills alternating coordinates
+    with low-priority Running singletons (the classic worst case — free
+    capacity everywhere, contiguity nowhere: the largest free block is
+    ONE node), and one high-priority gang PodGroup requests
+    ``slice_shape``.  The reference's `make bench-topo` runs it at
+    4x4x2 (bench._run_topo_arm); chip_smoke.py's ``topo`` phase runs it
+    at the box scan's node ceiling, 16x16x16."""
+    from ..api import (Container, Node, NodeSpec, NodeStatus, ObjectMeta,
+                       Pod, PodSpec, PodStatus)
+    from ..api.objects import PriorityClass
+    from ..api.queue_info import Queue
+    from ..apis.scheduling import v1alpha1
+    from ..apis.scheduling.v1alpha1 import GroupNameAnnotationKey
+    from ..cache import (FakeBinder, FakeEvictor, FakeStatusUpdater,
+                         FakeVolumeBinder, SchedulerCache)
+    from .topology import (AXIS_LABELS, POD_LABEL, RACK_LABEL,
+                           SLICE_SHAPE_ANNOTATION, parse_slice_shape)
+
+    binder = FakeBinder()
+    cache = SchedulerCache(binder=binder, evictor=FakeEvictor(),
+                           status_updater=FakeStatusUpdater(),
+                           volume_binder=FakeVolumeBinder())
+    cache.add_priority_class(PriorityClass(
+        metadata=ObjectMeta(name="topo-low"), value=filler_priority))
+    cache.add_priority_class(PriorityClass(
+        metadata=ObjectMeta(name="topo-high"), value=slice_priority))
+    for q in range(n_queues):
+        cache.add_queue(Queue(
+            metadata=ObjectMeta(name=f"q{q}", creation_timestamp=float(q)),
+            weight=1))
+    alloc = {"cpu": "8", "memory": "16Gi", "pods": 110}
+    filler_ix = 0
+    filler_nodes = []
+    for pix, pod_name in enumerate(pods):
+        dx, dy, dz = dims
+        for x in range(dx):
+            for y in range(dy):
+                for z in range(dz):
+                    name = f"t-{pix}-{x}-{y}-{z}"
+                    labels = {POD_LABEL: pod_name, RACK_LABEL: str(x // 2),
+                              AXIS_LABELS[0]: str(x),
+                              AXIS_LABELS[1]: str(y),
+                              AXIS_LABELS[2]: str(z)}
+                    cache.add_node(Node(
+                        metadata=ObjectMeta(name=name, uid=name,
+                                            labels=labels),
+                        spec=NodeSpec(),
+                        status=NodeStatus(allocatable=dict(alloc),
+                                          capacity=dict(alloc))))
+                    if checkerboard and (x + y + z) % 2 == 0:
+                        filler_nodes.append(name)
+    for name in filler_nodes:
+        pg = f"filler-{filler_ix}"
+        cache.add_pod_group(v1alpha1.PodGroup(
+            metadata=ObjectMeta(name=pg, namespace="topo"),
+            spec=v1alpha1.PodGroupSpec(min_member=1, queue="q0",
+                                       priority_class_name="topo-low")))
+        cache.add_pod(Pod(
+            metadata=ObjectMeta(
+                name=f"fill{filler_ix:04d}", namespace="topo",
+                uid=f"fill{filler_ix}",
+                annotations={GroupNameAnnotationKey: pg},
+                creation_timestamp=float(filler_ix)),
+            spec=PodSpec(
+                node_name=name, priority=filler_priority,
+                priority_class_name="topo-low",
+                containers=[Container(requests={"cpu": "4",
+                                                "memory": "4Gi"})]),
+            status=PodStatus(phase="Running")))
+        filler_ix += 1
+    shape = parse_slice_shape(slice_shape)
+    vol = shape[0] * shape[1] * shape[2]
+    n_tasks = slice_tasks if slice_tasks is not None else vol
+    cache.add_pod_group(v1alpha1.PodGroup(
+        metadata=ObjectMeta(
+            name="slice0", namespace="topo",
+            annotations={SLICE_SHAPE_ANNOTATION: slice_shape}),
+        spec=v1alpha1.PodGroupSpec(
+            min_member=vol, queue=f"q{min(1, n_queues - 1)}",
+            priority_class_name="topo-high")))
+    for i in range(n_tasks):
+        cache.add_pod(Pod(
+            metadata=ObjectMeta(
+                name=f"slice0-{i:03d}", namespace="topo",
+                uid=f"slice0-{i}",
+                annotations={GroupNameAnnotationKey: "slice0"},
+                creation_timestamp=float(10_000 + i)),
+            spec=PodSpec(
+                priority=slice_priority, priority_class_name="topo-high",
+                containers=[Container(requests={"cpu": "4",
+                                                "memory": "4Gi"})]),
+            status=PodStatus(phase="Pending")))
+    return cache, binder

@@ -265,8 +265,17 @@ def _pod_static(pod) -> tuple:
     return cached
 
 
-# The C fast path (native/) is not ported: _pod_static runs in Python,
-# the reference's NO_NATIVE arm (ROADMAP queue 1 item 10).
+# Native fast path: the featureless common case (cache probe + the
+# container/port walk + the interned result tuple) runs in C; featured
+# pods delegate back to the Python body above.  Same cache contract,
+# same tuples (tests/test_torch_native.py).
+_pod_static_py = _pod_static
+from ..native import pod_static as _native_pod_static  # noqa: E402
+from ..native import pod_static_setup as _native_pod_static_setup  # noqa: E402
+
+if _native_pod_static is not None and _native_pod_static_setup is not None:
+    _native_pod_static_setup(_EMPTY_SIG, _pod_static_py)
+    _pod_static = _native_pod_static
 
 
 # Cardinality caps for the dynamic-predicate tensors; beyond these the
@@ -294,10 +303,15 @@ class _NodePack:
     """Packed per-node quanta rows (int64 pre-guard), row-updated from
     informer deltas instead of rebuilt O(cluster) per session.
 
-    The topology coordinates the reference parses into the pack come
-    with the topology slice (ROADMAP queue 1 item 3)."""
+    ``coords_raw`` carries each node's parsed topology
+    (``((pod, rack, x, y, z), declared_dims)`` tuple or None —
+    models/topology.py), refreshed
+    by the same full-build/dirty-row discipline as the quanta rows, so
+    the ``node_coords`` leaf assembly below is O(labeled nodes) per
+    session and O(0) for clusters that never carried a coordinate label
+    (``coords_any`` short-circuits the walk)."""
     __slots__ = ("names", "epochs", "idle", "rel", "used", "alloc",
-                 "count", "maxt", "hi_rows")
+                 "count", "maxt", "hi_rows", "coords_raw", "coords_any")
 
 
 def _arr_nbytes(a) -> int:
@@ -908,6 +922,22 @@ def _occ_fill_row(node, row_ports: np.ndarray, row_sel: np.ndarray,
             row_sel[:ns_real] += matches(rt.pod.metadata.labels)
 
 
+def _node_coords_raw(node):
+    """The node's parsed topology (coords, declared dims) for the pack
+    (pure label parse, no chaos: the injection site lives in the
+    action's build_view — the leaf must stage identical bytes in the
+    chaos and control arms so delta-ship parity holds under
+    injection).  None when the node carries no/malformed coordinates."""
+    from .topology import parse_coord_labels, parse_dim_labels
+    nd = node.node
+    if nd is None:
+        return None
+    coords = parse_coord_labels(nd.metadata.labels)
+    if coords is None:
+        return None
+    return (coords, parse_dim_labels(nd.metadata.labels))
+
+
 def _fill_node_row(pack: _NodePack, ix: int, node, axis) -> None:
     from ..ops.resources import quantize_columns
     rows = np.stack(_node_row_vectors(node, axis))
@@ -919,6 +949,10 @@ def _fill_node_row(pack: _NodePack, ix: int, node, axis) -> None:
     pack.count[ix] = len(node.tasks)
     pack.maxt[ix] = node.allocatable.max_task_num
     pack.hi_rows[ix] = int(np.abs(q).max())
+    coords = _node_coords_raw(node)
+    pack.coords_raw[ix] = coords
+    if coords is not None:
+        pack.coords_any = True
 
 
 def _build_node_pack(node_objs, node_names, axis) -> _NodePack:
@@ -949,6 +983,13 @@ def _build_node_pack(node_objs, node_names, axis) -> _NodePack:
                             for nd in node_objs], np.int64).reshape(n)
     pack.hi_rows = (np.abs(np.stack(mats)).max(axis=(0, 2))
                     if n else np.zeros((0,), np.int64))
+    pack.coords_raw = np.empty((max(n, 1),), dtype=object)
+    pack.coords_any = False
+    for ix, nd in enumerate(node_objs):
+        coords = _node_coords_raw(nd)
+        pack.coords_raw[ix] = coords
+        if coords is not None:
+            pack.coords_any = True
     return pack
 
 
@@ -1788,9 +1829,27 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
     total_res_q = pack.alloc.sum(axis=0, dtype=np.int64) \
         if n_real else np.zeros((r,), np.int64)
 
-    # Topology coordinate leaf: flat (-1) until the topology slice
-    # (ROADMAP queue 1 item 3); the solve never reads it.
-    node_coords_leaf = np.full((n_pad, 8), -1, np.int32)
+    # Topology coordinate leaf (models/topology.py, doc/TOPOLOGY.md):
+    # [n_pad, 8] i32 pod/rack/x/y/z + per-pod torus dims, -1 = flat.
+    # Assembled from the pack's parsed rows through the SAME interning
+    # core the session view uses (view_from_parsed: identical duplicate
+    # degradation and declared-dims rules, so leaf and view cannot
+    # drift) — O(labeled nodes), and an unlabeled cluster (coords_any
+    # False) skips the walk entirely, so the flat steady path pays
+    # nothing.  count_bad=False: the view already counted this
+    # session's bad coords; the leaf re-derives the same rows.
+    from .topology import topology_enabled as _topo_on
+    if n_real and getattr(pack, "coords_any", False) and _topo_on():
+        from .topology import coords_leaf, view_from_parsed
+        raw = [pack.coords_raw[ix] for ix in range(n_real)]
+        leaf_view = view_from_parsed(
+            pack.names[:n_real],
+            [t[0] if t else None for t in raw],
+            [t[1] if t else None for t in raw],
+            count_bad=False)
+        node_coords_leaf = coords_leaf(leaf_view, n_pad)
+    else:
+        node_coords_leaf = np.full((n_pad, 8), -1, np.int32)
 
     # deserved, exactly scaled to quanta but NOT rounded (see SolverInputs
     # docstring): the water-fill's fractional values must not round in the

@@ -17,5 +17,6 @@ def register_default_plugins() -> None:
     # critical path for host-only deployments.
     from . import tpu_score
     register_plugin_builder("tpu-score", tpu_score.new)
-    # The topology plugin comes with the topology slice (ROADMAP queue 1
-    # item 3).
+    # Topology-aware fragmentation scoring (doc/TOPOLOGY.md).
+    from . import topology
+    register_plugin_builder("topology", topology.new)

@@ -9,8 +9,11 @@ whole ``open_session -> tpu-allocate -> close_session`` sessions on one
 cache with churn between them on the CPU (the third a micro session on
 the candidate route), loads the default conf whole, runs one session of
 the shipped four-action conf (reclaim, tpu-allocate, backfill, preempt) on
-a small churn storm that must evict and bind, and checks that
-``TpuAllocateAction()`` without a device raises when there is no CUDA.
+a small churn storm that must evict and bind, checks that the C host walk
+loaded and the session's apply runs it, runs the topology conf on a 4x4x2
+torus until the slice binds, checks that ``TpuAllocateAction()`` without a
+device raises when there is no CUDA, and that no shared object of the
+reference was loaded.
 """
 
 import pkgutil
@@ -114,6 +117,48 @@ finally:
 assert storm.evictor.evicts and storm_binder.binds
 assert scanner is not None and scanner.stats["batch_dispatches"] == 1
 
+# The C host walk is loaded and the session's apply runs it.
+from kube_batch_tpu_torch import native
+from kube_batch_tpu_torch.framework import session as session_mod
+assert native.status()["loaded"], native.status()
+assert session_mod.native_apply is native.apply_placements is not None
+
+# One TOPO_CONF run on a 4x4x2 topo cache: cycle 1 evicts a contiguous
+# box, the victims are echoed as deletions, cycle 2 binds the slice.
+from kube_batch_tpu_torch.api import pod_key
+from kube_batch_tpu_torch.models.synthetic import make_topo_cache
+topo_conf = '''
+actions: "topo-allocate, tpu-allocate, backfill"
+tiers:
+- plugins:
+  - name: priority
+  - name: gang
+  - name: conformance
+- plugins:
+  - name: drf
+  - name: predicates
+  - name: proportion
+  - name: nodeorder
+  - name: topology
+'''
+topo, topo_binder = make_topo_cache()
+topo_actions, topo_tiers = load_scheduler_conf(topo_conf)
+pods = {pod_key(t.pod): t.pod for job in topo.jobs.values()
+        for t in job.tasks.values()}
+for cycle in range(2):
+    ssn = open_session(topo, topo_tiers)
+    try:
+        for a in topo_actions:
+            a.execute(ssn)
+    finally:
+        close_session(ssn)
+    if cycle == 0:
+        assert topo.evictor.evicts
+        for key in topo.evictor.evicts:
+            topo.delete_pod(pods.pop(key))
+slice_binds = [k for k in topo_binder.binds if "slice0" in k]
+assert len(slice_binds) == 8, topo_binder.binds
+
 if not torch.cuda.is_available():
     try:
         TpuAllocateAction()
@@ -125,6 +170,11 @@ if not torch.cuda.is_available():
 leaked = sorted(m for m in sys.modules
                 if any(m == b or m.startswith(b + ".") for b in BLOCKED))
 assert not leaked, leaked
+# Nor a shared object of the reference (its C walk is _fastpath).
+with open("/proc/self/maps") as fh:
+    maps = fh.read()
+assert "_fastpath." not in maps and "/kube_batch_tpu/" not in maps
+assert "_fastpath" not in sys.modules
 print("placed", ordered.size, "bound", len(binder.binds), "evicted",
       len(storm.evictor.evicts), "storm bound", len(storm_binder.binds))
 """
@@ -156,7 +206,12 @@ def test_port_runs_with_jax_and_the_reference_blocked():
             "kube_batch_tpu_torch.chaos.breaker",
             "kube_batch_tpu_torch.actions.preempt",
             "kube_batch_tpu_torch.actions.reclaim",
-            "kube_batch_tpu_torch.actions.backfill"} <= set(modules)
+            "kube_batch_tpu_torch.actions.backfill",
+            "kube_batch_tpu_torch.native",
+            "kube_batch_tpu_torch.models.topology",
+            "kube_batch_tpu_torch.ops.topo_solver",
+            "kube_batch_tpu_torch.plugins.topology",
+            "kube_batch_tpu_torch.actions.topo_allocate"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, *modules],
                           cwd=str(ROOT), capture_output=True, text=True,
                           timeout=300, check=False)

@@ -228,7 +228,8 @@ def test_registries_stay_per_package():
             builder = registry.get_plugin_builder(name)
             assert builder.__module__.startswith(root), name
     assert set(torch_registry.list_actions()) == {
-        "allocate", "tpu-allocate", "backfill", "preempt", "reclaim"}
+        "allocate", "tpu-allocate", "backfill", "preempt", "reclaim",
+        "topo-allocate"}
 
 
 def test_default_conf_names_backfill_which_waits_for_the_eviction_slice():
