@@ -59,7 +59,27 @@ Phases, each printed on its own line:
      the CPU, both arms: the same victims, victim order, binds and
      events;
  10. topo: topology-aware slice placement at the box scan's node ceiling
-     (see topo_phase), then topo-vs-cpu at 4x4x2.
+     (see topo_phase), then topo-vs-cpu at 4x4x2;
+ 11. tenancy-streams: two owners' resident shippers, each owner with its
+     own CUDA stream, at the north-star shape: each solo launch equals
+     the plain version, the second owner's ship and dispatch must return
+     while the first's kernel is still pending, and both results must
+     equal their solo launches (see tenancy_streams_phase);
+ 12. tenancy: bench.py's concurrent-shard storm through a real Scheduler
+     and TenancyEngine at 10,000 nodes, KUBE_BATCH_TPU_CONCURRENT_SHARDS
+     off/on/on/off: equal binds, events and lineage, a pipeline that
+     overlapped, every shard's launches on its own view's stream, no
+     shard failure and no host fallback, every launch held against the
+     plain version (see tenancy_phase); then tenancy-backlog, the
+     concurrent arm with one tenant's backlog at 2,500, 10,000 and
+     30,000 pods against 4-pod neighbours: whether the next shard's
+     begin half returns while that solve is still on the card
+     (tenancy_backlog_phase);
+ 13. scheduler-loop: Scheduler(cache).run() on the card at 5k x 1k: the
+     loop thread's first cycle binds, a churned pod wakes and binds,
+     stop() within 5 s, each launch held against the plain version (see
+     scheduler_loop_phase).
+Each phase line carries ``t_s``, the seconds since the script started.
 The kernel-vs-plain matrix includes the shapes the kernel once refused:
 2,500 queues in float64 (the queue piece in global memory) and 10 and 20
 resource dims.
@@ -94,8 +114,13 @@ OPS_PER_NODE_SCAN = 74
 NORTH_STAR = (50_000, 10_000, 2_000, 4)
 
 
+_STARTED = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One phase line; ``t_s`` is the seconds since the script started."""
+    print(json.dumps({"phase": name, **fields,
+                      "t_s": time.perf_counter() - _STARTED}), flush=True)
 
 
 def card_line() -> str:
@@ -889,56 +914,102 @@ def batch_evict_arm(on: bool):
     return env_arm({"KUBE_BATCH_TPU_BATCH_EVICT": "1" if on else "0"})
 
 
-def allocate_vs_plain(cuda_solver, action) -> dict:
-    """tpu-allocate's solve in an evict session held against the
-    kernel's plain version on the same inputs: the assignment, kind and
-    order that the action fetched from its launch must equal
-    solve_allocate_plain's exactly (max abs err 0).  Run right after the
-    action, before a later ship can rewrite the resident inputs.  A
-    gathered (candidate-row) solve is compared on its gathered inputs,
-    its placements mapped back to full-space rows."""
-    from kube_batch_tpu_torch.ops.solver import _gather_candidate_inputs
+def allocate_vs_plain(cuda_solver, action,
+                      where: str = "the evict session") -> dict:
+    """tpu-allocate's last solve held against the kernel's plain version
+    on the same inputs (record_vs_plain on ``action.last``).  Run right
+    after the action, before a later ship can rewrite the resident
+    inputs."""
     last = action.last
     if last is None or last.reused:
-        raise AssertionError("tpu-allocate solved nothing on the device in "
-                             "the evict session")
+        raise AssertionError(f"tpu-allocate solved nothing on the device in "
+                             f"{where}")
+    return record_vs_plain(cuda_solver, last, where)
+
+
+def capture_launch(action):
+    """tpu-allocate's last record with its shipped inputs cloned on the
+    current stream (a shard session's is its view's), so that it can be
+    held against the plain version after later ships have rewritten the
+    resident image.  The clone is stream-ordered: nothing waits."""
+    last = action.last
+    if last is None or last.reused:
+        raise AssertionError("tpu-allocate's finish ran without a launch")
+    return last._replace(inputs=type(last.inputs)(*(
+        t.clone() if isinstance(t, torch.Tensor) else t
+        for t in last.inputs)))
+
+
+def record_vs_plain(cuda_solver, last, where: str) -> dict:
+    """One tpu-allocate record (action.last, or a capture_launch) held
+    against the kernel's plain version on its inputs: the assignment,
+    kind and order the action fetched from its launch must equal
+    solve_allocate_plain's exactly (max abs err 0).  A gathered
+    (candidate-row) solve is compared on its gathered inputs, its
+    placements mapped back to full-space rows."""
+    from kube_batch_tpu_torch.ops.solver import _gather_candidate_inputs
     inputs, cand = last.inputs, last.candidates
     dev = inputs.node_idle.device
     if cand is not None:
         inputs = _gather_candidate_inputs(
             inputs, torch.from_numpy(cand.idx).long().to(dev),
             torch.from_numpy(cand.valid).to(dev))
+    out = solve_vs_plain(cuda_solver, inputs, last.snap.config,
+                         (last.assignment, last.kind, last.order),
+                         None if cand is None else cand.remap, where)
+    return dict(route=last.route, gathered=cand is not None, **out)
+
+
+def solve_vs_plain(cuda_solver, inputs, cfg, got, remap=None,
+                   where: str = "") -> dict:
+    """A fetched solve ``got`` (assignment, kind, order) held against
+    solve_allocate_plain on ``inputs``: equal exactly, or raise.
+    ``remap`` maps gathered rows back to the full-space rows of a
+    candidate-row solve's assignment."""
     t0 = time.perf_counter()
-    res, _ = cuda_solver.solve_allocate_plain(inputs, last.snap.config)
-    if dev.type == "cuda":
+    res, _ = cuda_solver.solve_allocate_plain(inputs, cfg)
+    if inputs.node_idle.is_cuda:
         torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     assignment = res.assignment.cpu().numpy().astype(np.int64)
     kind = res.kind.cpu().numpy().astype(np.int64)
     order = res.order.cpu().numpy().astype(np.int64)
-    got_assignment = np.asarray(last.assignment, np.int64)
-    if cand is not None:
+    got_assignment = np.asarray(got[0], np.int64)
+    if remap is not None:
         placed = kind > 0
-        assignment = np.where(placed, cand.remap[np.clip(
-            assignment, 0, len(cand.remap) - 1)], -1)
+        assignment = np.where(placed, remap[np.clip(
+            assignment, 0, len(remap) - 1)], -1)
         got_assignment = np.where(placed, got_assignment, -1)
     err = 0
-    for name, got, want in (("assignment", got_assignment, assignment),
-                            ("kind", last.kind, kind),
-                            ("order", last.order, order)):
-        got = np.asarray(got, np.int64)
-        if got.shape != want.shape:
-            raise AssertionError(f"tpu-allocate's {name} has shape "
-                                 f"{got.shape}, the plain version's "
+    for name, have, want in (("assignment", got_assignment, assignment),
+                             ("kind", got[1], kind),
+                             ("order", got[2], order)):
+        have = np.asarray(have, np.int64)
+        if have.shape != want.shape:
+            raise AssertionError(f"the launch's {name} in {where} has shape "
+                                 f"{have.shape}, the plain version's "
                                  f"{want.shape}")
-        if got.size:
-            err = max(err, int(np.abs(got - want).max()))
+        if have.size:
+            err = max(err, int(np.abs(have - want).max()))
     if err:
-        raise AssertionError(f"tpu-allocate's launch in the evict session "
-                             f"!= the plain version: max abs err {err}")
-    return dict(route=last.route, gathered=cand is not None,
-                placed=int((kind > 0).sum()), steps=int(res.step),
+        raise AssertionError(f"the launch in {where} != the plain version: "
+                             f"max abs err {err}")
+    return dict(placed=int((kind > 0).sum()), steps=int(res.step),
                 plain_ms=plain_ms, max_abs_err=err)
+
+
+def held_summary(records) -> dict:
+    """The phase-line summary of launches held against the plain
+    version."""
+    if not records:
+        return dict(held=0)
+    plain = sorted(r["plain_ms"] for r in records)
+    return dict(held=len(records),
+                max_abs_err=max(r["max_abs_err"] for r in records),
+                gathered=sum(r["gathered"] for r in records),
+                placed=[r["placed"] for r in records],
+                plain_ms_median=float(np.median(plain)),
+                plain_ms_total=float(sum(plain)))
 
 
 def evict_cycle(cuda_solver, shape, batched: bool, device="cuda",
@@ -1223,7 +1294,8 @@ def topo_cycle(cuda_solver, cache, actions, tiers, device) -> dict:
             action_ms[a.name()] = (time.perf_counter() - t0) * 1e3
             if a is tpu and device == "cuda" and tpu.last is not None \
                     and not tpu.last.reused:
-                vs_plain = allocate_vs_plain(cuda_solver, tpu)
+                vs_plain = allocate_vs_plain(cuda_solver, tpu,
+                                             "a topo session")
         launches = cuda_solver.solve_allocate_cuda.launches
         over = [name for name, node in ssn.nodes.items()
                 if over_committed(node)]
@@ -1436,6 +1508,661 @@ def topo_vs_cpu_phase(cuda_solver) -> None:
               slice_binds=len(out["cuda"]["slice_hosts"]), identical=True)
 
 
+
+# ---- the Scheduler loop, tenancy and the shard pipeline -------------------
+
+def _same_solve(a, b) -> int:
+    """Max absolute difference between two fetched solves (assignment,
+    kind, order, ordered); raises on any shape difference."""
+    worst = 0
+    for x, y in zip(a, b):
+        if x.shape != y.shape:
+            raise AssertionError(f"fetched shapes differ: {x.shape} "
+                                 f"!= {y.shape}")
+        if x.size:
+            worst = max(worst, int(np.max(np.abs(
+                x.astype(np.int64) - y.astype(np.int64)))))
+    return worst
+
+
+def tenancy_streams_phase(cuda_solver, card) -> int:
+    """The device half of the shard pipeline alone: two owners' resident
+    shippers, each owner with its own CUDA stream (as a TenancyEngine
+    gives its shard views), at the north-star shape
+    (make_synthetic_inputs seeds 0 and 1).  Each owner first ships and
+    solves alone on its stream (the reference results, fetched one after
+    the other); seed 1's solo launch is held against the plain version
+    on its shipped inputs.  Then, in turns (back to back, in flight, in
+    flight, back to back), both resident images are dropped and each
+    pair runs: back to back ships, dispatches and fetches A, then B; in
+    flight ships and dispatches A, then ships and dispatches B, and only
+    then fetches both.  In flight, B's ship and dispatch must return to
+    the host while A's ready event is still pending (the successor's
+    ship does not wait on the predecessor's kernel), and every fetched
+    result must equal its owner's solo result exactly.  Prints the
+    pair's wall times and each dispatch's CUDA-event time (buffer build,
+    kernel, packing).  Returns the kernel launches of the solo and pair
+    runs."""
+    from kube_batch_tpu_torch.models.shipping import resident_shipper
+    from kube_batch_tpu_torch.models.synthetic import make_synthetic_inputs
+    from kube_batch_tpu_torch.ops.solver import dispatch_solve, fetch_solve
+    from kube_batch_tpu_torch.tenancy.engine import assign_shard_streams
+
+    class Owner:
+        pass
+
+    owners = [Owner(), Owner()]
+    assign_shard_streams(owners, "cuda")
+    staged = [make_synthetic_inputs(*NORTH_STAR, seed=seed,
+                                    dtype=torch.float32)
+              for seed in (0, 1)]
+    shippers = [resident_shipper(o, "cuda") for o in owners]
+    streams = [o.stream for o in owners]
+    handles = [st.cuda_stream for st in streams]
+    if len(set(handles)) != 2:
+        raise AssertionError(f"two owners share a stream: {handles}")
+    cuda_solver.solve_allocate_cuda.launches = 0
+    solo = []
+    for sh, st, (inp, cfg) in zip(shippers, streams, staged):
+        with torch.cuda.stream(st):
+            solo.append(fetch_solve(dispatch_solve(sh.ship(inp, cfg), cfg)))
+    wait_device("the solo launches")
+    solo_launches = cuda_solver.solve_allocate_cuda.launches
+    # Each solo launch against the plain version, on its owner's stream
+    # over its owner's resident image (a clean ship returns it as is).
+    for seed, (sh, st, (inp, cfg), got) in enumerate(zip(
+            shippers, streams, staged, solo)):
+        with torch.cuda.stream(st):
+            phase("tenancy-streams-vs-plain", seed=seed, **solve_vs_plain(
+                cuda_solver, sh.ship(inp, cfg), cfg, got[:3],
+                where=f"the solo launch of seed {seed}"))
+
+    def pair(together: bool) -> dict:
+        for sh in shippers:
+            sh.invalidate()          # each ship of the pair is a full one
+        events = [(torch.cuda.Event(enable_timing=True),
+                   torch.cuda.Event(enable_timing=True)) for _ in owners]
+        fetched, pending = [None, None], [None, None]
+        pending_at_b = None
+        t0 = time.perf_counter()
+        for i, (sh, st, (inp, cfg)) in enumerate(zip(shippers, streams,
+                                                      staged)):
+            with torch.cuda.stream(st):
+                shipped = sh.ship(inp, cfg)
+                events[i][0].record()
+                pending[i] = dispatch_solve(shipped, cfg)
+                events[i][1].record()
+            if i == 1:
+                pending_at_b = not pending[0].ready.query()
+            if not together:
+                fetched[i] = fetch_solve(pending[i])
+        if together:
+            fetched = [fetch_solve(p) for p in pending]
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        wait_device("the pair of launches")
+        err = max(_same_solve(f, s) for f, s in zip(fetched, solo))
+        if err:
+            raise AssertionError(f"a shard-stream solve differs from its "
+                                 f"solo launch: max abs err {err}")
+        return dict(wall_ms=wall_ms, max_abs_err=err,
+                    a_pending_when_b_returned=pending_at_b,
+                    dispatch_ms=[a.elapsed_time(b) for a, b in events])
+
+    cuda_solver.solve_allocate_cuda.launches = 0
+    cuda_solver.solve_allocate_cuda.stream_launches = {}
+    runs = [(together, pair(together))
+            for together in (False, True, True, False)]
+    launches = cuda_solver.solve_allocate_cuda.launches
+    tally = cuda_solver.solve_allocate_cuda.stream_launches
+    for together, run in runs:
+        phase("tenancy-streams-run", in_flight=together, **run)
+    if launches != 2 * len(runs) or tally != {h: len(runs) for h in handles}:
+        raise AssertionError(f"{launches} launches on streams {tally}, "
+                             f"expected {len(runs)} on each of {handles}")
+    if not all(run["a_pending_when_b_returned"]
+               for together, run in runs if together):
+        raise AssertionError("B's ship and dispatch waited for A's kernel: "
+                             "the two streams serialized")
+    walls = {name: [run["wall_ms"] for t, run in runs if t == together]
+             for name, together in (("back_to_back", False),
+                                    ("in_flight", True))}
+    phase("tenancy-streams", shape=list(NORTH_STAR), seeds=[0, 1],
+          streams=handles, launches=solo_launches + launches, max_abs_err=0,
+          b_returned_while_a_pending=True,
+          pair_wall_ms_back_to_back=walls["back_to_back"],
+          pair_wall_ms_in_flight=walls["in_flight"],
+          pair_wall_ms_median={k: float(np.median(v))
+                               for k, v in walls.items()},
+          dispatch_ms=[run["dispatch_ms"] for _, run in runs], card=card)
+    return solo_launches + launches
+
+
+TENANCY_SHAPE = dict(n_tasks=50_000, n_nodes=10_000, n_queues=4)
+
+
+class _BeginProbe:
+    """Around ShardPipeline._begin (measurement only): counts the begin
+    halves that returned while a predecessor in flight still had its
+    solve's ready event pending on the card, and keeps, per begin half,
+    its shard, its host-clock ms and a pair of CUDA events recorded on
+    the view's stream just before and just after it.  The stream is idle
+    when the first is recorded, so their elapsed time runs from the
+    begin half's start to the end of the device work it queued (ship,
+    candidate gather, kernel, packing, readback); less the host ms, it
+    is the device tail left when the begin half returned.  Recording an
+    event does not wait."""
+
+    def __init__(self, pipeline_cls):
+        self.cls = pipeline_cls
+        self.real = pipeline_cls._begin
+        self.reset()
+
+    def reset(self) -> None:
+        self.begins = 0
+        self.with_pending_predecessor = 0
+        self.samples = []   # (shard, host ms, start event, end event)
+
+    def __enter__(self):
+        probe = self
+
+        def _begin(pipeline, shard):
+            preds = [getattr(s.handle.cont, "pending", None)
+                     for s in pipeline._inflight]
+            stream = pipeline.engine.views[shard].stream
+            start = end = None
+            if stream is not None:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record(stream)
+            t0 = time.perf_counter()
+            stage = probe.real(pipeline, shard)
+            host_ms = (time.perf_counter() - t0) * 1e3
+            if stream is not None:
+                end.record(stream)
+            probe.begins += 1
+            probe.samples.append((shard, host_ms, start, end))
+            if any(p is not None and p.ready is not None
+                   and not p.ready.query() for p in preds):
+                probe.with_pending_predecessor += 1
+            return stage
+
+        self.cls._begin = _begin
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._begin = self.real
+
+    def timings(self) -> list:
+        """Per begin half: [shard, host ms, ms from its start to the end
+        of its device work] (None on the CPU).  Read after the card is
+        idle."""
+        return [[shard, host_ms,
+                 start.elapsed_time(end) if start is not None else None]
+                for shard, host_ms, start, end in self.samples]
+
+
+def tenancy_arm(cuda_solver, concurrent: bool, device="cuda", *,
+                n_tasks, n_nodes, n_queues, rounds=4,
+                churn_frac=0.05, gangs=None) -> dict:
+    """bench.py's _tenancy_storm_arm through the port: ``n_queues``
+    tenants on disjoint node-selector pools of 16 CPU / 64 GiB nodes,
+    KUBE_BATCH_TPU_TENANCY=n_queues with each queue pinned to its own
+    shard, every tenant submitting one gang of n_tasks * churn_frac /
+    n_queues pods (or ``gangs[tenant]`` pods; minMember 4/5 of it) per
+    round and gangs two rounds old retired, through a real Scheduler and
+    TenancyEngine on ``device`` with KUBE_BATCH_TPU_CONCURRENT_SHARDS
+    toggled.  One warm pass, then ``rounds`` rounds, under the
+    production GC posture.  Every round must end with no shard backing
+    off and no session on the host fallback.  Every tpu-allocate
+    dispatch after the warm pass (on the card, a launch) is captured
+    when its finish runs (capture_launch, on the view's stream) and,
+    after the last round, held against the plain version
+    (record_vs_plain).  Returns
+    the parity material (per-round bind fingerprints, the events after
+    the warm pass, the lineage bind samples), the round walls, the
+    pipeline counters, the kernel's launches by stream, the begin
+    halves' timings and the records held against the plain version."""
+    import dataclasses as dc
+
+    from kube_batch_tpu_torch.api import (Container, Node, NodeSpec,
+                                          NodeStatus, ObjectMeta, Pod,
+                                          PodSpec, PodStatus, pod_key)
+    from kube_batch_tpu_torch.api.queue_info import Queue
+    from kube_batch_tpu_torch.apis.scheduling import v1alpha1
+    from kube_batch_tpu_torch.cache import (FakeBinder, FakeEvictor,
+                                            FakeStatusUpdater,
+                                            FakeVolumeBinder, SchedulerCache)
+    from kube_batch_tpu_torch.cache.cache import _EventDeque
+    from kube_batch_tpu_torch.framework import get_action
+    from kube_batch_tpu_torch.metrics.metrics import (shard_cycle_stats,
+                                                      shard_overlap_total_ms,
+                                                      shard_pipeline_counts)
+    from kube_batch_tpu_torch.models.shipping import resident_shipper
+    from kube_batch_tpu_torch.scheduler import Scheduler
+    from kube_batch_tpu_torch.tenancy.pipeline import ShardPipeline
+    from kube_batch_tpu_torch.trace.lineage import lineage as pod_lineage
+
+    env = {"KUBE_BATCH_TPU_CONCURRENT_SHARDS": "1" if concurrent else "0",
+           "KUBE_BATCH_TPU_TENANCY": str(n_queues),
+           "KUBE_BATCH_TPU_SHARD_MAP": "|".join(
+               f"q{i}:{i}" for i in range(n_queues))}
+    with env_arm(env):
+        binder = FakeBinder()
+        cache = SchedulerCache(binder=binder, evictor=FakeEvictor(),
+                               status_updater=FakeStatusUpdater(),
+                               volume_binder=FakeVolumeBinder())
+        cache.events = _EventDeque(maxlen=max(200000, 4 * n_tasks + 20000))
+        for q in range(n_queues):
+            cache.add_queue(Queue(metadata=ObjectMeta(
+                name=f"q{q}", creation_timestamp=float(q)), weight=1))
+        alloc = {"cpu": "16", "memory": "64Gi", "pods": 110}
+        for i in range(n_nodes):
+            name = f"n{i:05d}"
+            cache.add_node(Node(
+                metadata=ObjectMeta(name=name, uid=name,
+                                    labels={"pool": f"q{i % n_queues}"}),
+                spec=NodeSpec(), status=NodeStatus(
+                    allocatable=dict(alloc), capacity=dict(alloc))))
+        scheduler = Scheduler(cache, schedule_period=3600, device=device)
+        engine = scheduler.tenancy
+        if engine is None or (engine.pipeline is not None) != concurrent:
+            raise AssertionError("the tenancy engine is not as configured")
+        tpu = get_action("tpu-allocate")
+        fallbacks = []
+        real_fallback = tpu._run_host_fallback
+        tpu._run_host_fallback = lambda ssn: (fallbacks.append(ssn.uid),
+                                              real_fallback(ssn))
+        # Each launch's record, captured when its finish runs (on the
+        # view's stream, before the shard's next ship).
+        captured, capturing = [], [False]
+        real_begin = tpu.execute_begin
+
+        def execute_begin(ssn):
+            fin = real_begin(ssn)
+            if not capturing[0] or getattr(fin, "pending", None) is None:
+                return fin
+
+            def finish():
+                fin()
+                captured.append(capture_launch(tpu))
+            finish.pending = fin.pending
+            return finish
+
+        tpu.execute_begin = execute_begin
+        # Launches by stream: the count is set to 0 after the warm pass.
+        pod_lineage.clear()
+        podmap = {}
+
+        def submit_gang(tenant, name, size):
+            cache.add_pod_group(v1alpha1.PodGroup(
+                metadata=ObjectMeta(name=name, namespace="bench"),
+                spec=v1alpha1.PodGroupSpec(min_member=max(1, size * 4 // 5),
+                                           queue=f"q{tenant}")))
+            keys = []
+            for i in range(size):
+                uid = f"{name}-{i}"
+                pod = Pod(
+                    metadata=ObjectMeta(
+                        name=uid, namespace="bench", uid=uid,
+                        annotations={v1alpha1.GroupNameAnnotationKey: name},
+                        creation_timestamp=float(len(podmap))),
+                    spec=PodSpec(node_selector={"pool": f"q{tenant}"},
+                                 containers=[Container(requests={
+                                     "cpu": "500m", "memory": "1Gi"})]),
+                    status=PodStatus(phase="Pending"))
+                podmap[pod_key(pod)] = pod
+                keys.append(pod_key(pod))
+                cache.add_pod(pod)
+            return keys
+
+        def echo():
+            binds = dict(binder.binds)
+            binder.binds.clear()
+            for key, node in binds.items():
+                old = podmap.get(key)
+                if old is None:
+                    continue
+                new = dc.replace(old, spec=dc.replace(old.spec,
+                                                      node_name=node),
+                                 status=PodStatus(phase="Running"))
+                podmap[key] = new
+                cache.update_pod(old, new)
+            updater = cache.status_updater
+            for pg in updater.pod_groups:
+                cache.add_pod_group(pg)
+            updater.pod_groups.clear()
+
+        def run_once():
+            scheduler.run_once()
+            if engine._failures:
+                raise AssertionError(f"shard sessions failed: "
+                                     f"{engine._failures}")
+            if fallbacks:
+                raise AssertionError(f"{len(fallbacks)} shard sessions "
+                                     f"took the host fallback")
+
+        gang = max(4, int(n_tasks * churn_frac) // max(n_queues, 1))
+        gangs = tuple(gangs) if gangs is not None else (gang,) * n_queues
+        try:
+            with gc_posture(), _BeginProbe(ShardPipeline) as probe:
+                for t in range(n_queues):
+                    submit_gang(t, f"warm-{t}", 4)
+                run_once()
+                echo()
+                run_once()
+                echo()
+                if device == "cuda":
+                    torch.cuda.synchronize()
+                events_mark = len(cache.events)
+                overlap0 = shard_overlap_total_ms()
+                pipe0 = shard_pipeline_counts()
+                probe.reset()
+                capturing[0] = True
+                cuda_solver.solve_allocate_cuda.launches = 0
+                cuda_solver.solve_allocate_cuda.stream_launches = {}
+                retire, walls, fingerprints, launches = [], [], [], []
+                overlap_rounds, inflight_hw = [], 1
+                for rnd in range(rounds):
+                    round_start = time.perf_counter()
+                    launched = cuda_solver.solve_allocate_cuda.launches
+                    new_keys = []
+                    for t in range(n_queues):
+                        new_keys.extend(submit_gang(t, f"storm-{rnd}-t{t}",
+                                                    gangs[t]))
+                    if len(retire) >= 2:
+                        for key in retire.pop(0):
+                            pod = podmap.pop(key, None)
+                            if pod is not None:
+                                cache.delete_pod(pod)
+                    o0 = shard_overlap_total_ms()
+                    run_once()
+                    overlap_rounds.append(shard_overlap_total_ms() - o0)
+                    if concurrent:
+                        inflight_hw = max(inflight_hw,
+                                          shard_cycle_stats()[1])
+                    fingerprints.append(tuple(sorted(binder.binds.items())))
+                    echo()
+                    retire.append(new_keys)
+                    walls.append((time.perf_counter() - round_start) * 1e3)
+                    launches.append(cuda_solver.solve_allocate_cuda.launches
+                                    - launched)
+                pipe1 = shard_pipeline_counts()
+        finally:
+            del tpu._run_host_fallback
+            del tpu.execute_begin
+        if device == "cuda":
+            wait_device("the tenancy rounds")
+            torch.cuda.synchronize()
+        timings = probe.timings()
+        held = [record_vs_plain(cuda_solver, rec, "a tenancy shard session")
+                for rec in captured]
+        if device == "cuda" and len(held) != sum(launches):
+            raise AssertionError(f"{len(held)} of {sum(launches)} tenancy "
+                                 f"launches held against the plain version")
+        views = {v.stream: v.shard for v in engine.views}
+        by_shard = {}
+        for handle, n in cuda_solver.solve_allocate_cuda.stream_launches \
+                .items():
+            shard = next((s for stream, s in views.items()
+                          if stream is not None
+                          and stream.cuda_stream == handle), None)
+            by_shard.setdefault(shard, []).append((handle, n))
+        if len(cache.events) >= cache.events.maxlen:
+            raise AssertionError("the event ring overflowed")
+        samples = sorted(p["pod"] for p in pod_lineage.dump()["pods"]
+                         if p.get("bound"))
+        return dict(
+            fingerprints=fingerprints,
+            events=list(cache.events)[events_mark:], samples=samples,
+            walls_ms=walls, launches=launches, gangs=list(gangs),
+            overlap_ms_rounds=overlap_rounds,
+            overlap_ms_total=shard_overlap_total_ms() - overlap0,
+            inflight=inflight_hw,
+            pipeline={k: pipe1.get(k, 0) - pipe0.get(k, 0)
+                      for k in set(pipe0) | set(pipe1)},
+            launches_by_shard=by_shard,
+            begins=probe.begins,
+            begins_with_pending_predecessor=probe.with_pending_predecessor,
+            begin_timings=timings, held=held)
+
+
+def tenancy_phase(cuda_solver, card, device="cuda",
+                  shape=TENANCY_SHAPE) -> int:
+    """The reference's concurrent-shard A/B through a real Scheduler and
+    TenancyEngine at the north star's cluster size (tenancy_arm), arms
+    CONCURRENT_SHARDS off/on/on/off on fresh caches.  Every round's binds,
+    the event stream and the lineage bind samples must be equal across
+    the four arms; the concurrent arms must have pipelined (stages
+    overlapped, overlap time above 0, two in flight at once); every
+    shard's launches must have gone to its own view's stream, a distinct
+    stream per shard.  Prints per arm the round walls (median,
+    nearest-rank p90), shard sessions per second, launches per round and
+    the begin halves that returned while a predecessor's solve was still
+    pending on the card, and every launch's record held against the
+    plain version (tenancy_arm).  Returns the launches of the four
+    arms."""
+    arms = []
+    for concurrent in (False, True, True, False):
+        out = tenancy_arm(cuda_solver, concurrent, device, **shape)
+        arms.append((concurrent, out))
+        walls = sorted(out["walls_ms"])
+        phase("tenancy-arm", concurrent=concurrent, gangs=out["gangs"],
+              walls_ms=out["walls_ms"],
+              wall_ms_median=float(np.median(walls)),
+              wall_ms_p90=walls[max(0, math.ceil(0.9 * len(walls)) - 1)],
+              sessions_per_s=(len(walls) * shape["n_queues"]
+                              / (sum(walls) / 1e3)),
+              launches_per_round=out["launches"],
+              launches_by_shard={str(k): v for k, v in
+                                 out["launches_by_shard"].items()},
+              overlap_ms_rounds=out["overlap_ms_rounds"],
+              overlap_ms_total=out["overlap_ms_total"],
+              inflight_high_water=out["inflight"], pipeline=out["pipeline"],
+              begins=out["begins"],
+              begins_with_pending_predecessor=out[
+                  "begins_with_pending_predecessor"],
+              binds=sum(len(f) for f in out["fingerprints"]),
+              begin_timings=out["begin_timings"],
+              vs_plain=held_summary(out["held"]))
+    base = arms[0][1]
+    if not base["fingerprints"][-1]:
+        raise AssertionError("the tenancy cell bound nothing")
+    for concurrent, out in arms[1:]:
+        for key in ("fingerprints", "events", "samples"):
+            if out[key] != base[key]:
+                raise AssertionError(f"tenancy arms differ in {key} "
+                                     f"(concurrent={concurrent})")
+    shards = set(range(shape["n_queues"]))
+    for concurrent, out in arms:
+        by_shard = out["launches_by_shard"]
+        handles = [h for v in by_shard.values() for h, _ in v]
+        if device == "cuda" and (
+                None in by_shard or set(by_shard) != shards
+                or len(handles) != len(shards)
+                or len(set(handles)) != len(handles)):
+            raise AssertionError(f"launches not each on its shard's own "
+                                 f"stream: {by_shard}")
+        if concurrent and not (out["pipeline"].get("overlapped", 0) > 0
+                               and out["overlap_ms_total"] > 0
+                               and out["inflight"] >= 2):
+            raise AssertionError(f"the concurrent arm did not pipeline: "
+                                 f"{out['pipeline']}, "
+                                 f"{out['overlap_ms_total']} ms, "
+                                 f"in flight {out['inflight']}")
+    launches = sum(sum(out["launches"]) for _, out in arms)
+    phase("tenancy", nodes=shape["n_nodes"], tenants=shape["n_queues"],
+          n_tasks=shape["n_tasks"], gangs=base["gangs"],
+          rounds=len(base["walls_ms"]), identical_arms=True,
+          binds_per_round=[len(f) for f in base["fingerprints"]],
+          events=len(base["events"]), lineage_samples=len(base["samples"]),
+          kernel_launches=launches,
+          held_against_plain=sum(len(out["held"]) for _, out in arms),
+          card=card)
+    return launches
+
+
+TENANCY_BACKLOGS = (2_500, 10_000, 30_000)
+
+
+def tenancy_backlog_phase(cuda_solver, card, device="cuda",
+                          shape=TENANCY_SHAPE,
+                          backlogs=TENANCY_BACKLOGS) -> int:
+    """Where a shard's solve outlasts the next shard's begin half: the
+    tenancy protocol's concurrent arm (tenancy_arm) with tenant 0
+    submitting one gang of B pods and the other tenants 4 pods each, one
+    round after the warm pass, for each B in ``backlogs``.  Shard 1's
+    begin half then runs while shard 0's B-pod solve is on the card.
+    Prints per B shard 0's begin host ms and its device tail (the ms its
+    device work, the kernel included, ran on after its begin half
+    returned), shard 1's begin host ms, and whether shard 1's begin
+    returned while shard 0's ready event was pending: it should exactly
+    when the tail outlasts shard 1's begin half.
+    Every launch is held against the plain version (tenancy_arm); the
+    arm must bind shard 0's gang.  Returns the launches."""
+    launches = 0
+    for backlog in backlogs:
+        gangs = (backlog,) + (4,) * (shape["n_queues"] - 1)
+        out = tenancy_arm(cuda_solver, True, device, rounds=1, gangs=gangs,
+                          **shape)
+        timings = out["begin_timings"]
+        first = {shard: (host, end) for shard, host, end in reversed(timings)}
+        host0, end0 = first.get(0, (None, None))
+        binds = len(out["fingerprints"][0])
+        if binds < backlog * 4 // 5:
+            raise AssertionError(f"the backlog arm at {backlog} pods bound "
+                                 f"{binds}")
+        launches += sum(out["launches"])
+        phase("tenancy-backlog", backlog=backlog, gangs=list(gangs),
+              binds=binds, wall_ms=out["walls_ms"][0],
+              shard0_begin_host_ms=host0,
+              shard0_device_tail_ms=(end0 - host0 if end0 is not None
+                                     else None),
+              shard1_begin_host_ms=first.get(1, (None, None))[0],
+              begins=out["begins"],
+              begins_with_pending_predecessor=out[
+                  "begins_with_pending_predecessor"],
+              begin_timings=timings, launches=sum(out["launches"]),
+              vs_plain=held_summary(out["held"]), card=card)
+    return launches
+
+
+def scheduler_loop_phase(cuda_solver, card, device="cuda",
+                         shape=(5_000, 1_000, 100, 4)) -> int:
+    """Scheduler(cache).run() on ``device`` over make_synthetic_cache(
+    *shape): the loop thread's first cycle must bind with the session
+    kernel launched from that thread; a churned pod (one new one-pod
+    gang) must wake the loop, sleeping in a 30 s schedule period, and
+    bind; stop() must return within 5 s with the thread gone.  Every wait
+    is bounded: a loop that does not bind in time leaves the process at
+    once with exit code 3, as wait_device does.  On the card each cycle
+    that solved on the device has its tpu-allocate record captured on the
+    loop thread when the cycle ends (capture_launch), and every one is
+    held against the plain version after stop().  Returns the launches
+    the loop made."""
+    import gc
+    import threading
+
+    from kube_batch_tpu_torch.api import (Container, ObjectMeta, Pod,
+                                          PodSpec, PodStatus)
+    from kube_batch_tpu_torch.apis.scheduling import v1alpha1
+    from kube_batch_tpu_torch.models.synthetic import make_synthetic_cache
+    from kube_batch_tpu_torch.ops import solver
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    def wait_for(what, pred, seconds):
+        deadline = time.monotonic() + seconds
+        while not pred():
+            if time.monotonic() > deadline:
+                print(f"chip_smoke: {what} did not happen in {seconds} s",
+                      file=sys.stderr, flush=True)
+                os._exit(3)
+            time.sleep(0.01)
+        return time.monotonic()
+
+    cache, binder = make_synthetic_cache(*shape)
+    sched = Scheduler(cache, schedule_period=30.0, device=device)
+    tpu = next(a for a in sched.actions if a.name() == "tpu-allocate")
+    cycles = []   # (end on the monotonic clock, binds so far) per cycle
+    captured = []
+    real_run_once = sched.run_once
+
+    def counted_run_once():
+        before = tpu.last
+        real_run_once()
+        if tpu.last is not before and tpu.last is not None \
+                and not tpu.last.reused:
+            captured.append(capture_launch(tpu))
+        cycles.append((time.monotonic(), len(binder.binds)))
+
+    sched.run_once = counted_run_once
+    launch_threads = []
+    real = solver.best_solve_allocate
+
+    def traced(inp, cfg):
+        launch_threads.append(threading.get_ident())
+        return real(inp, cfg)
+
+    solver.best_solve_allocate = traced
+    cuda_solver.solve_allocate_cuda.launches = 0
+    try:
+        t0 = time.monotonic()
+        sched.run()
+        loop_ident = sched._thread.ident
+        wait_for("the loop's first cycle", lambda: cycles, 300)
+        first, first_binds = cycles[0]
+        if not first_binds:
+            raise AssertionError("the loop's first cycle bound nothing")
+        # The group's own churn wakes the loop once; the pod below must
+        # find it asleep again, in its 30 s schedule period.
+        cache.add_pod_group(v1alpha1.PodGroup(
+            metadata=ObjectMeta(name="churn", namespace="bench"),
+            spec=v1alpha1.PodGroupSpec(min_member=1, queue="q0")))
+        wait_for("the group's wake cycle", lambda: len(cycles) >= 2, 120)
+        time.sleep(0.5)
+        asleep = len(cycles)
+        t1 = time.monotonic()
+        cache.add_pod(Pod(
+            metadata=ObjectMeta(
+                name="churn-0", namespace="bench", uid="churn-0",
+                annotations={v1alpha1.GroupNameAnnotationKey: "churn"},
+                creation_timestamp=1e9),
+            spec=PodSpec(containers=[Container(
+                requests={"cpu": "100m", "memory": "64Mi"})]),
+            status=PodStatus(phase="Pending")))
+        woke = wait_for("the churn bind",
+                        lambda: "bench/churn-0" in binder.binds, 25)
+        # The bind lands inside run_once; the cycle that made it is
+        # counted when run_once returns.
+        wait_for("the waking cycle's end", lambda: len(cycles) > asleep, 25)
+        t2 = time.monotonic()
+        sched.stop(timeout=5.0)
+        stop_s = time.monotonic() - t2
+    finally:
+        solver.best_solve_allocate = real
+        gc.unfreeze()
+    launches = cuda_solver.solve_allocate_cuda.launches
+    if sched._thread.is_alive() or stop_s > 5.0:
+        raise AssertionError(f"stop() took {stop_s:.2f} s")
+    if not launch_threads or set(launch_threads) != {loop_ident} \
+            or (device == "cuda" and launches != len(launch_threads)):
+        raise AssertionError(f"the kernel was not launched from the loop "
+                             f"thread alone: {len(launch_threads)} solves "
+                             f"({launches} launches)")
+    if sched._consecutive_failures:
+        raise AssertionError("a loop cycle failed")
+    held = [record_vs_plain(cuda_solver, rec, "a loop cycle")
+            for rec in captured]
+    if device == "cuda" and len(held) != launches:
+        raise AssertionError(f"{len(held)} of the loop's {launches} launches "
+                             f"held against the plain version")
+    phase("scheduler-loop", shape=list(shape), device=device,
+          first_cycle_s=first - t0, first_cycle_binds=first_binds,
+          cycles=len(cycles),
+          churn_bind_s=woke - t1, stop_s=stop_s, launches=launches,
+          binds=len(binder.binds), vs_plain=held_summary(held), card=card)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -1581,6 +2308,10 @@ def main() -> int:
     evict_vs_cpu_phase(cuda_solver)
     topo_launches = topo_phase(cuda_solver, card)
     topo_vs_cpu_phase(cuda_solver)
+    streams_launches = tenancy_streams_phase(cuda_solver, card)
+    tenancy_launches = tenancy_phase(cuda_solver, card)
+    backlog_launches = tenancy_backlog_phase(cuda_solver, card)
+    loop_launches = scheduler_loop_phase(cuda_solver, card)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -1588,7 +2319,8 @@ def main() -> int:
         "source": "kube_batch_tpu_torch/csrc/solve_session.cu",
         "replaces": "kube_batch_tpu/ops/pallas_solver.py:60",
         "launches": (session_launches + steady_launches + evict_launches
-                     + topo_launches),
+                     + topo_launches + streams_launches + tenancy_launches
+                     + backlog_launches + loop_launches),
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,

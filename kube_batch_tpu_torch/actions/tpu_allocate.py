@@ -12,8 +12,16 @@ the host allocate action.  Only the tensorizer's expressiveness gaps
 The action owns its device and float key type: CUDA unless the caller
 asks for the CPU, float32 unless it asks for float64.  Unlike the
 reference it never degrades to the host path on a device failure: a
-failing ship, dispatch, fetch or validation raises out of ``execute``
-(the breaker and degradation come with ROADMAP queue 1 item 11).
+failing ship or dispatch raises out of ``execute_begin``, a failing
+fetch or validation out of its ``finish`` continuation (the breaker and
+degradation come with ROADMAP queue 1 item 11).  The one exception is
+the shard pipeline's stale session (``ssn._pipeline_stale``): its failed
+fetch raises ``StaleSessionAbort``, before any mutation, so the pipeline
+reruns the shard fresh (tenancy/pipeline.py).
+
+``execute`` is ``execute_begin`` (tensorize, ship, dispatch) followed by
+the continuation it returns (fetch, validate, apply); the concurrent
+shard pipeline runs other shards' begin halves between the two.
 
 Steady state: a byte-clean ship at an unchanged shipper generation
 reuses the previous validated result (models/incremental.py), and a
@@ -82,7 +90,10 @@ class TpuAllocateAction(Action):
 
     def _run_host_fallback(self, ssn) -> None:
         """The host allocate oracle: placement-identical to the device
-        path by the parity suite, only the engine differs."""
+        path by the parity suite, only the engine differs.  (The
+        reference first flushes a commit sink deferred into this
+        action's window, fused_solver.flush_deferred; the port defers
+        none until ROADMAP queue 1 item 4.)"""
         if self._fallback_action is None:
             from .allocate import AllocateAction
             self._fallback_action = AllocateAction()
@@ -118,15 +129,39 @@ class TpuAllocateAction(Action):
                     "unplaced tasks")
 
     def execute(self, ssn) -> None:
+        finish = self.execute_begin(ssn)
+        if finish is not None:
+            finish()
+
+    def execute_begin(self, ssn):
+        """The HOST half of the action — tensorize, ship, async solve
+        dispatch, device-wait-window apply preparation — with every
+        cluster-mutating step deferred into the returned continuation.
+
+        Returns None when the action fully completed (nothing to solve),
+        else a zero-argument continuation that finishes it: device fetch,
+        result validation, placement apply, fit deltas — or the host
+        allocate action where the tensorizer cannot express the session.
+        The split is what the concurrent shard pipeline overlaps
+        (tenancy/pipeline.py): shard K+1 runs this begin half while shard
+        K's kernel runs on the card, and the continuations retire in
+        shard order so binds and events stay sequential-identical.
+        ``execute`` composes the halves back to back.  The continuation
+        carries ``pending``, the dispatched solve it will fetch (None
+        when it fetches nothing), so the pipeline can retire an
+        abandoned one.
+
+        The reference consults its device breaker here and degrades a
+        failing tensorize, ship or dispatch to the host path; the port
+        raises instead (ROADMAP queue 1 item 11)."""
         import numpy as np
 
         from ..models.shipping import resident_shipper
-        from ..models.tensor_snapshot import (build_apply_aggregates,
-                                              prepare_apply_scaffold,
+        from ..models.tensor_snapshot import (prepare_apply_scaffold,
                                               tensorize_session)
         from ..ops.solver import (best_solve_allocate, choose_solver_mesh,
                                   discard_solve, dispatch_solve,
-                                  fetch_result, fetch_solve)
+                                  fetch_result)
 
         stages = {}
         start = time.time()
@@ -136,9 +171,10 @@ class TpuAllocateAction(Action):
         stages["tensorize"] = time.perf_counter() - t0
         if snap.needs_fallback:
             # A tensorization GAP, not a device failure: the reference's
-            # expressiveness boundary, where the host oracle serves.
-            self._run_host_fallback(ssn)
-            return
+            # expressiveness boundary, where the host oracle serves.  The
+            # fallback mutates the session and binds: retire-phase work.
+            ssn._pipeline_reads_all = True
+            return lambda: self._run_host_fallback(ssn)
         metrics.observe_tpu_transfer_latency(time.time() - start)
 
         # Backfill pre-scan: the tensorizer already collected every
@@ -152,11 +188,19 @@ class TpuAllocateAction(Action):
             ssn.prescan["has_best_effort"] = False
 
         if not snap.tasks:
-            return
+            # The reference flushes a commit sink deferred into this
+            # action's window here (fused_solver.flush_deferred); the
+            # port defers none until the fused program lands (ROADMAP
+            # queue 1 item 4).
+            self._publish_read_fence(ssn, snap, empty=True)
+            return None
 
-        # Ship -> dispatch -> fetch -> validate mutates no session state;
-        # a failure there raises out of the action (no host fallback).
+        # Ship -> dispatch mutates no session state; a failure there
+        # raises out of the action (no host fallback).  The begin half
+        # stops at the async dispatch; fetch, validation and apply live
+        # in the returned continuation.
         pending = None
+        assignment = kind = order = ordered = None
         try:
             ship_start = time.time()
             t0 = time.perf_counter()
@@ -164,6 +208,8 @@ class TpuAllocateAction(Action):
             with trace.span("ship"):
                 inputs = shipper.ship(snap.inputs, snap.config, self.dtype)
             if inputs.node_idle.is_cuda:
+                # The session's own stream (a shard view's, or the
+                # current one for the global engine): never the device.
                 torch.cuda.current_stream(inputs.node_idle.device) \
                     .synchronize()
             stages["ship"] = time.perf_counter() - t0
@@ -219,13 +265,14 @@ class TpuAllocateAction(Action):
                     scaffold = prepare_apply_scaffold(snap)
                 metrics.note_generation_reuse(True)
                 metrics.set_cycle_floor("solve_wait", 0.0)
-                stages["dispatch_fetch"] = time.perf_counter() - solve_start
             elif pipelined:
                 # Dispatch, overlap the result-independent apply
                 # preparation with the executing device program, then
-                # block only when the result is consumed.  No fused
-                # program holds this solve: the reference's FUSED=0 arm
-                # (ROADMAP queue 1 item 4).
+                # block only when the result is consumed (the
+                # continuation below).  No fused program holds this
+                # solve: the reference's fused_solver.take_alloc comes
+                # with ROADMAP queue 1 item 4, and the port runs its
+                # FUSED=0 arm.
                 with trace.span("dispatch"):
                     pending = dispatch_solve(inputs, snap.config,
                                              candidates=candidates)
@@ -237,15 +284,6 @@ class TpuAllocateAction(Action):
                     scaffold = prepare_apply_scaffold(snap)
                 metrics.observe_host_overlap_latency(
                     time.perf_counter() - overlap_start)
-                wait_start = time.perf_counter()
-                with trace.span("device_wait"):
-                    fetching, pending = pending, None
-                    assignment, kind, order, ordered = fetch_solve(fetching)
-                wait_elapsed = time.perf_counter() - wait_start
-                stages["dispatch_fetch"] = time.perf_counter() - solve_start
-                metrics.observe_device_wait_latency(wait_elapsed)
-                metrics.set_cycle_floor("solve_wait", wait_elapsed)
-                metrics.observe_tpu_solve_latency(stages["dispatch_fetch"])
             else:
                 # KUBE_BATCH_TPU_PIPELINE=0: the sequential solve, one
                 # launch read back in one transfer; the scaffold is built
@@ -254,14 +292,66 @@ class TpuAllocateAction(Action):
                     result = best_solve_allocate(inputs, snap.config)
                     assignment, kind, order = fetch_result(result)
                 metrics.note_candidate_solve(False, 0)
-                stages["dispatch_fetch"] = time.perf_counter() - solve_start
                 metrics.set_cycle_floor("solve_wait",
-                                        stages["dispatch_fetch"])
-                metrics.observe_tpu_solve_latency(stages["dispatch_fetch"])
+                                        time.perf_counter() - solve_start)
                 placed = np.nonzero(kind > 0)[0]
                 ordered = placed[np.argsort(order[placed], kind="stable")]
                 scaffold = None
-            self._validate_result(snap, assignment, kind, order, ordered)
+            begin_solve_elapsed = time.perf_counter() - solve_start
+        except BaseException:
+            if pending is not None:
+                # The dispatch landed before the failure: retire the
+                # handle from the in-flight ledger — nothing will fetch it.
+                discard_solve(pending)
+            ssn._pipeline_reads_all = True
+            raise
+
+        # Publish the successor-conflict read fence BEFORE pausing: the
+        # pipeline compares predecessors' mutated nodes against this
+        # session's statically-feasible node union (doc/TENANCY.md
+        # "Concurrent micro-sessions" — the solve's outcome provably
+        # depends on node state only inside sig-feasible columns).
+        self._publish_read_fence(ssn, snap)
+
+        def finish():
+            nonlocal scaffold, assignment, kind, order, ordered
+            from ..models.tensor_snapshot import build_apply_aggregates
+            from ..ops.solver import fetch_solve
+            # The reference egresses a commit flush deferred from an
+            # earlier action here (fused_solver.flush_deferred); none is
+            # deferred until ROADMAP queue 1 item 4.
+            try:
+                if pending is not None:
+                    wait_start = time.perf_counter()
+                    with trace.span("device_wait"):
+                        assignment, kind, order, ordered = \
+                            fetch_solve(pending)
+                    wait_elapsed = time.perf_counter() - wait_start
+                    metrics.observe_device_wait_latency(wait_elapsed)
+                    metrics.set_cycle_floor("solve_wait", wait_elapsed)
+                    solve_elapsed = begin_solve_elapsed + wait_elapsed
+                else:
+                    solve_elapsed = begin_solve_elapsed
+                stages["dispatch_fetch"] = solve_elapsed
+                metrics.observe_tpu_solve_latency(solve_elapsed)
+                self._validate_result(snap, assignment, kind, order,
+                                      ordered)
+            except Exception as exc:
+                if ssn._pipeline_stale:
+                    # A predecessor committed after this session's
+                    # snapshot: abort for the pipeline's fresh sequential
+                    # rerun (tenancy/pipeline.StaleSessionAbort).
+                    # Nothing has been mutated yet.  The reference
+                    # aborts here only in place of its host fallback; the
+                    # port has none, and a rerun over fresh state is what
+                    # the sequential arm would have run.
+                    from ..tenancy.pipeline import StaleSessionAbort
+                    metrics.note_device_failure("solve")
+                    raise StaleSessionAbort(
+                        f"device solve failed mid-pipeline over a stale "
+                        f"snapshot ({type(exc).__name__}: {exc})") from exc
+                raise
+
             if inc_state is not None and cached_solve is None:
                 # Cache AFTER validation only: a poisoned readback must
                 # never become a reusable "known-good" result.
@@ -270,56 +360,102 @@ class TpuAllocateAction(Action):
                 inc_state.solve_result = (assignment, kind, order, ordered)
                 inc_state.solve_route = route
                 metrics.note_generation_reuse(False)
-        except BaseException:
-            if pending is not None:
-                # The dispatch landed before the failure: retire the
-                # handle from the in-flight ledger — nothing will fetch it.
-                discard_solve(pending)
-            raise
 
-        # Apply placements in device-solve order through the columnar
-        # batched path: end state (status indexes, node accounting,
-        # plugin shares, gang dispatch) is identical to per-task
-        # ssn.allocate/pipeline calls (Session.batch_apply_solved).
-        apply_start = time.perf_counter()
-        with trace.span("apply", placed=int(ordered.size)):
-            if scaffold is None:
-                scaffold = prepare_apply_scaffold(snap)
-            agg = build_apply_aggregates(snap, assignment, kind, ordered,
-                                         scaffold=scaffold)
-            from ..framework.commit import batch_commit_enabled
-            from ..trace.lineage import lineage as pod_lineage
-            pod_lineage.cycle_context = f"via {self.name()}/{route}"
-            try:
-                if batch_commit_enabled():
-                    ssn.batch_apply_solved(
-                        scaffold.tasks_arr, scaffold.node_names_arr,
-                        assignment, kind, ordered, snap.task_job,
-                        snap.job_uids, agg)
-                else:
-                    # KUBE_BATCH_TPU_BATCH_COMMIT=0: the pre-columnar
-                    # tuple fan-out — the bit-parity control for the
-                    # whole commit/apply tail.
-                    kinds = kind[ordered].tolist()
-                    hostnames = scaffold.node_names_arr[
-                        assignment[ordered]].tolist()
-                    ssn.batch_apply(
-                        zip(scaffold.tasks_arr[ordered].tolist(),
-                            hostnames, kinds),
-                        agg=agg)
-            finally:
-                pod_lineage.cycle_context = ""
-        ssn._floor_apply += time.perf_counter() - apply_start
-        with trace.span("fit_deltas"):
-            self._record_fit_deltas(ssn, snap, kind, assignment, order,
-                                    scaffold=scaffold)
-        stages["apply"] = time.perf_counter() - apply_start
-        metrics.observe_tpu_apply_latency(stages["apply"])
-        if trace.current_session_id() is not None:
-            self._record_why_tallies(ssn, snap, kind)
-        self.last = SessionRecord(route, snap, inputs, assignment, kind,
-                                  order, ordered, stages, candidates,
-                                  cached_solve is not None)
+            # Apply placements in device-solve order through the columnar
+            # batched path: end state (status indexes, node accounting,
+            # plugin shares, gang dispatch) is identical to per-task
+            # ssn.allocate/pipeline calls (Session.batch_apply_solved).
+            apply_start = time.perf_counter()
+            with trace.span("apply", placed=int(ordered.size)):
+                if scaffold is None:
+                    scaffold = prepare_apply_scaffold(snap)
+                agg = build_apply_aggregates(snap, assignment, kind,
+                                             ordered, scaffold=scaffold)
+                from ..framework.commit import batch_commit_enabled
+                from ..trace.lineage import lineage as pod_lineage
+                pod_lineage.cycle_context = f"via {self.name()}/{route}"
+                try:
+                    if batch_commit_enabled():
+                        ssn.batch_apply_solved(
+                            scaffold.tasks_arr, scaffold.node_names_arr,
+                            assignment, kind, ordered, snap.task_job,
+                            snap.job_uids, agg)
+                    else:
+                        # KUBE_BATCH_TPU_BATCH_COMMIT=0: the pre-columnar
+                        # tuple fan-out — the bit-parity control for the
+                        # whole commit/apply tail.
+                        kinds = kind[ordered].tolist()
+                        hostnames = scaffold.node_names_arr[
+                            assignment[ordered]].tolist()
+                        ssn.batch_apply(
+                            zip(scaffold.tasks_arr[ordered].tolist(),
+                                hostnames, kinds),
+                            agg=agg)
+                finally:
+                    pod_lineage.cycle_context = ""
+            ssn._floor_apply += time.perf_counter() - apply_start
+            with trace.span("fit_deltas"):
+                self._record_fit_deltas(ssn, snap, kind, assignment, order,
+                                        scaffold=scaffold)
+            stages["apply"] = time.perf_counter() - apply_start
+            metrics.observe_tpu_apply_latency(stages["apply"])
+            if trace.current_session_id() is not None:
+                self._record_why_tallies(ssn, snap, kind)
+            self.last = SessionRecord(route, snap, inputs, assignment, kind,
+                                      order, ordered, stages, candidates,
+                                      cached_solve is not None)
+
+        finish.pending = pending
+        return finish
+
+    @staticmethod
+    def _publish_read_fence(ssn, snap, empty: bool = False) -> None:
+        """Stash this session's retire-phase node READ footprint for the
+        shard pipeline's conflict fence: the union over pending task
+        signatures of statically-feasible nodes.  Infeasible nodes can
+        carry any state without changing the solve (their score is
+        masked to -inf and they can never be the argmax), so a
+        predecessor mutation outside this union provably leaves the
+        optimistic result identical to the sequential arm's.  Sessions
+        whose retire can read arbitrary node state — volumed tasks
+        (global binder state), an unanswered BestEffort prescan (the
+        backfill walk), any fallback — publish reads-all instead.
+
+        Only pipelined sessions pay for this: outside the shard
+        pipeline (the global engine, the CONCURRENT_SHARDS=0 control, a
+        single dirty shard) nothing reads the fence, and the control
+        arm must keep its exact per-session work profile."""
+        import numpy as np
+        if not ssn._pipeline_active:
+            return
+        if ssn._pipeline_fence is not None:
+            # A begin-half footprint (tenancy/footprint.py) already
+            # published the whole conf's bound — it is a superset of
+            # this action's tasks-only union; keep it.
+            return
+        if empty:
+            # No candidate tasks: the retire phase touches nodes only if
+            # backfill places BestEffort work.
+            if ssn.prescan.get("has_best_effort") is False:
+                ssn._pipeline_fence = ((), None)
+            else:
+                ssn._pipeline_reads_all = True
+            return
+        try:
+            if ssn.prescan.get("has_best_effort") is not False or any(
+                    t.pod.spec.volumes for t in snap.tasks):
+                ssn._pipeline_reads_all = True
+                return
+            p = len(snap.tasks)
+            sigs = np.unique(np.asarray(snap.inputs.task_sig)[:p])
+            mask = np.logical_or.reduce(
+                np.asarray(snap.inputs.sig_mask)[sigs], axis=0)
+            mask = mask & np.asarray(snap.inputs.node_exists)
+            n = len(snap.node_names)
+            ssn._pipeline_fence = (snap.node_names, mask[:n])
+        except Exception:  # lint: allow-swallow(fence derivation is an optimization gate: an unknown footprint degrades to reads-all, which only forces a sequential rerun — counted, never wrong)
+            metrics.note_swallowed("pipeline_fence")
+            ssn._pipeline_reads_all = True
 
     @staticmethod
     def _record_why_tallies(ssn, snap, kind) -> None:

@@ -16,6 +16,15 @@ Consumers must not write into the returned leaves: the resident tensor is
 the delta baseline.  The solve builds fresh buffers from them
 (ops/cuda_solver.build_buffers).  A later delta ship rewrites the aligned
 leaves in place, ordered after earlier work on the same stream.
+
+A shipper works on the current stream.  The scheduler runs every session
+over a tenancy shard view inside ``torch.cuda.stream(<the view's
+stream>)`` (tenancy/view.py), so a view's resident image is only ever
+shipped, read and rewritten on that one stream, and two shards' ships,
+kernels and readbacks never queue behind each other.  Tensors a
+discarded dispatch still reads are freed to the caching allocator under
+their allocation stream, which reuses them only for later work on that
+same stream: no ``record_stream`` is needed.
 """
 
 from __future__ import annotations

@@ -857,11 +857,17 @@ def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig, *,
         raise RuntimeError("solve_session kernel launch failed: "
                            + lib.kbt_error_string(rc).decode())
     solve_allocate_cuda.launches += 1
+    tally = solve_allocate_cuda.stream_launches
+    tally[stream] = tally.get(stream, 0) + 1
     result = SolveResult(assignment=out[:, 0], kind=out[:, 1],
                          order=out[:, 2], step=steps[0])
     return result, FinalState(bufs.node_int, bufs.jdyn, bufs.qdyn,
                               ops.nport, ops.nsel)
 
 
-# Launches of the kernel since the count was last set to 0.
+# Launches of the kernel since the count was last set to 0, and the same
+# launches by the raw handle of the CUDA stream each went to (set to {}
+# with the count): the shard pipeline launches each shard's solve on its
+# own view's stream.
 solve_allocate_cuda.launches = 0
+solve_allocate_cuda.stream_launches = {}

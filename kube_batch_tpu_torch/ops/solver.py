@@ -207,8 +207,9 @@ def dispatch_solve(inp: SolverInputs, cfg: SolverConfig,
                    candidates=None) -> PendingSolve:
     """Route and dispatch the solve without blocking on its result.  On
     the card the kernel, the packing and a non-blocking copy into pinned
-    host memory are enqueued on the current stream, followed by an event;
-    on the CPU everything runs synchronously.  ``candidates``
+    host memory are enqueued on the current stream, followed by an event
+    recorded there (a shard session's current stream is its view's own,
+    scheduler.py); on the CPU everything runs synchronously.  ``candidates``
     (ops/prefilter.CandidateSet) narrows the node axis to the
     prefiltered rows; the fetch remaps the result to full space."""
     if candidates is not None:

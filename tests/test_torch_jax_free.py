@@ -11,9 +11,11 @@ the candidate route), loads the default conf whole, runs one session of
 the shipped four-action conf (reclaim, tpu-allocate, backfill, preempt) on
 a small churn storm that must evict and bind, checks that the C host walk
 loaded and the session's apply runs it, runs the topology conf on a 4x4x2
-torus until the slice binds, checks that ``TpuAllocateAction()`` without a
-device raises when there is no CUDA, and that no shared object of the
-reference was loaded.
+torus until the slice binds, runs one global ``Scheduler.cycle()`` and one
+tenancy cycle of the concurrent shard pipeline over two dirty shards (both
+must bind), checks that ``TpuAllocateAction()`` without a device raises
+when there is no CUDA, and that no shared object of the reference was
+loaded.
 """
 
 import pkgutil
@@ -159,6 +161,30 @@ for cycle in range(2):
 slice_binds = [k for k in topo_binder.binds if "slice0" in k]
 assert len(slice_binds) == 8, topo_binder.binds
 
+# The Scheduler loop: one global cycle, then one tenancy cycle with the
+# concurrent shard pipeline over two dirty shards; both must bind.
+from kube_batch_tpu_torch.metrics.metrics import shard_pipeline_counts
+from kube_batch_tpu_torch.scheduler import Scheduler
+loop_cache, loop_binder = make_synthetic_cache(300, 40, 12, 2)
+sched = Scheduler(loop_cache, schedule_period=3600, device="cpu")
+assert sched.tenancy is None
+assert sched.cycle() and loop_binder.binds
+os.environ["KUBE_BATCH_TPU_TENANCY"] = "2"
+os.environ["KUBE_BATCH_TPU_SHARD_MAP"] = "q0:0|q1:1"
+os.environ["KUBE_BATCH_TPU_CONCURRENT_SHARDS"] = "1"
+shard_cache, shard_binder = make_synthetic_cache(300, 40, 12, 2)
+sched = Scheduler(shard_cache, schedule_period=3600, device="cpu")
+assert sched.tenancy is not None and sched.tenancy.pipeline is not None
+begun = shard_pipeline_counts().get("begun", 0)
+assert sched.cycle() and shard_binder.binds
+assert shard_pipeline_counts().get("begun", 0) - begun == 2
+bound_queues = {job.queue for job in shard_cache.jobs.values()
+                for t in job.tasks.values() if t.node_name}
+assert bound_queues == {"q0", "q1"}, bound_queues
+for key in ("KUBE_BATCH_TPU_TENANCY", "KUBE_BATCH_TPU_SHARD_MAP",
+            "KUBE_BATCH_TPU_CONCURRENT_SHARDS"):
+    del os.environ[key]
+
 if not torch.cuda.is_available():
     try:
         TpuAllocateAction()
@@ -211,7 +237,14 @@ def test_port_runs_with_jax_and_the_reference_blocked():
             "kube_batch_tpu_torch.models.topology",
             "kube_batch_tpu_torch.ops.topo_solver",
             "kube_batch_tpu_torch.plugins.topology",
-            "kube_batch_tpu_torch.actions.topo_allocate"} <= set(modules)
+            "kube_batch_tpu_torch.actions.topo_allocate",
+            "kube_batch_tpu_torch.cli.leader_election",
+            "kube_batch_tpu_torch.cache.cluster",
+            "kube_batch_tpu_torch.tenancy.engine",
+            "kube_batch_tpu_torch.tenancy.pipeline",
+            "kube_batch_tpu_torch.tenancy.leases",
+            "kube_batch_tpu_torch.tenancy.view",
+            "kube_batch_tpu_torch.tenancy.footprint"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, *modules],
                           cwd=str(ROOT), capture_output=True, text=True,
                           timeout=300, check=False)

@@ -19,6 +19,16 @@ import kube_batch_tpu_torch.knobs as torch_knobs
 RAWS = (None, "", "0", "1", "7", "-3", "garbage")
 
 
+@pytest.fixture(autouse=True)
+def _forget_port_warnings():
+    """Reading every knob with garbage makes the port's registry warn
+    once per knob per process; forget those warnings after each case, as
+    tests/conftest.py does for the reference's registry, so a later test
+    file in the same worker still sees its own warning."""
+    yield
+    torch_knobs.reset_warnings()
+
+
 @contextlib.contextmanager
 def raw_env(env, raw):
     """``env`` unset (``raw`` None) or set to ``raw`` for the block."""

@@ -630,3 +630,98 @@ def assert_same_inputs(a, b, ctx=""):
     for name in la:
         assert la[name].dtype == lb[name].dtype, (ctx, name)
         assert np.array_equal(la[name], lb[name]), (ctx, name)
+
+
+class Loop:
+    """One package's modules for the Scheduler-loop twins (tenancy, the
+    concurrent shard pipeline, federation, the end-to-end harness), by
+    attribute: ``objects`` (api.objects), ``v1alpha1``, ``v1alpha2``,
+    ``cache`` (Cluster, new_scheduler_cache), ``tenancy``, ``leases``,
+    ``shards``, ``chaos_plan``, ``metrics``, ``tenants``, ``lineage``
+    (the pod-lineage ring), ``spans``, ``solver``, ``shipping``,
+    ``incremental``, ``synthetic``, ``job_info``, ``api``, ``sched_mod``
+    (the scheduler module).
+    ``scheduler(cache, **kw)`` builds the package's Scheduler: the
+    port's on the CPU with float64 keys when ``x64`` else float32.  A
+    body runs once per package (``loop_twin``) and must set every env
+    var it reads at its own start."""
+
+    def __init__(self, pkg, x64=True):
+        import importlib
+        self.pkg = pkg
+        self.x64 = x64
+        self.dtype = torch.float64 if x64 else torch.float32
+        root = "kube_batch_tpu_torch" if pkg == "torch" else "kube_batch_tpu"
+
+        def mod(name):
+            return importlib.import_module(f"{root}.{name}")
+
+        self.api = mod("api")
+        self.objects = mod("api.objects")
+        self.job_info = mod("api.job_info")
+        self.v1alpha1 = mod("apis.scheduling.v1alpha1")
+        self.v1alpha2 = mod("apis.scheduling.v1alpha2")
+        self.cache = mod("cache")
+        self.tenancy = mod("tenancy")
+        self.leases = mod("tenancy.leases")
+        self.shards = mod("tenancy.shards")
+        self.chaos_plan = mod("chaos.plan")
+        self.metrics = mod("metrics.metrics")
+        self.tenants = mod("metrics.tenants")
+        self.lineage = mod("trace.lineage").lineage
+        self.spans = mod("trace.spans")
+        self.solver = mod("ops.solver")
+        self.shipping = mod("models.shipping")
+        self.incremental = mod("models.incremental")
+        self.synthetic = mod("models.synthetic")
+        self.sched_mod = mod("scheduler")
+
+    def ctx(self):
+        if self.pkg == "jax":
+            return jax.enable_x64(self.x64)
+        return contextlib.nullcontext()
+
+    def scheduler(self, cache, **kw):
+        if self.pkg == "torch":
+            kw.setdefault("device", "cpu")
+            kw.setdefault("dtype", self.dtype)
+        return self.sched_mod.Scheduler(cache, **kw)
+
+    def queue(self, cluster, name, weight=1):
+        o, v1 = self.objects, self.v1alpha1
+        cluster.create_queue(v1.Queue(metadata=o.ObjectMeta(name=name),
+                                      spec=v1.QueueSpec(weight=weight)))
+
+    def node(self, name, labels=None, cpu="4", mem="8Gi", pods=110):
+        o = self.objects
+        alloc = {"cpu": cpu, "memory": mem, "pods": pods}
+        return o.Node(metadata=o.ObjectMeta(name=name, uid=name,
+                                            labels=dict(labels or {})),
+                      spec=o.NodeSpec(),
+                      status=o.NodeStatus(allocatable=alloc,
+                                          capacity=dict(alloc)))
+
+    def pod_group(self, name, ns, min_member, queue, **spec):
+        o, v1 = self.objects, self.v1alpha1
+        return v1.PodGroup(
+            metadata=o.ObjectMeta(name=name, namespace=ns),
+            spec=v1.PodGroupSpec(min_member=min_member, queue=queue, **spec))
+
+
+def loop_twin(body, *, x64=True):
+    """Run ``body(lp)`` for the JAX package and the port (``lp`` a Loop)
+    and assert the two return the same; returns the port's result."""
+    out = {}
+    for pkg in ("jax", "torch"):
+        lp = Loop(pkg, x64)
+        with lp.ctx():
+            out[pkg] = body(lp)
+    assert out["torch"] == out["jax"]
+    return out["torch"]
+
+
+def bind_map(cluster):
+    """{pod key: node} of every bound pod in a Cluster."""
+    with cluster.lock:
+        return {k: p.spec.node_name for k, p in cluster.pods.items()
+                if p.spec.node_name}
