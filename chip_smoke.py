@@ -17,7 +17,7 @@ Phases, each printed on its own line:
      shipper, each followed by dispatch_solve -> fetch_solve on the cuda
      route with the kernel's launch count reset just before and read just
      after; the result is validated, compared once with the plain version
-     on the card, and timed (7 warm dispatch -> fetch rounds, and the
+     on the card (on the full ship's inputs), and timed (7 warm dispatch -> fetch rounds, and the
      kernel alone with CUDA events); one more launch with the kernel's
      phase stamps on prints the phase split (`kernel-phases`: cluster
      size, shared memory, microseconds per phase, per placement, per
@@ -26,7 +26,7 @@ Phases, each printed on its own line:
   5. session, the slice's main path at the north star, in two arms: the
      C host walk (the default) and the KUBE_BATCH_TPU_NO_NATIVE=1 control
      (native_arm), taking turns.  Per arm, make_synthetic_cache through
-     the SchedulerCache's ingestion, then one cold and five warm sessions of
+     the SchedulerCache's ingestion, then one cold and three warm sessions of
      open_session -> TpuAllocateAction(cuda, float32) -> close_session,
      bound pods echoed back between them; each session must take the cuda
      route without the host fallback, launch the kernel once, bind
@@ -78,7 +78,18 @@ Phases, each printed on its own line:
  13. scheduler-loop: Scheduler(cache).run() on the card at 5k x 1k: the
      loop thread's first cycle binds, a churned pod wakes and binds,
      stop() within 5 s, each launch held against the plain version (see
-     scheduler_loop_phase).
+     scheduler_loop_phase);
+ 14. the fused one-dispatch program (ops/fused_solver.py) against its
+     controls, the conf's ladder stamped on each session: fused-quiet,
+     fused-storm, fused-served, fused-topo and fused-steady (see their
+     functions); the evict and topo phases above pin
+     KUBE_BATCH_TPU_FUSED=0.
+Every launch held against the plain version goes through LaunchLedger:
+where its inputs are byte-equal to a solve already held in this run
+(tenancy-streams' seed-0 solo and the main path's full ship, the arms of
+a phase that stage the same session), the outputs are compared byte for
+byte instead; the kernel table counts both.  ``python3 chip_smoke.py
+fused`` runs the build and the five fused phases alone.
 Each phase line carries ``t_s``, the seconds since the script started.
 The kernel-vs-plain matrix includes the shapes the kernel once refused:
 2,500 queues in float64 (the queue piece in global memory) and 10 and 20
@@ -425,7 +436,7 @@ def session_phase(cuda_solver, card) -> int:
     """The slice's main path at the north star, in both native arms: the
     C host walk and the NO_NATIVE=1 control (native_arm), each on its own
     make_synthetic_cache built through the cache's ingestion.  One cold
-    and five warm sessions of open_session -> TpuAllocateAction(cuda,
+    and three warm sessions of open_session -> TpuAllocateAction(cuda,
     float32) -> close_session per arm, the arms taking turns (C first in
     even rounds, the control first in odd ones), every bound pod echoed
     back unchanged between sessions (bench.py measure_full_session), so
@@ -460,7 +471,7 @@ def session_phase(cuda_solver, card) -> int:
                 action=TpuAllocateAction(device="cuda", dtype=torch.float32),
                 runs=[], binds=[], launches=0)
         with gc_posture():
-            for i in range(6):
+            for i in range(4):
                 for on in ((True, False) if i % 2 == 0 else (False, True)):
                     with native_arm(on):
                         timed_session(cuda_solver, arms[on], tiers, i)
@@ -954,9 +965,10 @@ def record_vs_plain(cuda_solver, last, where: str) -> dict:
         inputs = _gather_candidate_inputs(
             inputs, torch.from_numpy(cand.idx).long().to(dev),
             torch.from_numpy(cand.valid).to(dev))
-    out = solve_vs_plain(cuda_solver, inputs, last.snap.config,
-                         (last.assignment, last.kind, last.order),
-                         None if cand is None else cand.remap, where)
+    out = LaunchLedger.hold_one(
+        cuda_solver, inputs, last.snap.config,
+        (last.assignment, last.kind, last.order), where,
+        remap=None if cand is None else cand.remap)
     return dict(route=last.route, gathered=cand is not None, **out)
 
 
@@ -965,11 +977,14 @@ def solve_vs_plain(cuda_solver, inputs, cfg, got, remap=None,
     """A fetched solve ``got`` (assignment, kind, order) held against
     solve_allocate_plain on ``inputs``: equal exactly, or raise.
     ``remap`` maps gathered rows back to the full-space rows of a
-    candidate-row solve's assignment."""
+    candidate-row solve's assignment.  The plain version runs on the
+    host's CPU, on a copy of ``inputs``: the same code on the same
+    values, and there a placement costs a few small operations instead
+    of a few kernel launches (``plain_ms`` is the CPU's time).  The main
+    path and the kernel-vs-plain matrix run it on the card."""
+    inputs = type(inputs)(*(t.cpu() for t in inputs))
     t0 = time.perf_counter()
     res, _ = cuda_solver.solve_allocate_plain(inputs, cfg)
-    if inputs.node_idle.is_cuda:
-        torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     assignment = res.assignment.cpu().numpy().astype(np.int64)
     kind = res.kind.cpu().numpy().astype(np.int64)
@@ -1000,15 +1015,17 @@ def solve_vs_plain(cuda_solver, inputs, cfg, got, remap=None,
 
 def held_summary(records) -> dict:
     """The phase-line summary of launches held against the plain
-    version."""
+    version (``held``; ``byte_equal`` of them compared with a held solve
+    on byte-equal inputs, LaunchLedger.hold_one)."""
     if not records:
         return dict(held=0)
-    plain = sorted(r["plain_ms"] for r in records)
+    plain = sorted(r["plain_ms"] for r in records if "plain_ms" in r)
     return dict(held=len(records),
+                byte_equal=sum(r["held"] == "byte_equal" for r in records),
                 max_abs_err=max(r["max_abs_err"] for r in records),
                 gathered=sum(r["gathered"] for r in records),
                 placed=[r["placed"] for r in records],
-                plain_ms_median=float(np.median(plain)),
+                plain_ms_median=float(np.median(plain)) if plain else None,
                 plain_ms_total=float(sum(plain)))
 
 
@@ -1041,7 +1058,7 @@ def evict_cycle(cuda_solver, shape, batched: bool, device="cuda",
     t0 = time.perf_counter()
     cache, binder = make_churn_cache(*shape)
     build_s = time.perf_counter() - t0
-    with batch_evict_arm(batched), gc_posture():
+    with batch_evict_arm(batched), fused_arm(False), gc_posture():
         before = evictions_by_action()
         cuda_solver.solve_allocate_cuda.launches = 0
         sid = tspans.begin_session(bench="evict")
@@ -1332,7 +1349,8 @@ def topo_arm(cuda_solver, device, defrag: bool, batch: bool,
     from kube_batch_tpu_torch.scheduler import load_scheduler_conf
 
     env = {"KUBE_BATCH_TPU_TOPO_BATCH": "1" if batch else "0",
-           "KUBE_BATCH_TPU_TOPO_DEFRAG": "1" if defrag else "0"}
+           "KUBE_BATCH_TPU_TOPO_DEFRAG": "1" if defrag else "0",
+           "KUBE_BATCH_TPU_FUSED": "0"}
     with env_arm(env), gc_posture():
         _register(device)
         actions, tiers = load_scheduler_conf(TOPO_CONF)
@@ -1570,12 +1588,16 @@ def tenancy_streams_phase(cuda_solver, card) -> int:
     solo_launches = cuda_solver.solve_allocate_cuda.launches
     # Each solo launch against the plain version, on its owner's stream
     # over its owner's resident image (a clean ship returns it as is).
+    # A solo launch on inputs byte-equal to a launch already held in
+    # this run (seed 0: the main path's full ship) is compared with that
+    # launch's outputs byte for byte (LaunchLedger).
     for seed, (sh, st, (inp, cfg), got) in enumerate(zip(
             shippers, streams, staged, solo)):
         with torch.cuda.stream(st):
-            phase("tenancy-streams-vs-plain", seed=seed, **solve_vs_plain(
-                cuda_solver, sh.ship(inp, cfg), cfg, got[:3],
-                where=f"the solo launch of seed {seed}"))
+            phase("tenancy-streams-vs-plain", seed=seed,
+                  **LaunchLedger.hold_one(
+                      cuda_solver, sh.ship(inp, cfg), cfg, got[:3],
+                      f"the solo launch of seed {seed}"))
 
     def pair(together: bool) -> dict:
         for sh in shippers:
@@ -1997,6 +2019,8 @@ def tenancy_phase(cuda_solver, card, device="cuda",
           events=len(base["events"]), lineage_samples=len(base["samples"]),
           kernel_launches=launches,
           held_against_plain=sum(len(out["held"]) for _, out in arms),
+          held_byte_equal=sum(r["held"] == "byte_equal"
+                              for _, out in arms for r in out["held"]),
           card=card)
     return launches
 
@@ -2163,10 +2187,826 @@ def scheduler_loop_phase(cuda_solver, card, device="cuda",
     return launches
 
 
+# ---- the fused one-dispatch program (ops/fused_solver.py) -----------------
+
+FUSED_SWALLOW_SITES = ("fused_stage_alloc", "fused_stage_storm",
+                       "fused_storm_prove", "fused_topo_scanner")
+
+
+class LaunchLedger:
+    """Every solve of the session kernel's route inside the block, held
+    against the plain version on its own inputs.  On the card the
+    wrapper around ``solve_allocate_cuda`` (measurement only) clones the
+    launch's inputs on the launch's stream right after it
+    (stream-ordered: a later ship that rewrites the resident leaves runs
+    after the clone) and brackets the call with two CUDA events (buffer
+    build and kernel); on the CPU, where the route is the plain version
+    itself, it wraps ``solve_allocate_plain`` the same way, so a
+    rehearsal captures every solve.  ``hold`` runs the plain version on
+    each record's inputs — or, where the inputs are byte-equal to a
+    record already held in this run (``HELD``, across phases), compares
+    the outputs byte for byte.  ``counts`` says how many were held each
+    way."""
+
+    HELD = {}                       # digest -> (assignment, kind, order)
+    counts = {"plain": 0, "byte_equal": 0}
+
+    @staticmethod
+    def digest(inputs, cfg) -> str:
+        """Identity of a solve's staged inputs: the config and every
+        leaf's dtype, shape and bytes."""
+        import hashlib
+        h = hashlib.blake2b(repr(cfg).encode(), digest_size=20)
+        for t in inputs:
+            a = t.cpu().numpy()
+            h.update(f"{a.dtype}{a.shape}".encode())
+            h.update(a.tobytes())
+        return h.hexdigest()
+
+    @classmethod
+    def note_held(cls, inputs, cfg, out) -> None:
+        """Record a solve held against the plain version elsewhere (its
+        numpy assignment, kind and order)."""
+        cls.HELD[cls.digest(inputs, cfg)] = tuple(
+            np.asarray(a, np.int64) for a in out)
+
+    @classmethod
+    def hold_one(cls, cuda_solver, inputs, cfg, got, where: str,
+                 plain=None, remap=None) -> dict:
+        """One fetched or launched solve ``got`` (numpy assignment, kind,
+        order; the assignment in full-space rows when ``remap`` maps the
+        gathered ``inputs`` back) held: byte for byte against a held
+        solve on byte-equal inputs, else against the plain version
+        (``plain`` a namespace with ``solve_allocate_plain``, by default
+        ``cuda_solver``), then recorded.  Raises on any difference."""
+        digest = cls.digest(inputs, cfg)
+        if remap is not None:
+            digest += np.asarray(remap).tobytes().hex()
+        got = tuple(np.asarray(a, np.int64) for a in got)
+        placed = int((got[1] > 0).sum())
+        seen = cls.HELD.get(digest)
+        if seen is not None:
+            if any(a.tobytes() != b.tobytes() for a, b in zip(got, seen)):
+                raise AssertionError(f"{where} differs from a solve on "
+                                     f"byte-equal inputs")
+            cls.counts["byte_equal"] += 1
+            return dict(held="byte_equal", placed=placed, max_abs_err=0)
+        out = solve_vs_plain(plain or cuda_solver, inputs, cfg, got, remap,
+                             where=where)
+        cls.HELD[digest] = got
+        cls.counts["plain"] += 1
+        return dict(held="plain", **out)
+
+    def __init__(self, cuda_solver, device="cuda"):
+        self.cs = cuda_solver
+        self.card = device == "cuda"
+        self.name = ("solve_allocate_cuda" if self.card
+                     else "solve_allocate_plain")
+        self.real = getattr(cuda_solver, self.name)
+        self.plain = cuda_solver.solve_allocate_plain
+        self.records = []
+
+    def __enter__(self):
+        ledger, real, card = self, self.real, self.card
+
+        def launch(inp, cfg, **kw):
+            events = None
+            if card:
+                events = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                events[0].record()
+            res, final = real(inp, cfg, **kw)
+            if card:
+                events[1].record()
+            ledger.records.append(dict(
+                inputs=type(inp)(*(t.clone() for t in inp)), cfg=cfg,
+                out=(res.assignment, res.kind, res.order), events=events))
+            return res, final
+
+        # The wrapped function counts its launches on the module's name,
+        # which is the wrapper inside the block.
+        for attr in ("launches", "stream_launches"):
+            if hasattr(real, attr):
+                setattr(launch, attr, getattr(real, attr))
+        self.wrapper = launch
+        setattr(self.cs, self.name, launch)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.cs, self.name, self.real)
+        for attr in ("launches", "stream_launches"):
+            if hasattr(self.wrapper, attr):
+                setattr(self.real, attr, getattr(self.wrapper, attr))
+
+    def take(self) -> list:
+        """The records so far, emptied."""
+        out, self.records = self.records, []
+        return out
+
+    @staticmethod
+    def launch_ms(rec):
+        """The record's CUDA-event ms (None on the CPU)."""
+        if rec["events"] is None:
+            return None
+        start, stop = rec["events"]
+        stop.synchronize()
+        return start.elapsed_time(stop)
+
+    def hold(self, records, where: str) -> dict:
+        """Hold ``records`` (see the class, ``hold_one``): raises on any
+        difference.  Returns how many were held each way and the plain
+        versions' times."""
+        import types
+        if records and self.card:
+            torch.cuda.synchronize()
+        plain = types.SimpleNamespace(solve_allocate_plain=self.plain)
+        plain_ms, by = [], {"plain": 0, "byte_equal": 0}
+        for i, rec in enumerate(records):
+            out = self.hold_one(
+                self.cs, rec["inputs"], rec["cfg"],
+                tuple(t.cpu().numpy() for t in rec["out"]),
+                f"launch {i} in {where}", plain=plain)
+            by[out["held"]] += 1
+            if out["held"] == "plain":
+                plain_ms.append(out["plain_ms"])
+        return dict(held=by, plain_ms=plain_ms, max_abs_err=0)
+
+
+def fused_counters() -> dict:
+    """The session-dispatch, fused-leg and fused-route counters, and the
+    counters that a fused path which quietly fell back would move: legs
+    failed, device failures at stage ``fused``, swallowed exceptions at
+    the fused staging sites."""
+    from kube_batch_tpu_torch.metrics import metrics as m
+    return dict(
+        dispatches=m.session_dispatch_counts(), legs=m.fused_leg_counts(),
+        routes={k: v for k, v in m.route_counts().items()
+                if k.startswith("fused/")},
+        fallback=dict(
+            legs_failed=sum(v for k, v in m.fused_leg_counts().items()
+                            if k.endswith("/failed")),
+            device_failures=int(sum(
+                v for labels, v in m.device_solve_failures.values().items()
+                if labels == ("fused",))),
+            swallowed=int(sum(
+                v for labels, v in m.swallowed_exceptions.values().items()
+                if labels and labels[0] in FUSED_SWALLOW_SITES))))
+
+
+def counters_delta(before: dict, after: dict) -> dict:
+    def delta(a, b):
+        return {k: b[k] - a.get(k, 0) for k in sorted(b)
+                if b[k] - a.get(k, 0)}
+    return {key: delta(before[key], after[key]) for key in before}
+
+
+def check_no_fallback(delta: dict, where: str) -> None:
+    if delta["fallback"]:
+        raise AssertionError(f"{where}: a fused path fell back: "
+                             f"{delta['fallback']}")
+
+
+def stamped_session(cache, actions, tiers) -> dict:
+    """One session of ``actions`` with the conf's ladder stamped on it as
+    Scheduler.session_once stamps it (the fused dispatcher keys on it),
+    nothing synchronized between actions: each action's host-clock ms,
+    the wall ms, the end state (task, status, node), the counter deltas
+    (fused_counters).  Raises if the tasks that stay on a node end over
+    its allocatable."""
+    from kube_batch_tpu_torch.framework import close_session, open_session
+    before = fused_counters()
+    began = time.perf_counter()
+    ssn = open_session(cache, tiers)
+    ssn._conf_actions = tuple(a.name() for a in actions)
+    action_ms = {}
+    try:
+        for a in actions:
+            t0 = time.perf_counter()
+            a.execute(ssn)
+            action_ms[a.name()] = (time.perf_counter() - t0) * 1e3
+        state = sorted((t.uid, t.status.name, t.node_name)
+                       for job in ssn.jobs.values()
+                       for t in job.tasks.values())
+        over = [name for name, node in ssn.nodes.items()
+                if over_committed(node)]
+    finally:
+        close_session(ssn)
+    wall_ms = (time.perf_counter() - began) * 1e3
+    if over:
+        raise AssertionError(f"{len(over)} nodes over their allocatable "
+                             f"after a fused session, e.g. {over[:3]}")
+    return dict(action_ms=action_ms, wall_ms=wall_ms, state=state,
+                delta=counters_delta(before, fused_counters()))
+
+
+def fused_arm(on: bool, storm=None):
+    env = {"KUBE_BATCH_TPU_FUSED": "1" if on else "0"}
+    if storm is not None:
+        env["KUBE_BATCH_TPU_FUSED_STORM"] = "1" if storm else "0"
+    return env_arm(env)
+
+
+class _EnqueueProbe:
+    """Around fused_solver.take_evict and ops.solver.fetch_solve
+    (measurement only): for each fused enqueue with an alloc leg, whether
+    the leg's ready event was still pending when take_evict returned to
+    the scanner, and the host ms from that return to tpu-allocate's
+    fetch of the leg and of the fetch's wait."""
+
+    def __init__(self):
+        from kube_batch_tpu_torch.ops import fused_solver, solver
+        self.fs, self.solver = fused_solver, solver
+        self.samples = []
+
+    def __enter__(self):
+        probe, fs, solver = self, self.fs, self.solver
+        real_take, real_fetch = fs.take_evict, solver.fetch_solve
+        self._real = (real_take, real_fetch)
+
+        def take_evict(ssn, *args):
+            out = real_take(ssn, *args)
+            st = getattr(ssn, "_fused_state", None)
+            pending = st.alloc_pending if st is not None else None
+            if out is not None and pending is not None:
+                probe.samples.append(dict(
+                    pending=pending, returned=time.perf_counter(),
+                    pending_at_return=(pending.ready is not None
+                                       and not pending.ready.query())))
+            return out
+
+        def fetch_solve(pending):
+            t0 = time.perf_counter()
+            out = real_fetch(pending)
+            for s in probe.samples:
+                if s["pending"] is pending:
+                    s["enqueue_to_fetch_ms"] = (t0 - s["returned"]) * 1e3
+                    s["fetch_wait_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        fs.take_evict, solver.fetch_solve = take_evict, fetch_solve
+        return self
+
+    def __exit__(self, *exc):
+        self.fs.take_evict, self.solver.fetch_solve = self._real
+
+    def take(self) -> list:
+        out = [{k: v for k, v in s.items() if k != "pending"}
+               for s in self.samples]
+        self.samples = []
+        return out
+
+
+def echo_binds(cache, binder, pods, seen: int) -> list:
+    """Every bind since ``seen`` echoed back unchanged (timed_session's
+    echo: the pod stays pending, so each session sees the same
+    backlog); returns those binds in order."""
+    binds = [(key, binder.binds[key]) for key in binder.channel[seen:]]
+    for key, _host in binds:
+        cache.update_pod(pods[key], pods[key])
+    return binds
+
+
+def fused_quiet_phase(cuda_solver, card, shape=NORTH_STAR,
+                      sessions=4, device="cuda") -> int:
+    """The quiet half of the fused program: the shipped four-action conf
+    on make_synthetic_cache(*shape) (free capacity: the scan finds no
+    victims), KUBE_BATCH_TPU_FUSED on and off, one cold and three warm
+    sessions per arm taking turns, every bind echoed back unchanged
+    between sessions (each sees the same backlog), run as the
+    KUBE_BATCH_TPU_INCREMENTAL=0 arm so every session solves.  Expects
+    per session {"fused": 1} with solve/served 1 against {"evict": 1,
+    "solve": 1}; the arms must bind the same pods and end in the same
+    state.  Every launch is held against the plain version
+    (LaunchLedger).  Prints per session the wall, per-action ms, the
+    launch's CUDA-event ms and, in the fused arm, whether the alloc leg
+    was still running when take_evict returned (it must be in every warm
+    session) and the ms from that return to tpu-allocate's fetch.
+    Returns the launches."""
+    from kube_batch_tpu_torch.api import pod_key
+    from kube_batch_tpu_torch.models.synthetic import make_synthetic_cache
+    from kube_batch_tpu_torch.scheduler import load_scheduler_conf
+
+    arms = {}
+    with incremental_arm(False), gc_posture():
+        _register(device)
+        actions, tiers = load_scheduler_conf(shipped_conf())
+        for on in (True, False):
+            t0 = time.perf_counter()
+            cache, binder = make_synthetic_cache(*shape)
+            arms[on] = dict(cache=cache, binder=binder,
+                            build_s=time.perf_counter() - t0,
+                            pods={pod_key(t.pod): t.pod
+                                  for job in cache.jobs.values()
+                                  for t in job.tasks.values()},
+                            runs=[])
+        with LaunchLedger(cuda_solver, device) as ledger, \
+                _EnqueueProbe() as probe:
+            for i in range(sessions):
+                for on in ((True, False) if i % 2 == 0 else (False, True)):
+                    arm = arms[on]
+                    seen = len(arm["binder"].channel)
+                    with fused_arm(on):
+                        run = stamped_session(arm["cache"], actions, tiers)
+                    records = ledger.take()
+                    run["launch_ms"] = [LaunchLedger.launch_ms(r)
+                                        for r in records]
+                    run["records"] = records
+                    run["probe"] = probe.take()
+                    run["binds"] = echo_binds(arm["cache"], arm["binder"],
+                                              arm["pods"], seen)
+                    arm["runs"].append(run)
+                    delta = run["delta"]
+                    check_no_fallback(delta, f"fused-quiet session {i}")
+                    phase("fused-quiet-session", fused=on, session=i,
+                          cold=i == 0, wall_ms=run["wall_ms"],
+                          action_ms=run["action_ms"],
+                          launch_ms=run["launch_ms"], binds=len(run["binds"]),
+                          dispatches=delta["dispatches"], legs=delta["legs"],
+                          routes=delta["routes"], probe=run["probe"])
+    launches = 0
+    held = {"plain": 0, "byte_equal": 0}
+    plain_ms = []
+    for on in (True, False):
+        for i, run in enumerate(arms[on]["runs"]):
+            out = ledger.hold(run["records"],
+                              f"fused-quiet session {i} (fused={on})")
+            launches += len(run["records"])
+            plain_ms += out["plain_ms"]
+            for k in held:
+                held[k] += out["held"][k]
+    ladder = {on: [(r["delta"]["dispatches"], r["delta"]["legs"])
+                   for r in arms[on]["runs"]] for on in arms}
+    expect = {True: ({"fused": 1}, {"solve/served": 1}),
+              False: ({"evict": 1, "solve": 1}, {})}
+    for on in arms:
+        for i, got in enumerate(ladder[on]):
+            if got != expect[on]:
+                phase("fused-quiet-ladder", fused=on, session=i,
+                      got=list(got), expected=list(expect[on]))
+                raise AssertionError(f"fused-quiet session {i} (fused={on}) "
+                                     f"dispatched {got}")
+    for a, b in zip(arms[True]["runs"], arms[False]["runs"]):
+        if a["state"] != b["state"] or dict(a["binds"]) != dict(b["binds"]):
+            raise AssertionError("fused-quiet: the arms' binds or end state "
+                                 "differ")
+        if not a["binds"]:
+            raise AssertionError("fused-quiet: a session bound nothing")
+    probes = [p for r in arms[True]["runs"] for p in r["probe"]]
+    if len(probes) != sessions or (device == "cuda" and not all(
+            p["pending_at_return"] for p in probes[1:])):
+        # The cold session may wait: its first allocations and the first
+        # loads of the kernels it queues can synchronize.
+        raise AssertionError(f"fused-quiet: take_evict waited for the alloc "
+                             f"leg in a warm session: {probes}")
+
+    def med(on, key):
+        return float(np.median([r[key] for r in arms[on]["runs"][1:]]))
+    phase("fused-quiet", shape=list(shape), sessions_per_arm=sessions,
+          conf="config/kube-batch-conf.yaml with tpu-allocate",
+          build_s={("fused" if on else "control"): arms[on]["build_s"]
+                   for on in arms},
+          wall_ms_warm_median_fused=med(True, "wall_ms"),
+          wall_ms_warm_median_control=med(False, "wall_ms"),
+          action_ms_warm_median={
+              ("fused" if on else "control"): {
+                  k: float(np.median([r["action_ms"][k]
+                                      for r in arms[on]["runs"][1:]]))
+                  for k in arms[on]["runs"][0]["action_ms"]}
+              for on in arms},
+          launch_ms={("fused" if on else "control"):
+                     [m for r in arms[on]["runs"] for m in r["launch_ms"]]
+                     for on in arms},
+          alloc_leg_pending_at_take_evict_return=[
+              p["pending_at_return"] for p in probes],
+          enqueue_to_fetch_ms=[p.get("enqueue_to_fetch_ms") for p in probes],
+          fetch_wait_ms=[p.get("fetch_wait_ms") for p in probes],
+          binds=len(arms[True]["runs"][0]["binds"]), identical_arms=True,
+          launches=launches, held=held, plain_ms=plain_ms,
+          fallback_counters=0, card=card)
+    return launches
+
+
+def fused_storm_arm(ledger, name, env, shape, cycles=3,
+                    device="cuda") -> dict:
+    """bench.py's _fused_storm_arm on the port: the shipped conf on ONE
+    make_churn_cache(*shape), ``cycles`` stamped sessions with the
+    informer echo between them (victims deleted, binds Running).  Per
+    cycle: per-action ms, the counter deltas, each launch's CUDA-event
+    ms and the launch records."""
+    import dataclasses as dc
+
+    from kube_batch_tpu_torch.api import PodStatus, pod_key
+    from kube_batch_tpu_torch.models.synthetic import make_churn_cache
+    from kube_batch_tpu_torch.scheduler import load_scheduler_conf
+
+    with env_arm(env), gc_posture():
+        _register(device)
+        actions, tiers = load_scheduler_conf(shipped_conf())
+        t0 = time.perf_counter()
+        cache, binder = make_churn_cache(*shape)
+        build_s = time.perf_counter() - t0
+        podmap = {pod_key(t.pod): t.pod for job in cache.jobs.values()
+                  for t in job.tasks.values()}
+        runs, evicts_all = [], []
+        for c in range(cycles):
+            run = stamped_session(cache, actions, tiers)
+            run["records"] = ledger.take()
+            run["launch_ms"] = [LaunchLedger.launch_ms(r)
+                                for r in run["records"]]
+            new_evicts = cache.evictor.evicts[len(evicts_all):]
+            evicts_all.extend(new_evicts)
+            run["evictions"] = len(new_evicts)
+            for key in new_evicts:
+                pod = podmap.pop(key, None)
+                if pod is not None:
+                    cache.delete_pod(pod)
+            binds = dict(binder.binds)
+            binder.binds.clear()
+            run["binds"] = len(binds)
+            for key, node in binds.items():
+                old = podmap.get(key)
+                if old is None:
+                    continue
+                new = dc.replace(old, spec=dc.replace(old.spec,
+                                                      node_name=node),
+                                 status=PodStatus(phase="Running"))
+                podmap[key] = new
+                cache.update_pod(old, new)
+            check_no_fallback(run["delta"], f"fused-storm {name} cycle {c}")
+            phase("fused-storm-cycle", arm=name, cycle=c,
+                  wall_ms=run["wall_ms"], action_ms=run["action_ms"],
+                  evictions=run["evictions"], binds=run["binds"],
+                  dispatches=run["delta"]["dispatches"],
+                  legs=run["delta"]["legs"], routes=run["delta"]["routes"],
+                  launch_ms=run["launch_ms"])
+            runs.append(run)
+    bound = sorted((pod_key(p), p.spec.node_name) for p in podmap.values()
+                   if p.spec.node_name is not None)
+    return dict(build_s=build_s, runs=runs, evicts=evicts_all, binds=bound,
+                events=list(cache.events))
+
+
+def fused_storm_phase(cuda_solver, card, shape=NORTH_STAR,
+                      device="cuda") -> int:
+    """The storm half at the north star: bench.py's _fused_storm_arm
+    protocol (three cycles on one make_churn_cache with the informer
+    echo between them) in three arms, FUSED=1, FUSED=0 and the oracle
+    (FUSED=0 BATCH_EVICT=0 PIPELINE=0 INCREMENTAL=0).  The arms must
+    evict the same victims in the same order, bind the same pods, and
+    log the same cache events.  Cycle 1 of the fused arm must make a
+    fused dispatch whose evict leg serves and whose alloc leg is
+    invalidated (solve/invalidated or postevict/*); its later cycles
+    must serve solve or postevict.  Every launch is held against the
+    plain version; the CUDA-event ms of the invalidated launch is
+    printed.  Returns the launches."""
+    arms = {
+        "fused": {"KUBE_BATCH_TPU_FUSED": "1"},
+        "control": {"KUBE_BATCH_TPU_FUSED": "0"},
+        "oracle": {"KUBE_BATCH_TPU_FUSED": "0",
+                   "KUBE_BATCH_TPU_BATCH_EVICT": "0",
+                   "KUBE_BATCH_TPU_PIPELINE": "0",
+                   "KUBE_BATCH_TPU_INCREMENTAL": "0"},
+    }
+    out = {}
+    with LaunchLedger(cuda_solver, device) as ledger:
+        for name, env in arms.items():
+            out[name] = fused_storm_arm(ledger, name, env, shape,
+                                        device=device)
+    for name in ("control", "oracle"):
+        for key in ("evicts", "binds", "events"):
+            if out[name][key] != out["fused"][key]:
+                raise AssertionError(f"fused-storm: the {name} arm's {key} "
+                                     f"differ from the fused arm's")
+    fused = out["fused"]["runs"]
+    first = fused[0]["delta"]
+    if not out["fused"]["evicts"] or first["dispatches"].get("fused", 0) < 1 \
+            or first["legs"].get("evict/served", 0) < 1 \
+            or not (first["legs"].get("solve/invalidated", 0)
+                    or any(k.startswith("postevict/") for k in first["legs"])):
+        raise AssertionError(f"fused-storm cycle 0: {first}")
+    for c, run in enumerate(fused[1:], 1):
+        legs = run["delta"]["legs"]
+        if not (legs.get("solve/served", 0)
+                or legs.get("postevict/served", 0)):
+            phase("fused-storm-ladder", cycle=c, legs=legs,
+                  dispatches=run["delta"]["dispatches"])
+    launches, plain_ms = 0, []
+    held = {"plain": 0, "byte_equal": 0}
+    for name in arms:
+        for c, run in enumerate(out[name]["runs"]):
+            got = ledger.hold(run["records"], f"fused-storm {name} cycle {c}")
+            launches += len(run["records"])
+            plain_ms += got["plain_ms"]
+            for k in held:
+                held[k] += got["held"][k]
+    invalidated = first["legs"].get("solve/invalidated", 0) + \
+        first["legs"].get("postevict/invalidated", 0)
+    phase("fused-storm", shape=list(shape), cycles=3,
+          evictions=len(out["fused"]["evicts"]),
+          binds=len(out["fused"]["binds"]),
+          events=len(out["fused"]["events"]), identical_arms=True,
+          build_s={n: out[n]["build_s"] for n in arms},
+          wall_ms={n: [r["wall_ms"] for r in out[n]["runs"]] for n in arms},
+          action_ms={n: [r["action_ms"] for r in out[n]["runs"]]
+                     for n in arms},
+          legs_by_cycle=[r["delta"]["legs"] for r in fused],
+          dispatches_by_cycle={n: [r["delta"]["dispatches"]
+                                   for r in out[n]["runs"]] for n in arms},
+          invalidated_launch_ms=(fused[0]["launch_ms"][0]
+                                 if invalidated and fused[0]["launch_ms"]
+                                 else None),
+          launches=launches, held=held, plain_ms=plain_ms,
+          fallback_counters=0, card=card)
+    return launches
+
+
+def fused_served_run(ledger, kw: dict, storm: bool,
+                     device="cuda") -> dict:
+    """One stamped shipped-conf session on make_storm_served_cache(**kw)
+    under KUBE_BATCH_TPU_FUSED=1 and FUSED_STORM ``storm``: the
+    stamped_session record with the build seconds, victims, binds and
+    the session's launch records."""
+    from kube_batch_tpu_torch.models.synthetic import make_storm_served_cache
+    from kube_batch_tpu_torch.scheduler import load_scheduler_conf
+    with fused_arm(True, storm), gc_posture():
+        _register(device)
+        actions, tiers = load_scheduler_conf(shipped_conf())
+        t0 = time.perf_counter()
+        cache, binder = make_storm_served_cache(**kw)
+        build_s = time.perf_counter() - t0
+        run = stamped_session(cache, actions, tiers)
+    run.update(build_s=build_s, evicts=list(cache.evictor.evicts),
+               binds=dict(binder.binds), records=ledger.take())
+    run["launch_ms"] = [LaunchLedger.launch_ms(r) for r in run["records"]]
+    return run
+
+
+def fused_served_phase(cuda_solver, card, device="cuda",
+                       n_nodes=10_000) -> int:
+    """The served storm: make_storm_served_cache at 10,000 nodes (8 pods
+    per node, 8 victims, 32 extra tasks) and at bench.py's 256-node gate
+    shape, KUBE_BATCH_TPU_FUSED_STORM on and off.  With the storm half
+    on the cycle must be one dispatch, {"fused": 1}, its evict and
+    postevict legs served, 8 victims each committed once; the arms must
+    evict the same victims in the same order, bind the same pods and
+    end in the same state.  Every launch is held against the plain
+    version.  Returns the launches."""
+    shapes = (dict(n_nodes=n_nodes, per_node=8, victims=8, extra_tasks=32),
+              dict(n_nodes=256, per_node=8, victims=8, extra_tasks=32))
+    launches = 0
+    with LaunchLedger(cuda_solver, device) as ledger:
+        for kw in shapes:
+            runs = {storm: fused_served_run(ledger, kw, storm, device)
+                    for storm in (True, False)}
+            on, off = runs[True], runs[False]
+            for key in ("evicts", "binds", "state"):
+                if on[key] != off[key]:
+                    raise AssertionError(f"fused-served {kw}: the storm "
+                                         f"arms' {key} differ")
+            d = on["delta"]
+            served = (d["dispatches"] == {"fused": 1}
+                      and d["legs"].get("evict/served") == 1
+                      and d["legs"].get("postevict/served") == 1)
+            for storm, run in runs.items():
+                check_no_fallback(run["delta"], f"fused-served {kw}")
+                held = ledger.hold(run["records"], f"fused-served {kw} "
+                                   f"storm={storm}")
+                launches += len(run["records"])
+                phase("fused-served-run", **kw, storm=storm,
+                      wall_ms=run["wall_ms"], action_ms=run["action_ms"],
+                      build_s=run["build_s"], evictions=len(run["evicts"]),
+                      binds=len(run["binds"]),
+                      dispatches=run["delta"]["dispatches"],
+                      legs=run["delta"]["legs"],
+                      routes=run["delta"]["routes"],
+                      launch_ms=run["launch_ms"], **held)
+            if not served or len(on["evicts"]) != kw["victims"] \
+                    or len(set(on["evicts"])) != len(on["evicts"]) \
+                    or not on["binds"]:
+                raise AssertionError(f"fused-served {kw}: did not serve: "
+                                     f"{d}, {len(on['evicts'])} victims")
+            phase("fused-served", **kw, served=True,
+                  committed_victims=len(on["evicts"]),
+                  binds=len(on["binds"]),
+                  identical_arms=True, card=card)
+    return launches
+
+
+def fused_topo_phase(cuda_solver, card, device="cuda",
+                     dims=TOPO_DIMS, slice_shape=TOPO_SLICE) -> int:
+    """The three-family dispatch: the topo cell's cache (make_topo_cache
+    on the 16x16x16 torus, 4,096 hosts, a 4x4x4 slice) under the
+    reference's topology conf with the ladder stamped, two cycles with
+    the evicted victims echoed as deletions between them,
+    KUBE_BATCH_TPU_FUSED on and off.  The fused arm must route one
+    dispatch as fused/evict+solve+topo and serve its topo leg; the
+    served topo stats must equal box_scan of the same staged inputs on
+    the CPU; the arms must evict and bind the same.  Every launch is
+    held against the plain version.  Returns the launches."""
+    from kube_batch_tpu_torch.api import pod_key
+    from kube_batch_tpu_torch.models.synthetic import make_topo_cache
+    from kube_batch_tpu_torch.ops import fused_solver
+    from kube_batch_tpu_torch.ops.topo_solver import (box_scan,
+                                                      stage_box_inputs)
+    from kube_batch_tpu_torch.scheduler import load_scheduler_conf
+
+    served = []
+    real_take = fused_solver.take_topo
+
+    def take_topo(ssn, inp, shape, n, device, dtype):
+        stats = real_take(ssn, inp, shape, n, device, dtype)
+        if stats is not None:
+            served.append((inp, tuple(shape), n, np.array(stats)))
+        return stats
+
+    out = {}
+    launches = 0
+    env = {"KUBE_BATCH_TPU_TOPO_BATCH": "1", "KUBE_BATCH_TPU_TOPO_DEFRAG": "1"}
+    with LaunchLedger(cuda_solver, device) as ledger:
+        fused_solver.take_topo = take_topo
+        try:
+            for on in (True, False):
+                with env_arm(env), fused_arm(on), gc_posture():
+                    _register(device)
+                    actions, tiers = load_scheduler_conf(TOPO_CONF)
+                    cache, binder = make_topo_cache(
+                        pods=("pod-a",), dims=dims,
+                        slice_shape=slice_shape)
+                    podmap = {pod_key(t.pod): t.pod
+                              for job in cache.jobs.values()
+                              for t in job.tasks.values()}
+                    runs = []
+                    for c in range(2):
+                        run = stamped_session(cache, actions, tiers)
+                        run["records"] = ledger.take()
+                        run["launch_ms"] = [LaunchLedger.launch_ms(r)
+                                            for r in run["records"]]
+                        if c == 0:
+                            for key in cache.evictor.evicts:
+                                cache.delete_pod(podmap.pop(key))
+                        check_no_fallback(run["delta"], "fused-topo")
+                        phase("fused-topo-cycle", fused=on, cycle=c,
+                              wall_ms=run["wall_ms"],
+                              action_ms=run["action_ms"],
+                              dispatches=run["delta"]["dispatches"],
+                              legs=run["delta"]["legs"],
+                              routes=run["delta"]["routes"],
+                              launch_ms=run["launch_ms"])
+                        runs.append(run)
+                    out[on] = dict(runs=runs,
+                                   evicts=list(cache.evictor.evicts),
+                                   binds=[(k, binder.binds[k])
+                                          for k in binder.channel])
+        finally:
+            fused_solver.take_topo = real_take
+    for key in ("evicts", "binds"):
+        if out[True][key] != out[False][key]:
+            raise AssertionError(f"fused-topo: the arms' {key} differ")
+    routes = [r["delta"]["routes"] for r in out[True]["runs"]]
+    legs = [r["delta"]["legs"] for r in out[True]["runs"]]
+    if not any(r.get("fused/evict+solve+topo", 0) for r in routes) \
+            or not any(lg.get("topo/served", 0) for lg in legs) or not served:
+        raise AssertionError(f"fused-topo: no three-family dispatch served "
+                             f"its topo leg: {routes} {legs}")
+    err = 0
+    for inp, shape, n, stats in served:
+        cpu = box_scan(stage_box_inputs(inp, "cpu"), *shape)[:n].numpy()
+        if cpu.shape != stats.shape:
+            raise AssertionError(f"fused topo leg shape {stats.shape} != "
+                                 f"{cpu.shape}")
+        err = max(err, int(np.abs(cpu.astype(np.int64)
+                                  - stats.astype(np.int64)).max()))
+    if err:
+        raise AssertionError(f"fused topo leg != box_scan on the CPU: max "
+                             f"abs err {err}")
+    held = {"plain": 0, "byte_equal": 0}
+    for on in (True, False):
+        for c, run in enumerate(out[True if on else False]["runs"]):
+            got = ledger.hold(run["records"],
+                              f"fused-topo cycle {c} (fused={on})")
+            launches += len(run["records"])
+            for k in held:
+                held[k] += got["held"][k]
+    phase("fused-topo", dims=list(dims), slice=slice_shape,
+          routes=routes, legs=legs, topo_leg_vs_cpu_max_abs_err=err,
+          topo_legs_served=len(served), evictions=len(out[True]["evicts"]),
+          binds=len(out[True]["binds"]), identical_arms=True,
+          launches=launches, held=held, fallback_counters=0, card=card)
+    return launches
+
+
+def fused_steady_run(ledger, on: bool, shape, rounds,
+                     device="cuda") -> list:
+    """The steady protocol (steady_run: make_synthetic_cache, one cold
+    session, ``rounds`` rounds of 1% SteadyChurn with the echo) under the
+    shipped conf with the ladder stamped, KUBE_BATCH_TPU_FUSED ``on``."""
+    from kube_batch_tpu_torch.models import incremental
+    from kube_batch_tpu_torch.models.synthetic import (SteadyChurn,
+                                                       make_synthetic_cache)
+    from kube_batch_tpu_torch.scheduler import load_scheduler_conf
+    with fused_arm(on), gc_posture():
+        _register(device)
+        actions, tiers = load_scheduler_conf(shipped_conf())
+        tpu = next(a for a in actions if a.name() == "tpu-allocate")
+        cache, binder = make_synthetic_cache(*shape)
+        churn = SteadyChurn(cache, binder, shape[0], shape[3], churn=0.01)
+        records = []
+        for rnd in range(rounds + 1):
+            if rnd:
+                churn.inject(rnd)
+            cache.events.clear()
+            tpu.last = None
+            run = stamped_session(cache, actions, tiers)
+            run["records"] = ledger.take()
+            run["launch_ms"] = [LaunchLedger.launch_ms(r)
+                                for r in run["records"]]
+            st = incremental.state_for(cache, create=False)
+            last = tpu.last
+            run.update(round=rnd, kind=st.last_kind if st else None,
+                       gathered_rows=(int(last.candidates.idx.shape[0])
+                                      if last is not None
+                                      and last.candidates is not None
+                                      else None),
+                       binds=dict(binder.binds), events=list(cache.events))
+            check_no_fallback(run["delta"], f"fused-steady round {rnd}")
+            phase("fused-steady-round", fused=on, round=rnd,
+                  kind=run["kind"], gathered_rows=run["gathered_rows"],
+                  wall_ms=run["wall_ms"], action_ms=run["action_ms"],
+                  dispatches=run["delta"]["dispatches"],
+                  legs=run["delta"]["legs"], launch_ms=run["launch_ms"],
+                  binds_n=len(run["binds"]))
+            records.append(run)
+            churn.echo()
+    return records
+
+
+def fused_steady_phase(cuda_solver, card, shape=NORTH_STAR,
+                       rounds=6, device="cuda") -> int:
+    """The steady state under the fused program: the steady protocol at
+    the north star (1% churn per round, six rounds after a cold
+    session) under the shipped conf, KUBE_BATCH_TPU_FUSED on and off.
+    Binds and events must be equal per round; every round of the fused
+    arm must make one fused dispatch with an alloc leg, and some round
+    must solve gathered rows.  A round that is not {"fused": 1} with its
+    alloc leg served (reclaim evicts before tpu-allocate ships, say)
+    prints a fused-steady-ladder line.  Every launch is held against the
+    plain version.  Returns the launches."""
+    out = {}
+    with LaunchLedger(cuda_solver, device) as ledger:
+        for on in (True, False):
+            out[on] = fused_steady_run(ledger, on, shape, rounds, device)
+    for a, b in zip(out[True], out[False]):
+        if a["binds"] != b["binds"] or a["events"] != b["events"]:
+            raise AssertionError(f"fused-steady round {a['round']}: the "
+                                 f"arms differ")
+    micro = [r for r in out[True] if r["gathered_rows"] is not None]
+    if not micro:
+        raise AssertionError("fused-steady: no round solved gathered rows")
+    for r in out[True]:
+        d = r["delta"]
+        if d["dispatches"].get("fused") != 1 or not any(
+                k.split("/")[0] in ("solve", "postevict") for k in d["legs"]):
+            raise AssertionError(f"fused-steady round {r['round']}: no fused "
+                                 f"alloc leg: {d}")
+        if d["dispatches"] != {"fused": 1} \
+                or d["legs"].get("solve/served") != 1:
+            # Another ladder than one served dispatch: printed, reported.
+            phase("fused-steady-ladder", round=r["round"],
+                  dispatches=d["dispatches"], legs=d["legs"],
+                  gathered_rows=r["gathered_rows"])
+    launches, plain_ms = 0, []
+    held = {"plain": 0, "byte_equal": 0}
+    for on in (True, False):
+        for r in out[on]:
+            got = ledger.hold(r["records"], f"fused-steady round "
+                              f"{r['round']} (fused={on})")
+            launches += len(r["records"])
+            plain_ms += got["plain_ms"]
+            for k in held:
+                held[k] += got["held"][k]
+    phase("fused-steady", shape=list(shape), rounds=rounds,
+          kinds=[r["kind"] for r in out[True]],
+          gathered_rounds=[r["round"] for r in micro],
+          legs_by_round=[r["delta"]["legs"] for r in out[True]],
+          gathered_rows=[r["gathered_rows"] for r in out[True]],
+          wall_ms={("fused" if on else "control"):
+                   [r["wall_ms"] for r in out[on]] for on in out},
+          launch_ms_micro=[r["launch_ms"] for r in micro],
+          identical_arms=True, launches=launches, held=held,
+          plain_ms=plain_ms, fallback_counters=0, card=card)
+    return launches
+
+
+FUSED_PHASES = (fused_quiet_phase, fused_storm_phase, fused_served_phase,
+                fused_topo_phase, fused_steady_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["fused"]:
+        return fused_only()
     from kube_batch_tpu_torch.models.shipping import resident_shipper
     from kube_batch_tpu_torch.models.synthetic import make_synthetic_inputs
     from kube_batch_tpu_torch.ops import cuda_solver
@@ -2225,6 +3065,11 @@ def main() -> int:
         t0 = time.perf_counter()
         fetched = fetch_solve(dispatch_solve(shipped, cfg))
         solve_ms = (time.perf_counter() - t0) * 1e3
+        if expect == "full":
+            # The full ship's inputs, kept before the delta ship rewrites
+            # the resident leaves in place: the plain check below runs
+            # on them (tenancy-streams' seed-0 solo launch is byte-equal).
+            full = type(shipped)(*(t.clone() for t in shipped))
         results.append((shipped, fetched))
         phase("ship+solve", mode=shipper.last_mode, bytes=shipper.last_bytes,
               generation=shipper.generation, ship_ms=ship_ms,
@@ -2244,10 +3089,9 @@ def main() -> int:
     if results[1][1][0].tobytes() != results[2][1][0].tobytes():
         raise AssertionError("a clean ship changed the solve's result")
 
-    # Once against the plain version on the card.  The delta ship rewrote
-    # the resident leaves in place, so the last shipped inputs are the
-    # live ones.
-    shipped, fetched = results[-1]
+    # Once against the plain version on the card, on the full ship's
+    # inputs (cloned above: the delta ship rewrote the resident leaves).
+    shipped, fetched = full, results[0][1]
     kout = cuda_solver.solve_allocate_cuda(shipped, cfg)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2260,6 +3104,9 @@ def main() -> int:
                              f"max abs err {max_err}")
     if not np.array_equal(fetched[0], kout[0].assignment.cpu().numpy()):
         raise AssertionError("dispatch/fetch result differs from the kernel")
+    LaunchLedger.note_held(shipped, cfg, tuple(
+        t.cpu().numpy() for t in (pout[0].assignment, pout[0].kind,
+                                  pout[0].order)))
     steps = int(kout[0].step)
     # The same inputs with the cluster bound forced to 8, as on a card
     # that cannot host 16 CTAs: more rows in global memory, same answer.
@@ -2312,6 +3159,7 @@ def main() -> int:
     tenancy_launches = tenancy_phase(cuda_solver, card)
     backlog_launches = tenancy_backlog_phase(cuda_solver, card)
     loop_launches = scheduler_loop_phase(cuda_solver, card)
+    fused_launches = sum(run(cuda_solver, card) for run in FUSED_PHASES)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -2320,7 +3168,9 @@ def main() -> int:
         "replaces": "kube_batch_tpu/ops/pallas_solver.py:60",
         "launches": (session_launches + steady_launches + evict_launches
                      + topo_launches + streams_launches + tenancy_launches
-                     + backlog_launches + loop_launches),
+                     + backlog_launches + loop_launches + fused_launches),
+        "held_vs_plain": LaunchLedger.counts["plain"],
+        "held_byte_equal": LaunchLedger.counts["byte_equal"],
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2328,6 +3178,22 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind_name,
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def fused_only() -> int:
+    """``python3 chip_smoke.py fused``: the build and the five fused
+    phases alone (a shorter run while working on them); prints no
+    kernels line and no result line."""
+    from kube_batch_tpu_torch.ops import cuda_solver
+    card = card_line()
+    phase("device", card=card, torch=torch.__version__,
+          cuda=torch.version.cuda, count=torch.cuda.device_count())
+    began = time.perf_counter()
+    cuda_solver.build_kernel()
+    phase("build", seconds=time.perf_counter() - began)
+    launches = sum(run(cuda_solver, card) for run in FUSED_PHASES)
+    phase("fused-only", launches=launches, held=LaunchLedger.counts)
     return 0
 
 

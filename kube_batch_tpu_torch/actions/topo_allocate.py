@@ -5,8 +5,9 @@ for line but for the device: the batched box scan runs as PyTorch tensor
 code on the action's device (CUDA unless the caller asks for the CPU).
 Unlike the reference, a failing device scan raises out of ``execute``
 instead of degrading to the numpy oracle (the degradation comes with
-ROADMAP queue 1 item 11), and the fused one-dispatch program's topo leg
-is not ported: this action runs its control arm (FUSED=0, item 4).
+ROADMAP queue 1 item 11).  Under the fused one-dispatch program
+(ops/fused_solver.py, on by default) the session's first scan rides the
+fused dispatch with the eviction and allocate legs.
 
 Runs BEFORE the flat allocate family in the actions conf
 (``actions: "topo-allocate, tpu-allocate, backfill"``): PodGroups
@@ -148,9 +149,11 @@ class TopoAllocateAction(Action):
                                   np.iinfo(np.int32).max)
         return free, evictable, vic_cnt, vic_cost
 
-    def _box_stats(self, view, free, evictable, vic_cnt, vic_cost, shape):
+    def _box_stats(self, view, free, evictable, vic_cnt, vic_cost, shape,
+                   ssn=None):
         """Route the scan: the batched program on the action's device (one
-        dispatch over the padded bucket) or the sequential oracle under
+        dispatch over the padded bucket, or the fused program's topo leg
+        when ``ssn`` is given) or the sequential oracle under
         TOPO_BATCH=0.  A device failure raises (the reference degrades to
         the oracle; ROADMAP queue 1 item 11)."""
         from ..models.topology import topo_batch_enabled
@@ -172,10 +175,17 @@ class TopoAllocateAction(Action):
 
         inp = ts.BoxInputs(coords, pad(free), pad(evictable),
                            pad(vic_cnt), pad(vic_cost))
-        # The fused one-dispatch program's topo leg
-        # (fused_solver.take_topo) is not ported: the reference's FUSED=0
-        # arm (ROADMAP queue 1 item 4).
         self.last_scan = (inp, tuple(shape), n)
+        if ssn is not None:
+            # One-dispatch sessions (ops/fused_solver.py): the first
+            # scan of the session stages here and rides the fused
+            # program with the eviction/allocate legs; a served leg IS
+            # this dispatch's [N, 6] rows (same code, same inputs).
+            from ..ops import fused_solver
+            stats = fused_solver.take_topo(ssn, inp, shape, n, self.device,
+                                           self.dtype)
+            if stats is not None:
+                return stats
         with trace.span("topo.box_scan", shape="x".join(
                 str(s) for s in shape)):
             return ts.dispatch_box_scan(inp, shape, self.device)[:n]
@@ -402,7 +412,7 @@ class TopoAllocateAction(Action):
             free, evictable, vic_cnt, vic_cost = self._job_masks(
                 ssn, view, job, task0)
             stats = self._box_stats(view, free, evictable, vic_cnt,
-                                    vic_cost, shape)
+                                    vic_cost, shape, ssn=ssn)
             origin = self._pick_free(stats, vol)
             if origin is not None:
                 placed = self._place_box(ssn, view, origin, shape,

@@ -28,12 +28,15 @@ reuses the previous validated result (models/incremental.py), and a
 micro session solves only the prefiltered candidate node rows
 (ops/prefilter.py) — one launch of the same kernel on the gathered
 inputs.  ``KUBE_BATCH_TPU_INCREMENTAL=0`` and
-``KUBE_BATCH_TPU_CANDIDATE_SOLVE=0`` are the controls.  The reference's
-fused one-dispatch program is not ported yet; this action runs its
-control arm (FUSED=0), which the reference proves bind-identical to its
-default.  ``KUBE_BATCH_TPU_PIPELINE=0`` runs the sequential solve: one
-launch read back in one transfer, no host-overlap window and no
-prefilter, placement-identical to the pipelined default.
+``KUBE_BATCH_TPU_CANDIDATE_SOLVE=0`` are the controls.  Under the fused
+one-dispatch program (ops/fused_solver.py, on by default) an eviction-led
+session's solve was already enqueued by the eviction scanner: the begin
+half consumes it (``take_alloc``) when its own ship proves the inputs
+unchanged, and a commit flush an earlier action deferred into this
+action's window egresses first in ``finish``.
+``KUBE_BATCH_TPU_PIPELINE=0`` runs the sequential solve: one launch read
+back in one transfer, no host-overlap window and no prefilter,
+placement-identical to the pipelined default.
 """
 
 from __future__ import annotations
@@ -90,10 +93,12 @@ class TpuAllocateAction(Action):
 
     def _run_host_fallback(self, ssn) -> None:
         """The host allocate oracle: placement-identical to the device
-        path by the parity suite, only the engine differs.  (The
-        reference first flushes a commit sink deferred into this
-        action's window, fused_solver.flush_deferred; the port defers
-        none until ROADMAP queue 1 item 4.)"""
+        path by the parity suite, only the engine differs."""
+        # A commit flush deferred into this action's dispatch window
+        # (framework/commit.py) must land BEFORE the fallback mutates and
+        # binds — evict events precede binds on every path.
+        from ..ops import fused_solver
+        fused_solver.flush_deferred(ssn)
         if self._fallback_action is None:
             from .allocate import AllocateAction
             self._fallback_action = AllocateAction()
@@ -188,10 +193,12 @@ class TpuAllocateAction(Action):
             ssn.prescan["has_best_effort"] = False
 
         if not snap.tasks:
-            # The reference flushes a commit sink deferred into this
-            # action's window here (fused_solver.flush_deferred); the
-            # port defers none until the fused program lands (ROADMAP
-            # queue 1 item 4).
+            # No finish continuation will run: flush any commit sink
+            # deferred into this action's window now (an earlier action
+            # may have pipelined away every pending task), so later
+            # actions' binds cannot precede the deferred evict events.
+            from ..ops import fused_solver
+            fused_solver.flush_deferred(ssn)
             self._publish_read_fence(ssn, snap, empty=True)
             return None
 
@@ -207,9 +214,11 @@ class TpuAllocateAction(Action):
             shipper = resident_shipper(ssn.cache, self.device)
             with trace.span("ship"):
                 inputs = shipper.ship(snap.inputs, snap.config, self.dtype)
-            if inputs.node_idle.is_cuda:
+            if inputs.node_idle.is_cuda and shipper.last_mode != "clean":
                 # The session's own stream (a shard view's, or the
                 # current one for the global engine): never the device.
+                # A clean ship enqueued nothing, and the stream may hold
+                # a fused solve still running, which this would wait for.
                 torch.cuda.current_stream(inputs.node_idle.device) \
                     .synchronize()
             stages["ship"] = time.perf_counter() - t0
@@ -269,13 +278,21 @@ class TpuAllocateAction(Action):
                 # Dispatch, overlap the result-independent apply
                 # preparation with the executing device program, then
                 # block only when the result is consumed (the
-                # continuation below).  No fused program holds this
-                # solve: the reference's fused_solver.take_alloc comes
-                # with ROADMAP queue 1 item 4, and the port runs its
-                # FUSED=0 arm.
+                # continuation below).  A fused session dispatch
+                # (ops/fused_solver.py) may already hold this solve:
+                # consume it iff the ship above came back CLEAN at the
+                # fused generation with the same config and candidate
+                # gather (or the storm proof holds) — else the
+                # per-family dispatch.
                 with trace.span("dispatch"):
-                    pending = dispatch_solve(inputs, snap.config,
-                                             candidates=candidates)
+                    from ..ops import fused_solver
+                    pending = fused_solver.take_alloc(
+                        ssn, shipper, snap, route, candidates)
+                    if pending is not None:
+                        trace.annotate(fused=True)
+                    else:
+                        pending = dispatch_solve(inputs, snap.config,
+                                                 candidates=candidates)
                 metrics.note_candidate_solve(
                     candidates is not None,
                     candidates.count if candidates is not None else 0)
@@ -316,10 +333,14 @@ class TpuAllocateAction(Action):
         def finish():
             nonlocal scaffold, assignment, kind, order, ordered
             from ..models.tensor_snapshot import build_apply_aggregates
+            from ..ops import fused_solver
             from ..ops.solver import fetch_solve
-            # The reference egresses a commit flush deferred from an
-            # earlier action here (fused_solver.flush_deferred); none is
-            # deferred until ROADMAP queue 1 item 4.
+            # Storm half (doc/FUSED.md): a commit flush deferred from an
+            # earlier action rides this window — egress the evicts FIRST
+            # so the cluster call overlaps the device wait below, and the
+            # event stream keeps evicts before this session's binds on
+            # the served and invalidated paths alike.
+            fused_solver.flush_deferred(ssn)
             try:
                 if pending is not None:
                     wait_start = time.perf_counter()

@@ -1149,8 +1149,11 @@ def _close_is_silent(job: JobInfo) -> bool:
 
 
 def close_session(ssn: Session) -> None:
-    # No fused dispatch holds an alloc leg: the reference's FUSED=0 arm
-    # (ROADMAP queue 1 item 4).
+    # Fused-dispatch ledger hygiene (ops/fused_solver.py): an alloc leg
+    # nobody consumed retires its in-flight handle, a deferred commit
+    # flush nobody reached egresses, the storm capture is released.
+    from ..ops import fused_solver
+    fused_solver.finalize_session(ssn)
     # plugin_close floor: the gang not-ready walk dominates this loop at
     # scale; the vectorized form (plugins/gang.py) must actually kill it
     # — the bench gate watches this number (doc/INCREMENTAL.md).

@@ -124,7 +124,8 @@ def _build_scanner(ssn, use_shipper: bool = False, device=None,
         from .shipping import resident_shipper
         device_inputs = resident_shipper(ssn.cache, device).ship(
             snap.inputs, snap.config, dtype)
-    scanner = DeviceNodeScanner(snap, device, device_inputs=device_inputs)
+    scanner = DeviceNodeScanner(snap, device, device_inputs=device_inputs,
+                                dtype=dtype)
     from ..framework.events import EventHandler
     ssn.add_event_handler(EventHandler(
         allocate_func=lambda e: scanner._used_delta(e.task, +1),
@@ -186,8 +187,10 @@ def _readback(t: torch.Tensor) -> np.ndarray:
 
 class DeviceNodeScanner:
 
-    def __init__(self, snap, device=None, device_inputs=None):
+    def __init__(self, snap, device=None, device_inputs=None,
+                 dtype: torch.dtype = torch.float32):
         self.device = resolve_device(device)
+        self.dtype = dtype  # the float key type ``snap`` was tensorized with
         self.snap = snap
         inp = snap.inputs
         self.r = inp.task_req.shape[1]
@@ -266,11 +269,14 @@ class DeviceNodeScanner:
         # Batched eviction engine state (doc/EVICTION.md): uid -> position
         # in the precomputed victim order (None until batch_seed ran with
         # the stock task order), and the engine's observability counters
-        # (tests + trace assertions read these).  The reference also
-        # parks the fused program's evict leg here (_pending_batch,
-        # _consume_batch, a victim_rank property that materializes it);
-        # the port runs the FUSED=0 arm until ROADMAP queue 1 item 4.
-        self.victim_rank: Optional[Dict[str, int]] = None
+        # (tests + trace assertions read these).
+        # Fused-dispatch deferral (ops/fused_solver.py): the evict leg's
+        # pinned host readback and its event, parked between the
+        # one-dispatch session program and the first consumer —
+        # _consume_batch materializes them.
+        self._pending_batch = None
+        self._fused_early = False  # seeded before mutating actions ran
+        self.victim_rank = None
         self._batched = False  # True once batch_seed ran (engine active)
         # The staged host inputs of the last batched dispatch (dyn,
         # trows, victim nodes, victim ranks), so a caller can replay the
@@ -298,6 +304,62 @@ class DeviceNodeScanner:
         return self._statics
 
     # -- batched eviction engine (doc/EVICTION.md) --------------------------
+
+    @property
+    def victim_rank(self) -> Optional[Dict[str, int]]:
+        """uid -> precomputed victim-order position.  A deferred fused
+        readback materializes at first touch — consumers (preempt's
+        rank lookup) never see the parked readback."""
+        self._consume_batch()
+        return self._victim_rank
+
+    @victim_rank.setter
+    def victim_rank(self, value) -> None:
+        self._victim_rank = value
+
+    def _consume_batch(self) -> None:
+        """Materialize the fused evict leg (ops/fused_solver.py): ONE
+        wait on the leg's event, seeding the score cache exactly as the
+        per-family batch_seed would have — keyed at the dispatch-time
+        edit-log position, so rows dirtied while the readback was parked
+        patch through the normal edit-log path.  A readback fault (chaos
+        ``fused.poison``/``fused.slow``) is counted and raises, as the
+        per-family dispatch failure does: the reference degrades it to
+        per-profile host scoring and feeds the breaker (ROADMAP queue 1
+        item 11)."""
+        pb = self._pending_batch
+        if pb is None:
+            return
+        self._pending_batch = None
+        from ..metrics import metrics
+        from ..ops import fused_solver
+        from ..trace import spans as trace
+        try:
+            with trace.span("fused.evict_consume",
+                            profiles=len(pb["keys"])):
+                mat, perm = fused_solver.consume_evict(
+                    pb["scores"], pb["perm"], pb["ready"], pb["kb"],
+                    self.dyn.shape[0])
+        except Exception:
+            metrics.note_device_failure("fused")
+            metrics.note_fused_leg("evict", "failed")
+            raise
+        from ..chaos.breaker import device_breaker
+        breaker = device_breaker()
+        if not breaker.closed():
+            # Same half-open resolution rule as the per-family dispatch:
+            # the successful readback IS the recovery evidence.
+            breaker.success()
+        for i, key in enumerate(pb["keys"]):
+            self._score_cache[key] = [mat[i], pb["pos"]]
+        if pb["stock_order"]:
+            rank_map: Dict[str, int] = {}
+            m = pb["m"]
+            for p, j in enumerate(perm.tolist()):
+                if j < m:
+                    rank_map[pb["vic_uids"][j]] = p
+            self._victim_rank = rank_map
+        metrics.note_fused_leg("evict", "served")
 
     def _profile_key(self, ti: int) -> tuple:
         return (int(self._task_sig[ti]), self._task_res[ti].tobytes(),
@@ -379,15 +441,31 @@ class DeviceNodeScanner:
         rank_p = np.full((mb,), mb, np.int32)
         node_p[:m] = vic_node
         rank_p[:m] = vic_rank
-        # The fused one-dispatch program (ops/fused_solver.take_evict) is
-        # not ported: this is the KUBE_BATCH_TPU_FUSED=0 arm, one
-        # per-family dispatch (ROADMAP queue 1 item 4).  A dispatch
-        # failure raises: the reference degrades it to per-profile host
-        # scoring and feeds the breaker (ROADMAP queue 1 item 11).
+        self.last_batch = (self.dyn.copy(), trows, node_p, rank_p)
+        # One-dispatch sessions (ops/fused_solver.py): the fused program
+        # serves this eviction staging — plus the allocate solve and any
+        # staged topo scan — from ONE enqueue sequence; the readback
+        # parks on _pending_batch until the first consumer.  None =>
+        # per-family dispatch below, exactly the KUBE_BATCH_TPU_FUSED=0
+        # control.  A dispatch failure raises: the reference degrades it
+        # to per-profile host scoring and feeds the breaker (ROADMAP
+        # queue 1 item 11).
         from ..chaos.breaker import device_breaker
+        from ..ops import fused_solver
         dev = self.device
         with trace.span("evict.batch_solve", profiles=len(keys),
                         victims=m, nodes=len(self.snap.node_names)):
+            fused = fused_solver.take_evict(ssn, self, trows, node_p,
+                                            rank_p)
+            if fused is not None:
+                self._pending_batch = dict(
+                    scores=fused[0], perm=fused[1], ready=fused[2], kb=kb,
+                    keys=keys, vic_uids=vic_uids, m=m,
+                    stock_order=stock_order, pos=len(self._edit_log))
+                self._batched = True
+                self.stats["batch_dispatches"] += 1
+                self.stats["seeded_profiles"] += len(keys)
+                return
             scores, perm = evict_solver.dispatch_evict_batch_solve(
                 self.cfg, self.r, self.np_pad, self.ns_pad,
                 self.statics, torch.as_tensor(self.dyn, device=dev),
@@ -396,7 +474,6 @@ class DeviceNodeScanner:
                 torch.as_tensor(rank_p, device=dev))
             mat = _readback(scores).astype(np.int64)
             perm = _readback(perm)
-        self.last_batch = (self.dyn.copy(), trows, node_p, rank_p)
         breaker = device_breaker()
         if not breaker.closed():
             # Resolve a half-open probe: this dispatch IS the recovery
@@ -442,10 +519,15 @@ class DeviceNodeScanner:
             raise RuntimeError(
                 "scanner.refresh inside an open transaction (checkpoint "
                 "frames present) — attach must happen between actions")
-        # The reference drops an early-seeded (fused topo-first) victim
-        # ranking here; the port has no fused build (ROADMAP queue 1
-        # item 4), so the ranking is always seeded at first use.
+        self._consume_batch()
         names = sorted(n for n in ssn.mutated_nodes if n in self.node_index)
+        if names and self._fused_early:
+            # Early-seeded scanner (fused topo-first build): the victim
+            # ranking was computed BEFORE this session's mutations, so
+            # residents placed since are missing from the map.  Drop it —
+            # the walk falls back to the exact session victim queue,
+            # which is bit-identical by the batch_seed parity contract.
+            self._victim_rank = None
         self.stats["refreshes"] += 1
         if not names:
             return
@@ -556,6 +638,7 @@ class DeviceNodeScanner:
         ``KUBE_BATCH_TPU_SAFE_SCORES=1`` returns a defensive copy so a
         contract hole corrupts nothing there."""
         safe = knobs.SAFE_SCORES.enabled()
+        self._consume_batch()
         ti = self.task_index.get(task.uid)
         if ti is None:
             return None

@@ -484,6 +484,120 @@ def make_churn_cache(n_tasks=50_000, n_nodes=10_000, n_jobs=2_000,
     return cache, binder
 
 
+def make_storm_served_cache(n_nodes=8, per_node=6, victims=3,
+                            extra_tasks=6, critical_first=False):
+    """SchedulerCache whose reclaim cycle the fused storm leg can predict
+    EXACTLY (kube_batch_tpu/models/synthetic.py, line for line;
+    doc/FUSED.md "Storm half") — chip_smoke.py's fused-served phase and
+    the one-dispatch twins use it to pin a SERVED post-eviction leg:
+
+    - two queues: q0 owns every running pod (overused with exactly
+      ``victims`` pods of slack past its deserved share on EVERY resource
+      axis — memory mirrors cpu 1Gi:1cpu so no axis blocks the
+      reclaimable filter early); q1 is starved and owns ONE pending job;
+    - the job's first task needs exactly ``victims`` residents' worth of
+      room, so the host walk evicts a slot-order prefix of the first
+      candidate node — the same prefix the device computes;
+    - ``extra_tasks`` small siblings in the SAME job (one starved job ==
+      one reclaim iteration) stay pending for tpu-allocate, landing on
+      the deliberately-empty last node, so the served leg actually binds.
+
+    Victim pods each request 2cpu/2Gi; the reclaiming task requests
+    ``victims * 2``; deserved(q1) = its demand = (victims + extra_tasks)
+    * 2, which pushes deserved(q0) exactly ``victims`` pods under its
+    allocation.
+
+    ``critical_first=True`` marks the FIRST resident of the first node
+    system-cluster-critical: the conformance filter drops it from the
+    host victim walk, so the committed victim order DIVERGES from the
+    device's slot-order prefix — the deterministic invalidation fixture
+    for the storm leg's order proof.
+    """
+    from ..api import (Container, Node, NodeSpec, NodeStatus, ObjectMeta,
+                       Pod, PodSpec, PodStatus)
+    from ..api.objects import PriorityClass
+    from ..api.queue_info import Queue
+    from ..apis.scheduling import v1alpha1
+    from ..apis.scheduling.v1alpha1 import GroupNameAnnotationKey
+    from ..cache import (FakeBinder, FakeEvictor, FakeStatusUpdater,
+                         FakeVolumeBinder, SchedulerCache)
+
+    binder = FakeBinder()
+    cache = SchedulerCache(binder=binder, evictor=FakeEvictor(),
+                           status_updater=FakeStatusUpdater(),
+                           volume_binder=FakeVolumeBinder())
+    cache.add_priority_class(PriorityClass(
+        metadata=ObjectMeta(name="p10"), value=10))
+    cache.add_priority_class(PriorityClass(
+        metadata=ObjectMeta(name="p1000"), value=1000))
+    for q in range(2):
+        cache.add_queue(Queue(
+            metadata=ObjectMeta(name=f"q{q}", creation_timestamp=float(q)),
+            weight=1))
+
+    cpu = per_node * 2
+    alloc = {"cpu": str(cpu), "memory": f"{cpu}Gi", "pods": 110}
+    for i in range(n_nodes):
+        cache.add_node(Node(
+            metadata=ObjectMeta(name=f"n{i:05d}", uid=f"n{i}"),
+            spec=NodeSpec(),
+            status=NodeStatus(allocatable=dict(alloc),
+                              capacity=dict(alloc))))
+
+    # Full nodes 0..n-2; the LAST node stays empty (no residents, so
+    # neither the host walk nor the device model considers it for
+    # reclaim — it is where tpu-allocate places the small siblings).
+    full_nodes = n_nodes - 1
+    n_running = full_nodes * per_node
+    cache.add_pod_group(v1alpha1.PodGroup(
+        metadata=ObjectMeta(name="low0", namespace="storm"),
+        spec=v1alpha1.PodGroupSpec(min_member=1, queue="q0",
+                                   priority_class_name="p10")))
+    for i in range(n_running):
+        pclass = ("system-cluster-critical"
+                  if critical_first and i == 0 else "p10")
+        cache.add_pod(Pod(
+            metadata=ObjectMeta(
+                name=f"low{i:05d}", namespace="storm", uid=f"low{i}",
+                annotations={GroupNameAnnotationKey: "low0"},
+                creation_timestamp=float(i)),
+            spec=PodSpec(
+                node_name=f"n{i // per_node:05d}", priority=10,
+                priority_class_name=pclass,
+                containers=[Container(requests={"cpu": "2",
+                                                "memory": "2Gi"})]),
+            status=PodStatus(phase="Running")))
+
+    cache.add_pod_group(v1alpha1.PodGroup(
+        metadata=ObjectMeta(name="storm", namespace="storm"),
+        spec=v1alpha1.PodGroupSpec(min_member=1, queue="q1",
+                                   priority_class_name="p1000")))
+    req = victims * 2
+    cache.add_pod(Pod(
+        metadata=ObjectMeta(
+            name="storm-lead", namespace="storm", uid="storm-lead",
+            annotations={GroupNameAnnotationKey: "storm"},
+            creation_timestamp=float(n_running)),
+        spec=PodSpec(
+            priority=1000, priority_class_name="p1000",
+            containers=[Container(requests={"cpu": str(req),
+                                            "memory": f"{req}Gi"})]),
+        status=PodStatus(phase="Pending")))
+    for i in range(extra_tasks):
+        cache.add_pod(Pod(
+            metadata=ObjectMeta(
+                name=f"storm-sib{i:03d}", namespace="storm",
+                uid=f"storm-sib{i}",
+                annotations={GroupNameAnnotationKey: "storm"},
+                creation_timestamp=float(n_running + 1 + i)),
+            spec=PodSpec(
+                priority=1000, priority_class_name="p1000",
+                containers=[Container(requests={"cpu": "2",
+                                                "memory": "2Gi"})]),
+            status=PodStatus(phase="Pending")))
+    return cache, binder
+
+
 class SteadyChurn:
     """The steady-state churn protocol of the reference's
     ``measure_steady_session`` (bench.py), on a cache from

@@ -155,6 +155,44 @@ def discard_solve(pending: PendingSolve) -> None:
         _note_dispatch(-1)
 
 
+def _lex_argmin(mask: torch.Tensor, keys, key_dtype: torch.dtype
+                ) -> torch.Tensor:
+    """Index of the masked lexicographic minimum as an int32 0-d tensor,
+    with no host read.  A floating key compares in its own dtype (the
+    reference's ``jnp.where(mask, k, inf)`` keeps it); any other key is
+    promoted to ``key_dtype``, the staged float key type, where JAX
+    promotes to its default float (float64 under x64, float32 without)
+    and torch would pick float32 in both.  An all-false mask gives 0, as
+    ``jnp.argmax`` does."""
+    for k in keys:
+        if not k.is_floating_point():
+            k = k.to(key_dtype)
+        kv = torch.where(mask, k, torch.full_like(k, float("inf")))
+        mask = mask & (kv == kv.min())
+    return torch.argmax(mask.to(torch.int32)).to(torch.int32)
+
+
+def dynamic_predicate_mask(cfg: SolverConfig, t, task_ports, task_aff_req,
+                           task_anti, ports, selcnt):
+    """[N] bool: host-port conflicts (predicates.go:174) and required
+    inter-pod (anti-)affinity at hostname topology (predicates.go:249-262)
+    for task ``t`` (an index tensor, read on the device) against the
+    occupancy state ``ports`` / ``selcnt``.  None when neither feature is
+    active."""
+    ok = None
+    t = t.long()
+    if cfg.has_ports:
+        conflict = (task_ports[t][None, :] & ports).any(dim=-1)
+        ok = ~conflict
+    if cfg.has_pod_affinity:
+        have = selcnt > 0
+        aff_ok = torch.all(~task_aff_req[t][None, :] | have, dim=-1)
+        anti_ok = torch.all(~task_anti[t][None, :] | ~have, dim=-1)
+        both = aff_ok & anti_ok
+        ok = both if ok is None else (ok & both)
+    return ok
+
+
 def _gather_candidate_inputs(inp: SolverInputs, idx: torch.Tensor,
                              valid: torch.Tensor) -> SolverInputs:
     """Rebucket the node axis to the candidate rows (ascending full-space
@@ -203,6 +241,47 @@ def _solve_candidates(inp: SolverInputs, cfg: SolverConfig,
                                cfg)
 
 
+def to_host_async(*tensors, out=None):
+    """(host tensors, event): on the card a non-blocking copy of each
+    tensor into pinned host memory (``out``, when given, else allocated
+    here), enqueued on the current stream, and one event recorded after
+    them (wait on the event, not the stream, so later work on the stream
+    is not waited for); on the CPU the tensors themselves and None.  A
+    pinned allocation can synchronize the device, so a caller that must
+    not wait for work already queued allocates ``out`` before it queues
+    that work (``packed_host``)."""
+    if not tensors[0].is_cuda:
+        return list(tensors), None
+    hosts = list(out) if out is not None else [
+        torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        for t in tensors]
+    for host, t in zip(hosts, tensors):
+        host.copy_(t, non_blocking=True)
+    ready = torch.cuda.Event()
+    ready.record(torch.cuda.current_stream(tensors[0].device))
+    return hosts, ready
+
+
+def packed_host(inp: SolverInputs):
+    """The pinned [4, P] int32 buffer of a solve's packed readback on
+    the card, allocated before the launch (see to_host_async); None on
+    the CPU."""
+    if not inp.node_idle.is_cuda:
+        return None
+    return torch.empty((4, inp.task_req.shape[0]), dtype=torch.int32,
+                       pin_memory=True)
+
+
+def pending_of(result: SolveResult, remap=None, host=None) -> PendingSolve:
+    """Pack ``result`` and enqueue its readback (into ``host`` when
+    given) as a PendingSolve: one handle in the in-flight ledger."""
+    (packed,), ready = to_host_async(
+        _pack_result_ordered(result.assignment, result.kind, result.order),
+        out=None if host is None else (host,))
+    _note_dispatch(+1)
+    return PendingSolve(packed, ready, remap)
+
+
 def dispatch_solve(inp: SolverInputs, cfg: SolverConfig,
                    candidates=None) -> PendingSolve:
     """Route and dispatch the solve without blocking on its result.  On
@@ -211,25 +290,18 @@ def dispatch_solve(inp: SolverInputs, cfg: SolverConfig,
     recorded there (a shard session's current stream is its view's own,
     scheduler.py); on the CPU everything runs synchronously.  ``candidates``
     (ops/prefilter.CandidateSet) narrows the node axis to the
-    prefiltered rows; the fetch remaps the result to full space."""
+    prefiltered rows; the fetch remaps the result to full space.  Counts
+    one ``solve`` session dispatch, as the reference does."""
+    host = packed_host(inp)
     if candidates is not None:
         result = _solve_candidates(inp, cfg, candidates)
         remap = candidates.remap
     else:
         result = best_solve_allocate(inp, cfg)
         remap = None
-    packed = _pack_result_ordered(result.assignment, result.kind,
-                                  result.order)
-    if packed.is_cuda:
-        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-        host.copy_(packed, non_blocking=True)
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(packed.device))
-        pending = PendingSolve(host, ready, remap)
-    else:
-        pending = PendingSolve(packed, None, remap)
-    _note_dispatch(+1)
-    return pending
+    from ..metrics import metrics
+    metrics.note_session_dispatch("solve")
+    return pending_of(result, remap, host)
 
 
 def fetch_solve(pending: PendingSolve):

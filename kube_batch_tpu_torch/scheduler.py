@@ -284,8 +284,8 @@ class Scheduler:
             with self._device_stream(cache, shard):
                 with trace.span("open_session"):
                     ssn = open_session(cache, self.tiers)
-                # The reference's fused session dispatch reads the conf's
-                # action ladder from here (ROADMAP queue 1 item 4).
+                # The fused session dispatch (ops/fused_solver.py) decides
+                # which legs can ride along from the conf's action ladder.
                 ssn._conf_actions = tuple(a.name() for a in self.actions)
                 trace.set_uid(ssn.uid)
                 trace.set_meta(jobs=len(ssn.jobs), nodes=len(ssn.nodes),
@@ -425,10 +425,10 @@ class Scheduler:
                     # its remaining actions or close (a close would emit
                     # events/status writes the rerun emits again).
                     stale_abort = True
-                    # The reference finalizes its fused session dispatch
-                    # here (fused_solver.finalize_session); the port has
-                    # none until ROADMAP queue 1 item 4.  The stale fetch
-                    # already consumed the session's pending dispatch.
+                    # No close_session: retire the fused dispatch's
+                    # unconsumed legs here (ops/fused_solver.py).
+                    from .ops import fused_solver
+                    fused_solver.finalize_session(ssn)
                     trace.set_meta(pipeline_discarded="stale_fallback")
                     raise
                 finally:
@@ -452,10 +452,11 @@ class Scheduler:
         with self._device_stream(handle.ssn.cache, handle.shard):
             trace.resume_session(handle.trace_obj)
             handle.trace_obj = None
-            # The reference finalizes its fused session dispatch here
-            # (fused_solver.finalize_session; ROADMAP queue 1 item 4).
             # The session's own pending solve is retired by the
-            # pipeline's _discard_handle before it calls this.
+            # pipeline's _discard_handle before it calls this; the fused
+            # dispatch's unconsumed legs are retired here.
+            from .ops import fused_solver
+            fused_solver.finalize_session(handle.ssn)
             trace.note_degraded(f"shard pipeline discarded session: {reason}")
             trace.set_meta(pipeline_discarded=reason)
             trace.end_session()

@@ -9,7 +9,9 @@ whole ``open_session -> tpu-allocate -> close_session`` sessions on one
 cache with churn between them on the CPU (the third a micro session on
 the candidate route), loads the default conf whole, runs one session of
 the shipped four-action conf (reclaim, tpu-allocate, backfill, preempt) on
-a small churn storm that must evict and bind, checks that the C host walk
+a small churn storm that must evict and bind, runs one quiet session of
+that conf under the fused one-dispatch program (one fused dispatch, its
+allocate leg served, binds), checks that the C host walk
 loaded and the session's apply runs it, runs the topology conf on a 4x4x2
 torus until the slice binds, runs one global ``Scheduler.cycle()`` and one
 tenancy cycle of the concurrent shard pipeline over two dirty shards (both
@@ -118,6 +120,27 @@ finally:
     close_session(ssn)
 assert storm.evictor.evicts and storm_binder.binds
 assert scanner is not None and scanner.stats["batch_dispatches"] == 1
+
+# One quiet session of the same conf under the fused one-dispatch
+# program, the ladder stamped as the Scheduler stamps it: one fused
+# dispatch, its alloc leg served to tpu-allocate, and binds.
+from kube_batch_tpu_torch.metrics.metrics import (fused_leg_counts,
+                                                  session_dispatch_counts)
+os.environ["KUBE_BATCH_TPU_FUSED"] = "1"
+quiet, quiet_binder = make_synthetic_cache(300, 32, 12, 2)
+d0, l0 = session_dispatch_counts(), fused_leg_counts()
+ssn = open_session(quiet, storm_tiers)
+ssn._conf_actions = tuple(names)
+try:
+    for a in actions:
+        a.execute(ssn)
+finally:
+    close_session(ssn)
+d1, l1 = session_dispatch_counts(), fused_leg_counts()
+disp = {k: d1[k] - d0.get(k, 0) for k in d1 if d1[k] != d0.get(k, 0)}
+assert disp == {"fused": 1}, disp
+assert l1.get("solve/served", 0) - l0.get("solve/served", 0) == 1
+assert len(quiet_binder.binds) == 300, len(quiet_binder.binds)
 
 # The C host walk is loaded and the session's apply runs it.
 from kube_batch_tpu_torch import native

@@ -725,3 +725,51 @@ def bind_map(cluster):
     with cluster.lock:
         return {k: p.spec.node_name for k, p in cluster.pods.items()
                 if p.spec.node_name}
+
+
+# -- fused one-dispatch sessions (tests/test_torch_fused*.py) -------------
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def storm_conf_text():
+    """The shipped four-action conf with tpu-allocate in place of
+    allocate (tests/test_fused.py's ``_storm_conf``)."""
+    with open(os.path.join(REPO, "config", "kube-batch-conf.yaml")) as fh:
+        return fh.read().replace('"reclaim, allocate, backfill, preempt"',
+                                 '"reclaim, tpu-allocate, backfill, preempt"')
+
+
+def drive_stamped(p, cache, actions, tiers):
+    """One manually driven session of package ``p`` (a Pkg), the conf's
+    ladder stamped on it as Scheduler.session_once stamps it (the fused
+    dispatcher keys on it).  Returns the end state."""
+    fw = p.m.framework
+    ssn = fw.open_session(cache, tiers)
+    ssn._conf_actions = tuple(a.name() for a in actions)
+    try:
+        for a in actions:
+            a.execute(ssn)
+        return session_state(ssn)
+    finally:
+        fw.close_session(ssn)
+
+
+def fused_deltas(p, fn):
+    """Run ``fn`` and return (result, session-dispatch delta, fused-leg
+    outcome delta, fused route delta) of package ``p``.  Only the
+    ``fused/*`` routes are compared across packages: the per-family
+    route labels differ by design (``xla`` vs ``torch``)."""
+    mm = p.mod.metrics_metrics
+    before = (mm.session_dispatch_counts(), mm.fused_leg_counts(),
+              mm.route_counts())
+    result = fn()
+    after = (mm.session_dispatch_counts(), mm.fused_leg_counts(),
+             mm.route_counts())
+
+    def delta(a, b):
+        return {k: b[k] - a.get(k, 0) for k in sorted(b)
+                if b[k] - a.get(k, 0)}
+    disp, legs, routes = (delta(a, b) for a, b in zip(before, after))
+    return result, disp, legs, {k: v for k, v in routes.items()
+                                if k.startswith("fused/")}
