@@ -26,7 +26,7 @@ Phases, each printed on its own line:
   5. session, the slice's main path at the north star, in two arms: the
      C host walk (the default) and the KUBE_BATCH_TPU_NO_NATIVE=1 control
      (native_arm), taking turns.  Per arm, make_synthetic_cache through
-     the SchedulerCache's ingestion, then one cold and three warm sessions of
+     the SchedulerCache's ingestion, then one cold and two warm sessions of
      open_session -> TpuAllocateAction(cuda, float32) -> close_session,
      bound pods echoed back between them; each session must take the cuda
      route without the host fallback, launch the kernel once, bind
@@ -46,7 +46,7 @@ Phases, each printed on its own line:
   8. evict: the eviction engine at the north star — the shipped
      four-action conf (reclaim, tpu-allocate, backfill, preempt) on
      make_churn_cache(50k, 10k, 2k, 4), one warm cycle per
-     KUBE_BATCH_TPU_BATCH_EVICT arm then off/on/on/off on fresh caches;
+     KUBE_BATCH_TPU_BATCH_EVICT arm then off/on on fresh caches;
      prints per-action medians and p90s per arm, the evictions and their
      split by action, the scanner's stats, the trace spans and the
      session kernel's launches; both arms must evict the same victims in
@@ -71,8 +71,8 @@ Phases, each printed on its own line:
      overlapped, every shard's launches on its own view's stream, no
      shard failure and no host fallback, every launch held against the
      plain version (see tenancy_phase); then tenancy-backlog, the
-     concurrent arm with one tenant's backlog at 2,500, 10,000 and
-     30,000 pods against 4-pod neighbours: whether the next shard's
+     concurrent arm with one tenant's backlog at 10,000 and 30,000
+     pods against 4-pod neighbours: whether the next shard's
      begin half returns while that solve is still on the card
      (tenancy_backlog_phase);
  13. scheduler-loop: Scheduler(cache).run() on the card at 5k x 1k: the
@@ -83,7 +83,32 @@ Phases, each printed on its own line:
      controls, the conf's ladder stamped on each session: fused-quiet,
      fused-storm, fused-served, fused-topo and fused-steady (see their
      functions); the evict and topo phases above pin
-     KUBE_BATCH_TPU_FUSED=0.
+     KUBE_BATCH_TPU_FUSED=0;
+ 15. the device half's failure path, drills that inject their own
+     faults and must show exactly those: degrade-deadline (the solve
+     deadline at the north star), profile (one north-star session under
+     KUBE_BATCH_TPU_PROFILE: the torch.profiler trace, K1's device time,
+     the device's busy time and idle share), degrade-solve (the breaker
+     cycle at DRILL_SHAPE and a poisoned readback), degrade-evict,
+     degrade-topo, degrade-fused and degrade-shard (see their
+     functions).  On the card a device failure raises DeviceFailure
+     after the breaker is fed and never runs the host path
+     (chaos/breaker.py), so the drills check that the failed session
+     raised with nothing mutated, and that the next healthy session
+     binds as its control; the fused dispatch's failure re-dispatches
+     each family on the card.
+Every phase before the drills runs inside ``guarded``: the device
+failure counter (every stage), the solve-deadline counter and the
+breaker are read before and after it, and a phase that moved either
+counter or left the breaker open fails the script (a ``no-fallback``
+line each).
+The functions' defaults are the depth the script runs, cut below the
+protocols' earlier depth to keep the script inside its time limit, never
+narrower: 2 tenancy rounds per arm (was 4), the 10,000 and 30,000
+backlogs (2,500 dropped), 3 fused-quiet sessions per arm (was 4), 2
+fused-storm cycles (was 3) and 4 fused-steady rounds (was 6).  The
+session phase keeps 4 sessions per arm and the evict phase its
+off/on/on/off timed cycles.
 Every launch held against the plain version goes through LaunchLedger:
 where its inputs are byte-equal to a solve already held in this run
 (tenancy-streams' seed-0 solo and the main path's full ship, the arms of
@@ -123,6 +148,13 @@ LANE_OPS_PER_S = 67e12
 # place a task are counted (this run's data needs at least those).
 OPS_PER_NODE_SCAN = 74
 NORTH_STAR = (50_000, 10_000, 2_000, 4)
+# The breaker drill's shape (degrade_solve_phase): small enough that its
+# host control, the host allocate action, which runs Python predicates
+# for each task over every node, ends in seconds (timed on the CPU).
+DRILL_SHAPE = (2_000, 200, 80, 4)
+# Caches and results of earlier phases that a later one reuses (the
+# drills run on the session, evict, topo and fused-quiet cells).
+KEPT = {}
 
 
 _STARTED = time.perf_counter()
@@ -432,12 +464,12 @@ def native_arm(on: bool):
          native.clone_task_map) = saved
 
 
-def session_phase(cuda_solver, card) -> int:
+def session_phase(cuda_solver, card, sessions=4) -> int:
     """The slice's main path at the north star, in both native arms: the
     C host walk and the NO_NATIVE=1 control (native_arm), each on its own
-    make_synthetic_cache built through the cache's ingestion.  One cold
-    and three warm sessions of open_session -> TpuAllocateAction(cuda,
-    float32) -> close_session per arm, the arms taking turns (C first in
+    make_synthetic_cache built through the cache's ingestion.
+    ``sessions`` sessions (one cold, the rest warm) of open_session ->
+    TpuAllocateAction(cuda, float32) -> close_session per arm, the arms taking turns (C first in
     even rounds, the control first in odd ones), every bound pod echoed
     back unchanged between sessions (bench.py measure_full_session), so
     each sees the same backlog.  Run as the KUBE_BATCH_TPU_INCREMENTAL=0
@@ -471,15 +503,21 @@ def session_phase(cuda_solver, card) -> int:
                 action=TpuAllocateAction(device="cuda", dtype=torch.float32),
                 runs=[], binds=[], launches=0)
         with gc_posture():
-            for i in range(4):
+            for i in range(sessions):
                 for on in ((True, False) if i % 2 == 0 else (False, True)):
                     with native_arm(on):
                         timed_session(cuda_solver, arms[on], tiers, i)
             for on in (True, False):
+                arm = arms[on]
+                seen = len(arm["binder"].channel)
                 with native_arm(on):
-                    arms[on]["profile"] = apply_profile(
-                        arms[on]["cache"], tiers, arms[on]["action"])
+                    arm["profile"] = apply_profile(arm["cache"], tiers,
+                                                   arm["action"])
+                echo_binds(arm["cache"], arm["binder"], arm["pods"], seen)
     summary = {on: arm_summary(arms[on], card) for on in (True, False)}
+    # The C walk's cache, its backlog echoed back, for the deadline drill
+    # and the profile.
+    KEPT["session"] = dict(arms[True], tiers=tiers)
     for on in (True, False):
         phase("apply-profile", arm=arms[on]["name"], shape=list(NORTH_STAR),
               **arms[on]["profile"], card=card)
@@ -1030,7 +1068,7 @@ def held_summary(records) -> dict:
 
 
 def evict_cycle(cuda_solver, shape, batched: bool, device="cuda",
-                check_plain=False) -> dict:
+                check_plain=False, fails=False) -> dict:
     """One session of the shipped four-action conf (reclaim, tpu-allocate,
     backfill, preempt) on a fresh make_churn_cache(*shape) on ``device``,
     float32, under the production GC posture (gc_posture).  Returns each
@@ -1040,9 +1078,12 @@ def evict_cycle(cuda_solver, shape, batched: bool, device="cuda",
     launches (the count set to 0 just before the session and read just
     after).  With ``check_plain``, tpu-allocate's solve is held against
     the plain version right after the action, outside its clock
-    (allocate_vs_plain; the record is under ``vs_plain``).  Raises if
-    the tasks that stay on a node end over its allocatable
-    (over_committed)."""
+    (allocate_vs_plain; the record is under ``vs_plain``).  With
+    ``fails`` an action must raise DeviceFailure (a drill's fault on the
+    card): the session stops there and ``raised`` names the action and
+    the error.  Raises if the tasks that stay on a node end over its
+    allocatable (over_committed)."""
+    from kube_batch_tpu_torch.chaos.breaker import DeviceFailure
     from kube_batch_tpu_torch.framework import close_session, open_session
     from kube_batch_tpu_torch.metrics.metrics import evictions_by_action
     from kube_batch_tpu_torch.models.synthetic import make_churn_cache
@@ -1065,15 +1106,26 @@ def evict_cycle(cuda_solver, shape, batched: bool, device="cuda",
         ssn = open_session(cache, tiers)
         action_ms = {}
         vs_plain = None
+        raised = None
         try:
             for a in actions:
                 t0 = time.perf_counter()
-                a.execute(ssn)
+                try:
+                    a.execute(ssn)
+                except DeviceFailure as exc:
+                    if not fails:
+                        raise
+                    raised = f"{a.name()}: {exc}"
                 if device == "cuda":
                     torch.cuda.synchronize()
                 action_ms[a.name()] = (time.perf_counter() - t0) * 1e3
+                if raised is not None:
+                    break
                 if check_plain and a.name() == "tpu-allocate":
                     vs_plain = allocate_vs_plain(cuda_solver, a)
+            if fails and raised is None:
+                raise AssertionError("an evict session under a device fault "
+                                     "did not raise DeviceFailure")
             launches = cuda_solver.solve_allocate_cuda.launches
             over = [name for name, node in ssn.nodes.items()
                     if over_committed(node)]
@@ -1090,7 +1142,7 @@ def evict_cycle(cuda_solver, shape, batched: bool, device="cuda",
                              f"after the session, e.g. {over[:3]}")
     split = {k: after.get(k, 0) - before.get(k, 0) for k in after}
     return dict(action_ms=action_ms, build_s=build_s, launches=launches,
-                evicts=list(cache.evictor.evicts),
+                raised=raised, evicts=list(cache.evictor.evicts),
                 binds=dict(binder.binds), events=list(cache.events),
                 split={k: v for k, v in split.items() if v},
                 spans_ms=spans_ms, scanner=scanner, vs_plain=vs_plain,
@@ -1159,14 +1211,15 @@ def _stats_ms(runs) -> dict:
                 all=list(runs))
 
 
-def evict_phase(cuda_solver, card) -> int:
+def evict_phase(cuda_solver, card, timed=4) -> int:
     """The eviction engine at the north star: the shipped four-action conf
     (reclaim, tpu-allocate, backfill, preempt) on make_churn_cache(50k,
     10k, 2k, 4) — every node full of low-priority Running pods and a
     10,000-pod high-priority pending wave split between the occupied
     queues (preempt) and a starved queue (reclaim) — float32 on the card.
     The protocol of bench.py measure_action_pipeline: one warm cycle per
-    KUBE_BATCH_TPU_BATCH_EVICT arm, then off/on/on/off, each cycle on a
+    KUBE_BATCH_TPU_BATCH_EVICT arm, then ``timed`` cycles of
+    off/on/on/off, each cycle on a
     fresh cache.  Both arms must evict, with the same victims in the same
     order and the same binds; each batched session makes exactly one
     batched dispatch, on the card; each session launches the session
@@ -1184,7 +1237,8 @@ def evict_phase(cuda_solver, card) -> int:
     replay = None
     vs_plain = {}
     spans = {True: {}, False: {}}
-    for i, arm in enumerate((True, False, False, True, True, False)):
+    for i, arm in enumerate((True, False)
+                            + (False, True, True, False)[:timed]):
         warm = i < 2
         out = evict_cycle(cuda_solver, shape, arm, check_plain=warm)
         launches += out["launches"]
@@ -1225,6 +1279,7 @@ def evict_phase(cuda_solver, card) -> int:
     if footprint[True] != footprint[False]:
         raise AssertionError("the batched arm's victims or binds differ "
                              "from the sequential arm's")
+    KEPT["evict"] = dict(footprint=footprint[False], action_ms=per_arm)
     evicts = footprint[True][0]
     phase("evict", shape=list(shape), conf="config/kube-batch-conf.yaml "
           "with tpu-allocate", dtype="float32",
@@ -1336,13 +1391,17 @@ def topo_cycle(cuda_solver, cache, actions, tiers, device) -> dict:
 
 
 def topo_arm(cuda_solver, device, defrag: bool, batch: bool,
-             dims=TOPO_DIMS, slice_shape=TOPO_SLICE) -> dict:
+             dims=TOPO_DIMS, slice_shape=TOPO_SLICE, fault=None) -> dict:
     """The reference's two-cycle fragmentation-pressure protocol
     (bench.py _run_topo_arm) on the port, under the production GC
     posture: make_topo_cache(pods=("pod-a",), dims, slice_shape), cycle 1,
     the evicted victims echoed as deletions, the fragmentation stats at
     truth, cycle 2.  ``defrag`` and ``batch`` set KUBE_BATCH_TPU_TOPO_DEFRAG
-    and KUBE_BATCH_TPU_TOPO_BATCH (0: the numpy oracle)."""
+    and KUBE_BATCH_TPU_TOPO_BATCH (0: the numpy oracle).  ``fault`` (a
+    context manager, a drill's) wraps one more session before cycle 1,
+    which must raise DeviceFailure: what it raised, evicted and bound is
+    returned under ``failed``, and the protocol then runs on the same
+    cache."""
     from kube_batch_tpu_torch.api import pod_key
     from kube_batch_tpu_torch.models.synthetic import make_topo_cache
     from kube_batch_tpu_torch.models.topology import build_view
@@ -1363,6 +1422,11 @@ def topo_arm(cuda_solver, device, defrag: bool, batch: bool,
         build_s = time.perf_counter() - t0
         podmap = {pod_key(t.pod): t.pod for job in cache.jobs.values()
                   for t in job.tasks.values()}
+        failed = None
+        if fault is not None:
+            failed = topo_failed_cycle(cache, binder, actions, tiers, fault)
+        # The failed session's close writes its pod-group statuses too.
+        mark = len(cache.status_updater.pod_groups)
         first = topo_cycle(cuda_solver, cache, actions, tiers, device)
         evicts = list(cache.evictor.evicts)
         for key in evicts:
@@ -1376,11 +1440,41 @@ def topo_arm(cuda_solver, device, defrag: bool, batch: bool,
     statuses = [(pg.metadata.namespace, pg.metadata.name, pg.status.phase,
                  [(c.type, c.status, c.reason, c.message)
                   for c in pg.status.conditions])
-                for pg in cache.status_updater.pod_groups]
+                for pg in cache.status_updater.pod_groups[mark:]]
     return dict(build_s=build_s, cycles=[first, second], evicts=evicts,
                 frag_after=frag_after, binds=binds, statuses=statuses,
                 slice_hosts=[host for key, host in binds if "slice0" in key],
-                topo_action=actions[0])
+                topo_action=actions[0], failed=failed)
+
+
+def topo_failed_cycle(cache, binder, actions, tiers, fault) -> dict:
+    """One TOPO_CONF session under ``fault`` that must raise
+    DeviceFailure, in its own flight-recorder trace: what it raised,
+    evicted and bound, and the trace's degraded notes."""
+    from kube_batch_tpu_torch.chaos.breaker import DeviceFailure
+    from kube_batch_tpu_torch.framework import close_session, open_session
+    from kube_batch_tpu_torch.trace import flight_recorder
+    from kube_batch_tpu_torch.trace import spans as tspans
+    sid = tspans.begin_session(bench="topo-fault")
+    raised = None
+    try:
+        with fault():
+            ssn = open_session(cache, tiers)
+            try:
+                for a in actions:
+                    a.execute(ssn)
+            except DeviceFailure as exc:
+                raised = f"{a.name()}: {exc}"
+            finally:
+                close_session(ssn)
+    finally:
+        tspans.end_session()
+    if raised is None:
+        raise AssertionError("a topo session under a device fault did not "
+                             "raise DeviceFailure")
+    return dict(raised=raised, evicts=list(cache.evictor.evicts),
+                binds=dict(binder.binds),
+                notes=list(flight_recorder.get(sid).meta.get("degraded", [])))
 
 
 def is_box(hosts, dims, shape) -> bool:
@@ -1476,6 +1570,7 @@ def topo_phase(cuda_solver, card) -> int:
               binds=len(out["binds"]), frag_after_cycle_1=out["frag_after"],
               box_scans=[c["box_scans"] for c in out["cycles"]])
     batched, oracle = arms["defrag-batched"], arms["defrag-oracle"]
+    KEPT["topo"] = oracle
     for key in ("binds", "evicts", "frag_after", "statuses"):
         if batched[key] != oracle[key]:
             raise AssertionError(f"topo: the batched arm's {key} differ from "
@@ -1725,7 +1820,7 @@ class _BeginProbe:
 
 def tenancy_arm(cuda_solver, concurrent: bool, device="cuda", *,
                 n_tasks, n_nodes, n_queues, rounds=4,
-                churn_frac=0.05, gangs=None) -> dict:
+                churn_frac=0.05, gangs=None, chaos=None) -> dict:
     """bench.py's _tenancy_storm_arm through the port: ``n_queues``
     tenants on disjoint node-selector pools of 16 CPU / 64 GiB nodes,
     KUBE_BATCH_TPU_TENANCY=n_queues with each queue pinned to its own
@@ -1743,7 +1838,13 @@ def tenancy_arm(cuda_solver, concurrent: bool, device="cuda", *,
     the parity material (per-round bind fingerprints, the events after
     the warm pass, the lineage bind samples), the round walls, the
     pipeline counters, the kernel's launches by stream, the begin
-    halves' timings and the records held against the plain version."""
+    halves' timings and the records held against the plain version.
+    ``chaos`` (a FaultPlan, the degrade-shard drill's) is installed for
+    the warm pass alone: a shard session it fails raises on the card
+    (no host path there), that shard backs off and is retried at once
+    (the drill clears the back-off before each pass), and the shards
+    that failed are returned as ``failed_shards``; the measured rounds
+    then run without faults and must end with no shard failing."""
     import dataclasses as dc
 
     from kube_batch_tpu_torch.api import (Container, Node, NodeSpec,
@@ -1790,10 +1891,13 @@ def tenancy_arm(cuda_solver, concurrent: bool, device="cuda", *,
         if engine is None or (engine.pipeline is not None) != concurrent:
             raise AssertionError("the tenancy engine is not as configured")
         tpu = get_action("tpu-allocate")
+        # A host fallback on the card (tensorizer gaps aside, none in
+        # this workload) would be a device failure moved to the CPU.
         fallbacks = []
         real_fallback = tpu._run_host_fallback
-        tpu._run_host_fallback = lambda ssn: (fallbacks.append(ssn.uid),
-                                              real_fallback(ssn))
+        tpu._run_host_fallback = lambda ssn, **kw: (
+            fallbacks.append((ssn.uid, getattr(ssn.cache, "shard", None))),
+            real_fallback(ssn, **kw))
         # Each launch's record, captured when its finish runs (on the
         # view's stream, before the shard's next ship).
         captured, capturing = [], [False]
@@ -1854,9 +1958,15 @@ def tenancy_arm(cuda_solver, concurrent: bool, device="cuda", *,
                 cache.add_pod_group(pg)
             updater.pod_groups.clear()
 
-        def run_once():
+        failed_shards = set()
+
+        def run_once(faulted=False):
+            if faulted:
+                engine._next_ok.clear()
             scheduler.run_once()
-            if engine._failures:
+            if faulted:
+                failed_shards.update(engine._failures)
+            elif engine._failures:
                 raise AssertionError(f"shard sessions failed: "
                                      f"{engine._failures}")
             if fallbacks:
@@ -1867,21 +1977,38 @@ def tenancy_arm(cuda_solver, concurrent: bool, device="cuda", *,
         gangs = tuple(gangs) if gangs is not None else (gang,) * n_queues
         try:
             with gc_posture(), _BeginProbe(ShardPipeline) as probe:
+                pipe0 = shard_pipeline_counts()
+                faulted = chaos is not None
+                if faulted:
+                    # The drill's faults hit the warm pass; its launches
+                    # are counted and held too.
+                    from kube_batch_tpu_torch.chaos import plan as chaos_plan
+                    chaos_plan.install(chaos)
+                    capturing[0] = True
+                    cuda_solver.solve_allocate_cuda.launches = 0
+                    cuda_solver.solve_allocate_cuda.stream_launches = {}
                 for t in range(n_queues):
                     submit_gang(t, f"warm-{t}", 4)
-                run_once()
+                run_once(faulted)
                 echo()
-                run_once()
+                run_once(faulted)
                 echo()
+                if faulted:
+                    chaos_plan.disable()
+                    engine._next_ok.clear()
                 if device == "cuda":
                     torch.cuda.synchronize()
                 events_mark = len(cache.events)
                 overlap0 = shard_overlap_total_ms()
-                pipe0 = shard_pipeline_counts()
-                probe.reset()
-                capturing[0] = True
-                cuda_solver.solve_allocate_cuda.launches = 0
-                cuda_solver.solve_allocate_cuda.stream_launches = {}
+                warm_launches = 0
+                if chaos is None:
+                    pipe0 = shard_pipeline_counts()
+                    probe.reset()
+                    capturing[0] = True
+                    cuda_solver.solve_allocate_cuda.launches = 0
+                    cuda_solver.solve_allocate_cuda.stream_launches = {}
+                else:
+                    warm_launches = cuda_solver.solve_allocate_cuda.launches
                 retire, walls, fingerprints, launches = [], [], [], []
                 overlap_rounds, inflight_hw = [], 1
                 for rnd in range(rounds):
@@ -1910,6 +2037,9 @@ def tenancy_arm(cuda_solver, concurrent: bool, device="cuda", *,
                                     - launched)
                 pipe1 = shard_pipeline_counts()
         finally:
+            if chaos is not None:
+                from kube_batch_tpu_torch.chaos import plan as chaos_plan
+                chaos_plan.disable()
             del tpu._run_host_fallback
             del tpu.execute_begin
         if device == "cuda":
@@ -1918,7 +2048,7 @@ def tenancy_arm(cuda_solver, concurrent: bool, device="cuda", *,
         timings = probe.timings()
         held = [record_vs_plain(cuda_solver, rec, "a tenancy shard session")
                 for rec in captured]
-        if device == "cuda" and len(held) != sum(launches):
+        if device == "cuda" and len(held) != sum(launches) + warm_launches:
             raise AssertionError(f"{len(held)} of {sum(launches)} tenancy "
                                  f"launches held against the plain version")
         views = {v.stream: v.shard for v in engine.views}
@@ -1945,11 +2075,13 @@ def tenancy_arm(cuda_solver, concurrent: bool, device="cuda", *,
             launches_by_shard=by_shard,
             begins=probe.begins,
             begins_with_pending_predecessor=probe.with_pending_predecessor,
-            begin_timings=timings, held=held)
+            begin_timings=timings, held=held,
+            failed_shards=sorted(failed_shards),
+            failures=dict(engine._failures), warm_launches=warm_launches)
 
 
 def tenancy_phase(cuda_solver, card, device="cuda",
-                  shape=TENANCY_SHAPE) -> int:
+                  shape=TENANCY_SHAPE, rounds=2) -> int:
     """The reference's concurrent-shard A/B through a real Scheduler and
     TenancyEngine at the north star's cluster size (tenancy_arm), arms
     CONCURRENT_SHARDS off/on/on/off on fresh caches.  Every round's binds,
@@ -1965,7 +2097,8 @@ def tenancy_phase(cuda_solver, card, device="cuda",
     arms."""
     arms = []
     for concurrent in (False, True, True, False):
-        out = tenancy_arm(cuda_solver, concurrent, device, **shape)
+        out = tenancy_arm(cuda_solver, concurrent, device, rounds=rounds,
+                          **shape)
         arms.append((concurrent, out))
         walls = sorted(out["walls_ms"])
         phase("tenancy-arm", concurrent=concurrent, gangs=out["gangs"],
@@ -2025,7 +2158,7 @@ def tenancy_phase(cuda_solver, card, device="cuda",
     return launches
 
 
-TENANCY_BACKLOGS = (2_500, 10_000, 30_000)
+TENANCY_BACKLOGS = (10_000, 30_000)
 
 
 def tenancy_backlog_phase(cuda_solver, card, device="cuda",
@@ -2120,13 +2253,13 @@ def scheduler_loop_phase(cuda_solver, card, device="cuda",
 
     sched.run_once = counted_run_once
     launch_threads = []
-    real = solver.best_solve_allocate
+    real = solver.solve_on_route
 
     def traced(inp, cfg):
         launch_threads.append(threading.get_ident())
         return real(inp, cfg)
 
-    solver.best_solve_allocate = traced
+    solver.solve_on_route = traced
     cuda_solver.solve_allocate_cuda.launches = 0
     try:
         t0 = time.monotonic()
@@ -2162,7 +2295,7 @@ def scheduler_loop_phase(cuda_solver, card, device="cuda",
         sched.stop(timeout=5.0)
         stop_s = time.monotonic() - t2
     finally:
-        solver.best_solve_allocate = real
+        solver.solve_on_route = real
         gc.unfreeze()
     launches = cuda_solver.solve_allocate_cuda.launches
     if sched._thread.is_alive() or stop_s > 5.0:
@@ -2190,7 +2323,8 @@ def scheduler_loop_phase(cuda_solver, card, device="cuda",
 # ---- the fused one-dispatch program (ops/fused_solver.py) -----------------
 
 FUSED_SWALLOW_SITES = ("fused_stage_alloc", "fused_stage_storm",
-                       "fused_storm_prove", "fused_topo_scanner")
+                       "fused_storm_prove", "fused_topo_scanner",
+                       "topo_box_scan")
 
 
 class LaunchLedger:
@@ -2334,9 +2468,10 @@ class LaunchLedger:
 
 def fused_counters() -> dict:
     """The session-dispatch, fused-leg and fused-route counters, and the
-    counters that a fused path which quietly fell back would move: legs
-    failed, device failures at stage ``fused``, swallowed exceptions at
-    the fused staging sites."""
+    counters that a device path which fell back would move: fused legs
+    failed, device failures at any stage (the breaker's feed: tensorize,
+    solve, evict_solve, fused, topo), solves over the deadline, swallowed
+    exceptions at the fused staging sites and at the box scan."""
     from kube_batch_tpu_torch.metrics import metrics as m
     return dict(
         dispatches=m.session_dispatch_counts(), legs=m.fused_leg_counts(),
@@ -2347,7 +2482,8 @@ def fused_counters() -> dict:
                             if k.endswith("/failed")),
             device_failures=int(sum(
                 v for labels, v in m.device_solve_failures.values().items()
-                if labels == ("fused",))),
+                if labels)),
+            deadline_overruns=int(m.solve_deadline_exceeded.value()),
             swallowed=int(sum(
                 v for labels, v in m.swallowed_exceptions.values().items()
                 if labels and labels[0] in FUSED_SWALLOW_SITES))))
@@ -2361,9 +2497,30 @@ def counters_delta(before: dict, after: dict) -> dict:
 
 
 def check_no_fallback(delta: dict, where: str) -> None:
-    if delta["fallback"]:
-        raise AssertionError(f"{where}: a fused path fell back: "
-                             f"{delta['fallback']}")
+    """Raise unless ``delta`` (counters_delta of fused_counters) moved
+    no fallback counter and the device breaker is closed."""
+    from kube_batch_tpu_torch.chaos.breaker import device_breaker
+    state = device_breaker().state()
+    if delta["fallback"] or state != "closed":
+        raise AssertionError(f"{where}: a device path fell back: "
+                             f"{delta['fallback']}, breaker {state}")
+
+
+def guarded(run, *args, where=None, **kw):
+    """Run one phase with the fallback counters read just before and
+    just after it (no_fallback_since): a phase that is not a drill must
+    leave no device failure, no deadline overrun and a closed breaker."""
+    before = fused_counters()
+    out = run(*args, **kw)
+    no_fallback_since(before, where or run.__name__.replace(
+        "_phase", "").replace("_", "-"))
+    return out
+
+
+def no_fallback_since(before: dict, where: str) -> None:
+    check_no_fallback(counters_delta(before, fused_counters()), where)
+    phase("no-fallback", where=where, device_failures=0,
+          deadline_overruns=0, breaker="closed")
 
 
 def stamped_session(cache, actions, tiers) -> dict:
@@ -2467,10 +2624,10 @@ def echo_binds(cache, binder, pods, seen: int) -> list:
 
 
 def fused_quiet_phase(cuda_solver, card, shape=NORTH_STAR,
-                      sessions=4, device="cuda") -> int:
+                      sessions=3, device="cuda") -> int:
     """The quiet half of the fused program: the shipped four-action conf
     on make_synthetic_cache(*shape) (free capacity: the scan finds no
-    victims), KUBE_BATCH_TPU_FUSED on and off, one cold and three warm
+    victims), KUBE_BATCH_TPU_FUSED on and off, one cold and two warm
     sessions per arm taking turns, every bind echoed back unchanged
     between sessions (each sees the same backlog), run as the
     KUBE_BATCH_TPU_INCREMENTAL=0 arm so every session solves.  Expects
@@ -2551,6 +2708,9 @@ def fused_quiet_phase(cuda_solver, card, shape=NORTH_STAR,
                                  "differ")
         if not a["binds"]:
             raise AssertionError("fused-quiet: a session bound nothing")
+    KEPT["fused_quiet"] = dict(arm=arms[True], actions=actions,
+                               tiers=tiers,
+                               control=arms[False]["runs"][-1])
     probes = [p for r in arms[True]["runs"] for p in r["probe"]]
     if len(probes) != sessions or (device == "cuda" and not all(
             p["pending_at_return"] for p in probes[1:])):
@@ -2647,10 +2807,10 @@ def fused_storm_arm(ledger, name, env, shape, cycles=3,
 
 
 def fused_storm_phase(cuda_solver, card, shape=NORTH_STAR,
-                      device="cuda") -> int:
+                      device="cuda", cycles=2) -> int:
     """The storm half at the north star: bench.py's _fused_storm_arm
-    protocol (three cycles on one make_churn_cache with the informer
-    echo between them) in three arms, FUSED=1, FUSED=0 and the oracle
+    protocol (``cycles`` cycles, three in bench.py, on one
+    make_churn_cache with the informer echo between them) in three arms, FUSED=1, FUSED=0 and the oracle
     (FUSED=0 BATCH_EVICT=0 PIPELINE=0 INCREMENTAL=0).  The arms must
     evict the same victims in the same order, bind the same pods, and
     log the same cache events.  Cycle 1 of the fused arm must make a
@@ -2671,7 +2831,7 @@ def fused_storm_phase(cuda_solver, card, shape=NORTH_STAR,
     with LaunchLedger(cuda_solver, device) as ledger:
         for name, env in arms.items():
             out[name] = fused_storm_arm(ledger, name, env, shape,
-                                        device=device)
+                                        cycles=cycles, device=device)
     for name in ("control", "oracle"):
         for key in ("evicts", "binds", "events"):
             if out[name][key] != out["fused"][key]:
@@ -2701,7 +2861,7 @@ def fused_storm_phase(cuda_solver, card, shape=NORTH_STAR,
                 held[k] += got["held"][k]
     invalidated = first["legs"].get("solve/invalidated", 0) + \
         first["legs"].get("postevict/invalidated", 0)
-    phase("fused-storm", shape=list(shape), cycles=3,
+    phase("fused-storm", shape=list(shape), cycles=cycles,
           evictions=len(out["fused"]["evicts"]),
           binds=len(out["fused"]["binds"]),
           events=len(out["fused"]["events"]), identical_arms=True,
@@ -2941,9 +3101,9 @@ def fused_steady_run(ledger, on: bool, shape, rounds,
 
 
 def fused_steady_phase(cuda_solver, card, shape=NORTH_STAR,
-                       rounds=6, device="cuda") -> int:
+                       rounds=4, device="cuda") -> int:
     """The steady state under the fused program: the steady protocol at
-    the north star (1% churn per round, six rounds after a cold
+    the north star (1% churn per round, ``rounds`` rounds after a cold
     session) under the shipped conf, KUBE_BATCH_TPU_FUSED on and off.
     Binds and events must be equal per round; every round of the fused
     arm must make one fused dispatch with an alloc leg, and some round
@@ -3001,6 +3161,540 @@ FUSED_PHASES = (fused_quiet_phase, fused_storm_phase, fused_served_phase,
                 fused_topo_phase, fused_steady_phase)
 
 
+
+# ---- the device half's failure path: the degrade-* drills and profile ----
+
+@contextlib.contextmanager
+def drill_breaker(threshold=None, clock=None):
+    """A fresh device breaker for the block (the global one restored and
+    closed after it), whose failure() and success() calls are logged in
+    order: each drill shows exactly the feed it caused."""
+    from kube_batch_tpu_torch.chaos import breaker as brk
+    kw = {} if clock is None else dict(clock=clock)
+    br = brk.CircuitBreaker("device_solve", threshold=threshold,
+                            cooldown=30.0, **kw)
+    br.calls = []
+    real_failure, real_success = br.failure, br.success
+    br.failure = lambda: (br.calls.append("failure"), real_failure())[1]
+    br.success = lambda: (br.calls.append("success"), real_success())[1]
+    saved = brk._device_breaker
+    brk._device_breaker = br
+    try:
+        yield br
+    finally:
+        brk._device_breaker = saved
+        brk.device_breaker().reset()
+
+
+@contextlib.contextmanager
+def fault_plan(*sites, seed=1, rate=1.0, budget=None):
+    """The chaos plan for the block: ``sites`` at ``rate`` (a drill; the
+    program has no other switch for these faults)."""
+    from kube_batch_tpu_torch.chaos import plan as chaos_plan
+    plan = chaos_plan.install(chaos_plan.FaultPlan(
+        seed=seed, rate=rate, sites=tuple(sites), budget=budget))
+    try:
+        yield plan
+    finally:
+        chaos_plan.disable()
+
+
+def failures_by_stage() -> dict:
+    from kube_batch_tpu_torch.metrics import metrics as m
+    return {labels[0]: int(v)
+            for labels, v in m.device_solve_failures.values().items()
+            if labels}
+
+
+def stage_delta(before: dict) -> dict:
+    now = failures_by_stage()
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v != before.get(k, 0)}
+
+
+def drill_session(cache, binder, pods, tiers, action,
+                  fails=False) -> dict:
+    """open_session -> ``action`` -> close_session inside a traced
+    session; every bind echoed back unchanged after it (each session
+    sees the same backlog).  With ``fails`` the action must raise
+    DeviceFailure (a device failure on the card, which never moves to
+    the host path), and its message is kept.  Returns the binds in
+    order, the wall ms, the session trace's degraded notes and what was
+    raised (None when nothing was)."""
+    from kube_batch_tpu_torch.chaos.breaker import DeviceFailure
+    from kube_batch_tpu_torch.framework import close_session, open_session
+    from kube_batch_tpu_torch.trace import flight_recorder
+    from kube_batch_tpu_torch.trace import spans as tspans
+    seen = len(binder.channel)
+    sid = tspans.begin_session(bench="drill")
+    began = time.perf_counter()
+    ssn = open_session(cache, tiers)
+    raised = None
+    try:
+        action.execute(ssn)
+    except DeviceFailure as exc:
+        if not fails:
+            raise
+        raised = str(exc)
+    finally:
+        close_session(ssn)
+        wall_ms = (time.perf_counter() - began) * 1e3
+        tspans.end_session()
+    if fails and raised is None:
+        raise AssertionError("a drill session under a device fault did not "
+                             "raise DeviceFailure")
+    tr = flight_recorder.get(sid)
+    binds = echo_binds(cache, binder, pods, seen)
+    return dict(binds=binds, wall_ms=wall_ms, raised=raised,
+                notes=list(tr.meta.get("degraded", [])) if tr else [])
+
+
+def degrade_solve_phase(cuda_solver, card, shape=DRILL_SHAPE,
+                        device="cuda") -> int:
+    """The breaker cycle of tests/test_chaos.py's
+    test_breaker_trips_to_host_path_and_recovers under the card's rule
+    (chaos/breaker.py: a device failure on the card raises DeviceFailure
+    after it is fed, and never runs the host path).  At DRILL_SHAPE: one
+    session of a conf whose only allocate action is the host
+    ``allocate`` (the binds every healthy session must give, and the
+    host path's wall time at this shape), one session on the card, then
+    under solve.device_error at rate 1 with a threshold-2 breaker on an
+    injected clock two sessions that raise with nothing bound (+1
+    failure at stage ``solve`` each, the breaker open after the second)
+    and a third that the open breaker refuses without a dispatch
+    attempt; with the plan off and the clock past the cooldown the
+    half-open probe launches K1 (held against the plain version), binds
+    as the control and closes the breaker.  Then solve.poison once: the
+    session raises, its resident image is dropped, and the next session
+    ships ``full`` and binds as the control.  Every session runs
+    INCREMENTAL=0 (each one solves).  Returns the K1 launches."""
+    from kube_batch_tpu_torch.actions.allocate import AllocateAction
+    from kube_batch_tpu_torch.actions.tpu_allocate import TpuAllocateAction
+    from kube_batch_tpu_torch.api import pod_key
+    from kube_batch_tpu_torch.models.synthetic import make_synthetic_cache
+
+    clk = [0.0]
+    with incremental_arm(False), gc_posture(), \
+            drill_breaker(2, lambda: clk[0]) as br, \
+            LaunchLedger(cuda_solver, device) as ledger:
+        tiers = _register(device)
+        cache, binder = make_synthetic_cache(*shape)
+        pods = {pod_key(t.pod): t.pod for job in cache.jobs.values()
+                for t in job.tasks.values()}
+        tpu = TpuAllocateAction(device=device, dtype=torch.float32)
+        runs = {}
+        runs["host"] = drill_session(cache, binder, pods, tiers,
+                                     AllocateAction())
+        runs["card"] = drill_session(cache, binder, pods, tiers, tpu)
+        want = dict(runs["host"]["binds"])
+        if not want or dict(runs["card"]["binds"]) != want:
+            raise AssertionError("degrade-solve: the card's binds differ "
+                                 "from the host allocate action's")
+        held = ledger.hold(ledger.take(), "degrade-solve's card session")
+        before = failures_by_stage()
+        with fault_plan("solve.device_error") as plan:
+            for i in (1, 2):
+                runs[f"failed-{i}"] = drill_session(
+                    cache, binder, pods, tiers, tpu, fails=True)
+            states = br.state()
+            injected = plan.injected().get("solve.device_error", 0)
+            runs["open"] = drill_session(cache, binder, pods, tiers, tpu,
+                                         fails=True)
+            injected_open = plan.injected().get("solve.device_error", 0)
+        failed = stage_delta(before)
+        if ledger.take():
+            raise AssertionError("degrade-solve: K1 launched under the fault")
+        clk[0] = 31.0
+        runs["probe"] = drill_session(cache, binder, pods, tiers, tpu)
+        probe = ledger.hold(ledger.take(), "degrade-solve's half-open probe")
+        probe_state = br.state()
+        shipper = getattr(cache, "_ship_cache")
+        with fault_plan("solve.poison", budget=1):
+            runs["poison"] = drill_session(cache, binder, pods, tiers, tpu,
+                                           fails=True)
+        dropped = shipper._state is None
+        poisoned = ledger.take()
+        runs["after-poison"] = drill_session(cache, binder, pods, tiers, tpu)
+        next_mode = shipper.last_mode
+        after = ledger.hold(ledger.take() + poisoned,
+                            "degrade-solve's poisoned and next sessions")
+        calls = list(br.calls)
+    raising = ("failed-1", "failed-2", "open", "poison")
+    for name, run in runs.items():
+        expect = {} if name in raising else want
+        if dict(run["binds"]) != expect:
+            raise AssertionError(f"degrade-solve: the {name} session bound "
+                                 f"{len(run['binds'])} pods, expected "
+                                 f"{len(expect)}")
+    if (failed != {"solve": 2} or injected != 2 or states != "open"
+            or injected_open != injected or probe_state != "closed"
+            or "breaker is open" not in runs["open"]["raised"]
+            or not dropped or next_mode != "full"
+            or probe["held"]["plain"] + probe["held"]["byte_equal"] != 1):
+        raise AssertionError(
+            f"degrade-solve: failures {failed}, injected {injected} / "
+            f"{injected_open}, breaker {states} -> {probe_state}, image "
+            f"dropped {dropped}, next ship {next_mode}, probe {probe}")
+    launches = sum(sum(h["held"].values()) for h in (held, probe, after))
+    phase("degrade-solve", shape=list(shape), binds=len(want),
+          healthy_binds_equal_host_control=True,
+          raised={name: runs[name]["raised"] for name in raising},
+          binds_while_failing=0,
+          failures_by_stage=failed, injected=injected,
+          breaker_after_two=states, dispatch_attempts_while_open=(
+              injected_open - injected),
+          probe_launches=1, probe_held=probe, breaker_after_probe=probe_state,
+          poison_image_dropped=dropped, next_ship_mode=next_mode,
+          breaker_calls=calls,
+          wall_ms={name: run["wall_ms"] for name, run in runs.items()},
+          degraded_notes={name: run["notes"] for name, run in runs.items()
+                          if run["notes"]},
+          launches=launches, card=card)
+    return launches
+
+
+def degrade_deadline_phase(cuda_solver, card, device="cuda") -> int:
+    """The solve deadline at the north star, on the session phase's C
+    walk cache (its backlog echoed back): two warm sessions with
+    KUBE_BATCH_TPU_SOLVE_DEADLINE_MS below K1's measured time (100 ms, or
+    half the session phase's K1 median if lower), then one without it.
+    Each late, valid result is applied (binds equal the session phase's
+    last warm session), the deadline counter moves +1 per session, the
+    breaker counts 2 consecutive failures and stays closed, and the
+    healthy session resets them to 0.  Every launch is held against the
+    plain version.  Returns the K1 launches."""
+    from kube_batch_tpu_torch.chaos.breaker import SOLVE_DEADLINE_ENV
+    from kube_batch_tpu_torch.metrics import metrics as m
+    arm = KEPT["session"]
+    want = dict(arm["binds"][-1])
+    kernel_ms = float(np.median([r[3] for r in arm["runs"][1:]]))
+    deadline_ms = min(100.0, kernel_ms / 2)
+    runs, consecutive, counted = [], [], []
+    with incremental_arm(False), gc_posture(), drill_breaker() as br, \
+            LaunchLedger(cuda_solver, device) as ledger:
+        for i in range(3):
+            env = ({SOLVE_DEADLINE_ENV: repr(deadline_ms)} if i < 2 else {})
+            before = m.solve_deadline_exceeded.value()
+            with env_arm(env):
+                run = drill_session(arm["cache"], arm["binder"], arm["pods"],
+                                    arm["tiers"], arm["action"])
+            if SOLVE_DEADLINE_ENV in os.environ:
+                del os.environ[SOLVE_DEADLINE_ENV]
+            counted.append(int(m.solve_deadline_exceeded.value() - before))
+            consecutive.append((br._failures, br.state()))
+            run["solve_ms"] = arm["action"].last.stages["dispatch_fetch"] * 1e3
+            runs.append(run)
+        held = ledger.hold(ledger.take(), "degrade-deadline")
+    if any(dict(r["binds"]) != want for r in runs):
+        raise AssertionError("degrade-deadline: a late result's binds differ "
+                             "from the session phase's")
+    if counted != [1, 1, 0] or consecutive != [(1, "closed"), (2, "closed"),
+                                               (0, "closed")] \
+            or sum(held["held"].values()) != 3:
+        raise AssertionError(f"degrade-deadline: counted {counted}, breaker "
+                             f"{consecutive}, held {held}")
+    phase("degrade-deadline", shape=list(NORTH_STAR), deadline_ms=deadline_ms,
+          session_kernel_ms_median=kernel_ms, binds=len(want),
+          binds_equal_no_deadline=True, deadline_counted=counted,
+          breaker_after_each=consecutive,
+          solve_ms=[r["solve_ms"] for r in runs],
+          wall_ms=[r["wall_ms"] for r in runs],
+          notes=[r["notes"] for r in runs], held=held, card=card)
+    return 3
+
+
+def degrade_evict_phase(cuda_solver, card, shape=NORTH_STAR,
+                        device="cuda") -> int:
+    """The eviction storm at the north star (evict_cycle, a fresh
+    make_churn_cache, FUSED=0 as in the evict phase) with
+    evict_solve.device_error at rate 1, under the card's rule: the
+    scanner's batched dispatch fails in the first eviction action
+    (reclaim), one failure at stage ``evict_solve`` is fed to the
+    breaker, and the session raises DeviceFailure with nothing evicted
+    and nothing bound (tpu-allocate never launches).  Prints the
+    action's time to the raise beside the evict phase's per-action
+    medians.  Returns the K1 launches (none)."""
+    seq = KEPT["evict"]
+    before = failures_by_stage()
+    with drill_breaker(10 ** 6) as br, \
+            fault_plan("evict_solve.device_error") as plan:
+        out = evict_cycle(cuda_solver, shape, True, device=device,
+                          fails=True)
+        injected = plan.injected().get("evict_solve.device_error", 0)
+        calls = list(br.calls)
+    failed = stage_delta(before)
+    if (injected != 1 or failed != {"evict_solve": 1}
+            or calls != ["failure"] or out["evicts"] or out["binds"]
+            or out["launches"] or not out["raised"].startswith("reclaim")):
+        raise AssertionError(
+            f"degrade-evict: injected {injected}, failures {failed}, "
+            f"breaker {calls}, {len(out['evicts'])} evicted, "
+            f"{len(out['binds'])} bound, {out['launches']} launches, "
+            f"raised {out['raised']}")
+    phase("degrade-evict", shape=list(shape), raised=out["raised"],
+          evictions=0, binds=0, failures_by_stage=failed,
+          breaker_calls=calls, action_ms=out["action_ms"],
+          evict_phase_action_ms={
+              ("batched" if on else "sequential"): {
+                  k: float(np.median(v)) for k, v in arm.items()}
+              for on, arm in seq["action_ms"].items()},
+          launches=out["launches"], card=card)
+    return out["launches"]
+
+
+def degrade_topo_phase(cuda_solver, card, device="cuda", dims=TOPO_DIMS,
+                       slice_shape=TOPO_SLICE) -> int:
+    """The topology cell (4,096 hosts, defrag) with the device box scan
+    made to raise (ops/topo_solver.box_scan wrapped for the drill) in one
+    session before the protocol's two cycles, under the card's rule:
+    topo-allocate raises DeviceFailure with nothing evicted and nothing
+    bound, one failure at stage ``topo`` and one degraded note.  The
+    protocol then runs on the same cache with the scan restored, and the
+    slice lands on one box with the numpy oracle arm's binds, victims,
+    fragmentation and statuses: the failed session left no trace.
+    Returns the K1 launches (none in this cell)."""
+    from kube_batch_tpu_torch.ops import topo_solver
+    oracle = KEPT["topo"]
+    real = topo_solver.box_scan
+
+    def box_scan(*_a, **_k):
+        raise RuntimeError("drill: device box scan failed")
+
+    @contextlib.contextmanager
+    def fault():
+        topo_solver.box_scan = box_scan
+        try:
+            yield
+        finally:
+            topo_solver.box_scan = real
+
+    before = failures_by_stage()
+    with drill_breaker(10 ** 6) as br:
+        out = topo_arm(cuda_solver, device, True, True, dims=dims,
+                       slice_shape=slice_shape, fault=fault)
+        calls = list(br.calls)
+    failed_session = out["failed"]
+    failed = stage_delta(before)
+    for key in ("binds", "evicts", "frag_after", "statuses"):
+        if out[key] != oracle[key]:
+            raise AssertionError(f"degrade-topo: the {key} differ from the "
+                                 f"numpy oracle arm's")
+    shape = tuple(int(v) for v in slice_shape.split("x"))
+    if (failed != {"topo": 1} or len(failed_session["notes"]) != 1
+            or failed_session["evicts"] or failed_session["binds"]
+            or not failed_session["raised"].startswith("topo-allocate")
+            or calls[:1] != ["failure"]
+            or not is_box(out["slice_hosts"], dims, shape)):
+        raise AssertionError(f"degrade-topo: failures {failed}, failed "
+                             f"session {failed_session}, breaker {calls}, "
+                             f"slice {out['slice_hosts'][:8]}")
+    launches = sum(c["launches"] for c in out["cycles"])
+    phase("degrade-topo", dims=list(dims), slice=slice_shape,
+          raised=failed_session["raised"], failed_session_evictions=0,
+          failed_session_binds=0, slice_box=True,
+          then_equal_to_oracle=True, evictions=len(out["evicts"]),
+          failures_by_stage=failed,
+          degraded_notes=failed_session["notes"], breaker_calls=calls,
+          action_ms=[c["action_ms"] for c in out["cycles"]],
+          launches=launches, card=card)
+    return launches
+
+
+def degrade_fused_phase(cuda_solver, card, device="cuda") -> int:
+    """The quiet shipped-conf session at the north star (fused-quiet's
+    FUSED=1 cache, its backlog echoed back) with fused.device_error
+    injected once: the fused dispatch fails, each family re-dispatches
+    (one ``evict`` and one ``solve`` dispatch), the breaker sees one
+    failure then tpu-allocate's success, K1's re-dispatched launch is
+    held against the plain version and the binds and end state equal
+    the FUSED=0 arm's.  Returns the K1 launches."""
+    kept = KEPT["fused_quiet"]
+    arm, control = kept["arm"], kept["control"]
+    with incremental_arm(False), gc_posture(), fused_arm(True), \
+            drill_breaker() as br, LaunchLedger(cuda_solver, device) as ledger, \
+            fault_plan("fused.device_error", budget=1) as plan:
+        seen = len(arm["binder"].channel)
+        run = stamped_session(arm["cache"], kept["actions"], kept["tiers"])
+        binds = echo_binds(arm["cache"], arm["binder"], arm["pods"], seen)
+        records = ledger.take()
+        injected = plan.injected().get("fused.device_error", 0)
+        calls = list(br.calls)
+        state = br.state()
+    held = ledger.hold(records, "degrade-fused's re-dispatch")
+    delta = run["delta"]
+    if dict(binds) != dict(control["binds"]) \
+            or run["state"] != control["state"]:
+        raise AssertionError("degrade-fused: binds or end state differ from "
+                             "the FUSED=0 arm's")
+    if (injected != 1 or delta["dispatches"] != {"evict": 1, "solve": 1}
+            or calls != ["failure", "success"] or state != "closed"
+            or len(records) != 1
+            or delta["fallback"].get("device_failures") != 1):
+        raise AssertionError(f"degrade-fused: injected {injected}, "
+                             f"{delta}, breaker {calls} {state}, "
+                             f"{len(records)} launches")
+    phase("degrade-fused", shape=list(NORTH_STAR), binds=len(binds),
+          binds_equal_control=True, dispatches=delta["dispatches"],
+          legs=delta["legs"], fallback=delta["fallback"],
+          breaker_calls=calls, launch_ms=[LaunchLedger.launch_ms(r)
+                                          for r in records],
+          held=held, wall_ms=run["wall_ms"], action_ms=run["action_ms"],
+          card=card)
+    return len(records)
+
+
+def degrade_shard_phase(cuda_solver, card, device="cuda",
+                        shape=TENANCY_SHAPE) -> int:
+    """The tenancy cell's concurrent arm (tenancy_arm, 10,000 nodes, 4
+    shards, CONCURRENT_SHARDS=1, one measured round) with
+    solve.device_error in its warm pass, under the card's rule, in two
+    arms: the seed and rate of tests/test_concurrent_shards.py's
+    test_device_error_mid_pipeline_degrades_one_shard (11, 0.25), and
+    the first dispatch alone (rate 1, budget 1: shard 0, which has no
+    predecessor in its round).  A hit session raises in its shard's
+    retire half: that shard backs off, and the failure is fed once under
+    stage ``solve``.  A hit session that a predecessor's commit then
+    conflicts is discarded and rerun fresh on the card before its
+    failure is fed, as in the reference (at most one feed per
+    injection).  The other shards bind in the same pass, their launches
+    on their own streams; retried, the failed shards bind too, no shard
+    is failing after the measured round, every tenant is bound, nothing
+    stays in flight, and every launch is held against the plain version.
+    Returns the K1 launches."""
+    from kube_batch_tpu_torch.chaos import plan as chaos_plan
+    from kube_batch_tpu_torch.ops.solver import solver_inflight
+    launches = 0
+    for name, plan, rounds in (
+            ("seed-11", chaos_plan.FaultPlan(
+                seed=11, rate=0.25, sites=("solve.device_error",)), 1),
+            ("first-dispatch", chaos_plan.FaultPlan(
+                seed=1, rate=1.0, budget=1,
+                sites=("solve.device_error",)), 1)):
+        before = failures_by_stage()
+        with drill_breaker(10 ** 6) as br:
+            out = tenancy_arm(cuda_solver, True, device, rounds=rounds,
+                              chaos=plan, **shape)
+            calls = list(br.calls)
+        failed = stage_delta(before)
+        injected = plan.injected().get("solve.device_error", 0)
+        tenants = sorted({key.split("-t")[-1].split("-")[0]
+                          for binds in out["fingerprints"]
+                          for key, _node in binds if "/storm-" in key})
+        fed = failed.get("solve", 0)
+        if (not injected or set(failed) - {"solve"} or fed > injected
+                or calls.count("failure") != fed or out["failures"]
+                or (name == "first-dispatch" and fed != 1)
+                or solver_inflight() != 0
+                or (name == "first-dispatch" and out["failed_shards"] != [0])
+                or tenants != [str(t) for t in range(shape["n_queues"])]):
+            raise AssertionError(
+                f"degrade-shard {name}: injected {injected}, failures "
+                f"{failed}, breaker {calls}, failed shards "
+                f"{out['failed_shards']}, failing after {out['failures']}, "
+                f"in flight {solver_inflight()}, tenants bound {tenants}")
+        by_shard = out["launches_by_shard"]
+        handles = [h for v in by_shard.values() for h, _ in v]
+        if device == "cuda" and (None in by_shard
+                                 or len(set(handles)) != len(handles)):
+            raise AssertionError(f"degrade-shard {name}: launches not each "
+                                 f"on its shard's own stream: {by_shard}")
+        launches += sum(out["launches"]) + out["warm_launches"]
+        phase("degrade-shard", arm=name, nodes=shape["n_nodes"],
+              tenants=shape["n_queues"], rounds=rounds, injected=injected,
+              failed_shards=out["failed_shards"],
+              conflict_reruns=out["pipeline"].get("conflict_rerun", 0),
+              failures_by_stage=failed, tenants_bound=tenants,
+              inflight=solver_inflight(),
+              warm_launches=out["warm_launches"],
+              launches_per_round=out["launches"],
+              launches_by_shard={str(k): v for k, v in
+                                 out["launches_by_shard"].items()},
+              walls_ms=out["walls_ms"], breaker_calls=calls,
+              vs_plain=held_summary(out["held"]), card=card)
+    return launches
+
+
+def profile_phase(cuda_solver, card, out_dir="chiprun_out/profile",
+                  device="cuda") -> int:
+    """One warm north-star session (the session phase's C walk cache)
+    with KUBE_BATCH_TPU_PROFILE set: the torch.profiler Chrome trace of
+    tpu-allocate, its size, K1's device time in the trace against the
+    launch's CUDA events (within 5%), the device's busy time (the union
+    of kernel, copy and set intervals) and its idle share over the
+    session's wall time, the top 5 device operations by time, and the
+    solver.dispatch / solver.fetch span totals of the session's flight
+    recorder trace.  The idle share's denominator is the session phase's
+    unprofiled warm median on the same cache (the profiler's start and
+    stop lengthen the profiled session; its own share is printed too).
+    The launch is held against the plain version.
+    Returns the K1 launches."""
+    import glob
+
+    from kube_batch_tpu_torch.trace import export, flight_recorder
+    arm = KEPT["session"]
+    want = dict(arm["binds"][-1])
+    old = set(glob.glob(os.path.join(out_dir, "session-*.json")))
+    with incremental_arm(False), gc_posture(), \
+            env_arm({"KUBE_BATCH_TPU_PROFILE": out_dir}), \
+            LaunchLedger(cuda_solver, device) as ledger:
+        run = drill_session(arm["cache"], arm["binder"], arm["pods"],
+                            arm["tiers"], arm["action"])
+        sid = flight_recorder.latest().sid
+        records = ledger.take()
+    held = ledger.hold(records, "the profiled session")
+    if dict(run["binds"]) != want or len(records) != 1:
+        raise AssertionError("profile: the profiled session's binds or "
+                             "launches differ")
+    (path,) = set(glob.glob(os.path.join(out_dir, "session-*.json"))) - old
+    with open(path) as fh:
+        doc = json.load(fh)
+    device = [ev for ev in doc["traceEvents"] if ev.get("ph") == "X"
+              and ev.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not device:
+        raise AssertionError("profile: the trace holds no device time")
+    spans_ = sorted((float(ev["ts"]), float(ev["ts"]) + float(ev["dur"]))
+                    for ev in device)
+    busy_us, end = 0.0, -math.inf
+    for a, b in spans_:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    by_name = {}
+    for ev in device:
+        by_name[ev["name"]] = by_name.get(ev["name"], 0.0) + ev["dur"]
+    k1_ms = sum(v for k, v in by_name.items() if "solve_session" in k) / 1e3
+    event_ms = LaunchLedger.launch_ms(records[0])
+    if not k1_ms or abs(k1_ms - event_ms) > 0.05 * event_ms:
+        raise AssertionError(f"profile: K1 {k1_ms} ms in the trace against "
+                             f"{event_ms} ms by CUDA events")
+    totals = export.span_totals(flight_recorder.get(sid))
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    # The profiler's own start and stop lengthen the profiled session;
+    # the device does the same work in the unprofiled warm sessions of
+    # the session phase on this cache, whose median wall is the share's
+    # denominator.
+    warm_ms = float(np.median([r[1] for r in arm["runs"][1:]])) * 1e3
+    phase("profile", shape=list(NORTH_STAR), trace=path,
+          trace_bytes=os.path.getsize(path), k1_ms_trace=k1_ms,
+          k1_ms_events=event_ms, device_busy_ms=busy_us / 1e3,
+          session_wall_ms_unprofiled_median=warm_ms,
+          device_idle_share=1 - busy_us / 1e3 / warm_ms,
+          session_wall_ms_profiled=run["wall_ms"],
+          device_idle_share_profiled=1 - busy_us / 1e3 / run["wall_ms"],
+          k1_share_of_device=k1_ms / (busy_us / 1e3),
+          top5_device_ms=[[name[:120], dur / 1e3] for name, dur in top],
+          span_ms={k: totals.get(k, 0.0) for k in (
+              "solver.dispatch", "solver.fetch", "dispatch", "device_wait",
+              "ship", "tensorize", "apply")},
+          held=held, card=card)
+    return len(records)
+
+
+DRILL_PHASES = (degrade_deadline_phase, profile_phase, degrade_solve_phase,
+                degrade_evict_phase, degrade_topo_phase, degrade_fused_phase,
+                degrade_shard_phase)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
@@ -3017,6 +3711,7 @@ def main() -> int:
     phase("device", card=card, torch=torch.__version__,
           cuda=torch.version.cuda, count=torch.cuda.device_count())
 
+    main_before = fused_counters()
     began = time.perf_counter()
     cuda_solver.build_kernel()
     phase("build", seconds=time.perf_counter() - began,
@@ -3148,18 +3843,24 @@ def main() -> int:
           dispatch_fetch_ms_all=rounds, kernel_ms=kernel_ms,
           plain_ms=plain_ms, **bound, card=card)
 
-    session_launches = session_phase(cuda_solver, card)
-    session_vs_cpu_phase(cuda_solver)
-    steady_launches = steady_phase(cuda_solver, card)
-    evict_launches = evict_phase(cuda_solver, card)
-    evict_vs_cpu_phase(cuda_solver)
-    topo_launches = topo_phase(cuda_solver, card)
-    topo_vs_cpu_phase(cuda_solver)
-    streams_launches = tenancy_streams_phase(cuda_solver, card)
-    tenancy_launches = tenancy_phase(cuda_solver, card)
-    backlog_launches = tenancy_backlog_phase(cuda_solver, card)
-    loop_launches = scheduler_loop_phase(cuda_solver, card)
-    fused_launches = sum(run(cuda_solver, card) for run in FUSED_PHASES)
+    no_fallback_since(main_before, "main-path")
+
+    session_launches = guarded(session_phase, cuda_solver, card)
+    guarded(session_vs_cpu_phase, cuda_solver)
+    steady_launches = guarded(steady_phase, cuda_solver, card)
+    evict_launches = guarded(evict_phase, cuda_solver, card)
+    guarded(evict_vs_cpu_phase, cuda_solver)
+    topo_launches = guarded(topo_phase, cuda_solver, card)
+    guarded(topo_vs_cpu_phase, cuda_solver)
+    streams_launches = guarded(tenancy_streams_phase, cuda_solver, card)
+    tenancy_launches = guarded(tenancy_phase, cuda_solver, card)
+    backlog_launches = guarded(tenancy_backlog_phase, cuda_solver, card)
+    loop_launches = guarded(scheduler_loop_phase, cuda_solver, card)
+    fused_launches = sum(guarded(run, cuda_solver, card)
+                         for run in FUSED_PHASES)
+    # The drills inject their own faults and check exactly those; the
+    # breaker is closed again after each.
+    drill_launches = sum(run(cuda_solver, card) for run in DRILL_PHASES)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -3168,7 +3869,8 @@ def main() -> int:
         "replaces": "kube_batch_tpu/ops/pallas_solver.py:60",
         "launches": (session_launches + steady_launches + evict_launches
                      + topo_launches + streams_launches + tenancy_launches
-                     + backlog_launches + loop_launches + fused_launches),
+                     + backlog_launches + loop_launches + fused_launches
+                     + drill_launches),
         "held_vs_plain": LaunchLedger.counts["plain"],
         "held_byte_equal": LaunchLedger.counts["byte_equal"],
         "max_abs_err": max_err,
@@ -3192,7 +3894,7 @@ def fused_only() -> int:
     began = time.perf_counter()
     cuda_solver.build_kernel()
     phase("build", seconds=time.perf_counter() - began)
-    launches = sum(run(cuda_solver, card) for run in FUSED_PHASES)
+    launches = sum(guarded(run, cuda_solver, card) for run in FUSED_PHASES)
     phase("fused-only", launches=launches, held=LaunchLedger.counts)
     return 0
 

@@ -3,9 +3,11 @@
 Counterpart of kube_batch_tpu/actions/topo_allocate.py, carried over line
 for line but for the device: the batched box scan runs as PyTorch tensor
 code on the action's device (CUDA unless the caller asks for the CPU).
-Unlike the reference, a failing device scan raises out of ``execute``
-instead of degrading to the numpy oracle (the degradation comes with
-ROADMAP queue 1 item 11).  Under the fused one-dispatch program
+A failing device scan feeds the device breaker (chaos/breaker.py), which
+the reference's does not, so no device failure degrades unseen.  On the
+CPU it then degrades to the bit-identical numpy oracle, as in the
+reference; on a CUDA device it raises ``DeviceFailure``.
+Under the fused one-dispatch program
 (ops/fused_solver.py, on by default) the session's first scan rides the
 fused dispatch with the eviction and allocate legs.
 
@@ -154,8 +156,8 @@ class TopoAllocateAction(Action):
         """Route the scan: the batched program on the action's device (one
         dispatch over the padded bucket, or the fused program's topo leg
         when ``ssn`` is given) or the sequential oracle under
-        TOPO_BATCH=0.  A device failure raises (the reference degrades to
-        the oracle; ROADMAP queue 1 item 11)."""
+        TOPO_BATCH=0.  A device failure degrades to the oracle on the
+        CPU and raises on the card."""
         from ..models.topology import topo_batch_enabled
         from ..ops import topo_solver as ts
         from ..ops.compile_cache import bucket
@@ -186,9 +188,20 @@ class TopoAllocateAction(Action):
                                            self.dtype)
             if stats is not None:
                 return stats
-        with trace.span("topo.box_scan", shape="x".join(
-                str(s) for s in shape)):
-            return ts.dispatch_box_scan(inp, shape, self.device)[:n]
+        try:
+            with trace.span("topo.box_scan", shape="x".join(
+                    str(s) for s in shape)):
+                return ts.dispatch_box_scan(inp, shape, self.device)[:n]
+        except Exception as exc:  # lint: allow-swallow(device scan failure degrades to the bit-identical numpy oracle on the CPU and raises on the card; counted, fed to the breaker, degraded note)
+            from ..chaos.breaker import feed_failure
+            feed_failure("topo",
+                         f"topo box scan degraded to the host oracle "
+                         f"({type(exc).__name__}: {exc})", exc,
+                         owner=None if ssn is None else ssn.cache,
+                         what="topo-allocate", device=self.device)
+            metrics.note_swallowed("topo_box_scan")
+            return ts.box_scan_seq(view, free, evictable, vic_cnt,
+                                   vic_cost, shape)
 
     # -- decision keys -------------------------------------------------
 

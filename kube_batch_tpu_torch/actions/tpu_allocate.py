@@ -6,18 +6,27 @@ through the resident shipper, solve it there (ops/solver.py: one launch
 of the hand-written CUDA kernel on the card, its plain PyTorch version on
 the CPU), then apply the placements back through the session so plugins,
 gang dispatch and binders observe exactly the same sequence of events as
-the host allocate action.  Only the tensorizer's expressiveness gaps
-(``snap.needs_fallback``) run the host allocate action.
+the host allocate action.  The tensorizer's expressiveness gaps
+(``snap.needs_fallback``) run the host allocate action, as in the
+reference.
 
 The action owns its device and float key type: CUDA unless the caller
-asks for the CPU, float32 unless it asks for float64.  Unlike the
-reference it never degrades to the host path on a device failure: a
-failing ship or dispatch raises out of ``execute_begin``, a failing
-fetch or validation out of its ``finish`` continuation (the breaker and
-degradation come with ROADMAP queue 1 item 11).  The one exception is
-the shard pipeline's stale session (``ssn._pipeline_stale``): its failed
-fetch raises ``StaleSessionAbort``, before any mutation, so the pipeline
-reruns the shard fresh (tenancy/pipeline.py).
+asks for the CPU, float32 unless it asks for float64.  A device failure
+at any stage — tensorize, ship, dispatch, fetch or validation — feeds
+the shared device breaker (chaos/breaker.feed_failure), lands in
+``kube_batch_device_solve_failures_total{stage}``, in the session
+trace's ``degraded`` meta and in a warning, and drops the resident ship
+image.  Then, on the CPU, that one session degrades to the host allocate
+action, placement-identical by the parity suite, as the reference does;
+on a CUDA device it raises ``DeviceFailure`` before anything is
+mutated, and the card's work never moves to the host.  An open breaker
+does the same to whole sessions until its half-open probe; a solve over
+``KUBE_BATCH_TPU_SOLVE_DEADLINE_MS`` is applied but counts as a breaker
+failure.  The shard pipeline's stale session (``ssn._pipeline_stale``)
+is the one exception: its failed fetch raises ``StaleSessionAbort``,
+before any mutation, so the pipeline reruns the shard fresh
+(tenancy/pipeline.py).  ``KUBE_BATCH_TPU_PROFILE=<dir>`` writes a
+``torch.profiler`` Chrome trace of each session into that directory.
 
 ``execute`` is ``execute_begin`` (tensorize, ship, dispatch) followed by
 the continuation it returns (fetch, validate, apply); the concurrent
@@ -41,7 +50,9 @@ placement-identical to the pipelined default.
 
 from __future__ import annotations
 
+import contextlib
 import logging
+import os
 import time
 from typing import NamedTuple
 
@@ -55,9 +66,56 @@ from ..trace import spans as trace
 
 log = logging.getLogger(__name__)
 
+# Set to a directory to capture a torch.profiler trace of each session's
+# tpu-allocate (the sidecar profiling hook, SURVEY.md §5).
+PROFILE_ENV = knobs.PROFILE.env
 # =0 runs the sequential path (solve barrier, then apply preparation):
 # the A/B control and parity oracle for the pipelined engine.
 PIPELINE_ENV = knobs.PIPELINE.env
+
+
+# Whether a profile is open: ``execute``'s covers both of its halves.
+_profile_open = [False]
+
+
+@contextlib.contextmanager
+def _profile_session(path: str):
+    """Profile the block with CPU and CUDA activities and write one
+    Chrome trace to ``path``.  Every flight-recorder span opened inside
+    the block is mirrored into the profile as a ``record_function``
+    range (trace/spans.py).  A profiler that cannot start (no CUPTI,
+    refused) raises with its own message: there is no silent CPU-only
+    fallback."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from ..trace import spans as trace_spans
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with profile(activities=activities) as prof:
+        _profile_open[0] = True
+        trace_spans.set_profiler_range(record_function)
+        try:
+            yield
+        finally:
+            trace_spans.set_profiler_range(None)
+            _profile_open[0] = False
+    prof.export_chrome_trace(path)
+    log.info("tpu-allocate profile written to %s", path)
+
+
+def _maybe_profile(ssn, half: str = ""):
+    """The profile of one session (``session-<uid>.json``) or, for a
+    session whose halves the shard pipeline runs apart, of one half
+    (``session-<uid>-begin.json``, ``-retire.json``): one profiler runs
+    at a time in a process, and other shards' halves run between them.
+    Nothing when the knob is unset or a profile is already open."""
+    profile_dir = knobs.PROFILE.raw()
+    if not profile_dir or _profile_open[0]:
+        return contextlib.nullcontext()
+    name = f"session-{ssn.uid}" + (f"-{half}" if half else "")
+    return _profile_session(os.path.join(profile_dir, name + ".json"))
 
 
 class SessionRecord(NamedTuple):
@@ -90,6 +148,21 @@ class TpuAllocateAction(Action):
 
     def name(self) -> str:
         return "tpu-allocate"
+
+    def _fallback_on_failure(self, ssn, breaker, stage: str, exc) -> None:
+        """A device-pipeline failure BEFORE any session mutation: feed
+        the breaker (repeated failures trip it open — doc/CHAOS.md
+        "Breaker semantics"), drop the resident ship image (a partial
+        ship must not serve as the next delta baseline) and surface the
+        failure; then run the host path on the CPU, or raise
+        ``DeviceFailure`` on the card.  Nothing here launches or waits
+        on the device."""
+        from ..chaos.breaker import feed_failure
+        feed_failure(stage, f"device {stage} failed ({type(exc).__name__}: "
+                     f"{exc}); host allocate fallback", exc,
+                     owner=ssn.cache, breaker=breaker, what="tpu-allocate",
+                     device=self.device)
+        self._run_host_fallback(ssn)
 
     def _run_host_fallback(self, ssn) -> None:
         """The host allocate oracle: placement-identical to the device
@@ -134,11 +207,27 @@ class TpuAllocateAction(Action):
                     "unplaced tasks")
 
     def execute(self, ssn) -> None:
-        finish = self.execute_begin(ssn)
-        if finish is not None:
-            finish()
+        with _maybe_profile(ssn):
+            finish = self.execute_begin(ssn)
+            if finish is not None:
+                finish()
 
     def execute_begin(self, ssn):
+        """The begin half (``_execute_begin``), each half profiled under
+        ``KUBE_BATCH_TPU_PROFILE`` when ``execute`` is not profiling the
+        whole session."""
+        with _maybe_profile(ssn, "begin"):
+            finish = self._execute_begin(ssn)
+        if finish is None or not knobs.PROFILE.raw():
+            return finish
+
+        def profiled_finish():
+            with _maybe_profile(ssn, "retire"):
+                finish()
+        profiled_finish.pending = getattr(finish, "pending", None)
+        return profiled_finish
+
+    def _execute_begin(self, ssn):
         """The HOST half of the action — tensorize, ship, async solve
         dispatch, device-wait-window apply preparation — with every
         cluster-mutating step deferred into the returned continuation.
@@ -156,11 +245,14 @@ class TpuAllocateAction(Action):
         when it fetches nothing), so the pipeline can retire an
         abandoned one.
 
-        The reference consults its device breaker here and degrades a
-        failing tensorize, ship or dispatch to the host path; the port
-        raises instead (ROADMAP queue 1 item 11)."""
+        The device breaker gates the whole device half: while it is open
+        the continuation runs the host path (on the card it raises), and
+        a failing tensorize, ship or dispatch returns a continuation that
+        feeds the breaker and then degrades or raises
+        (``_fallback_on_failure``)."""
         import numpy as np
 
+        from ..chaos.breaker import device_breaker, refuse_open
         from ..models.shipping import resident_shipper
         from ..models.tensor_snapshot import (prepare_apply_scaffold,
                                               tensorize_session)
@@ -168,11 +260,34 @@ class TpuAllocateAction(Action):
                                   discard_solve, dispatch_solve,
                                   fetch_result)
 
+        breaker = device_breaker()
+        if not breaker.allow():
+            # OPEN within cooldown: the device path is quarantined.  On
+            # the CPU the host oracle serves this cycle; on the card the
+            # continuation raises DeviceFailure.  Once the cooldown
+            # elapses, allow() turns the breaker half-open and the next
+            # cycle probes the device path again.  The fallback mutates
+            # the session and binds, so it is retire-phase work.
+            def finish_breaker_open():
+                refuse_open("tpu-allocate", self.device,
+                            "device breaker open: tpu-allocate ran the "
+                            "host path")
+                self._run_host_fallback(ssn)
+            ssn._pipeline_reads_all = True
+            return finish_breaker_open
+
         stages = {}
         start = time.time()
         t0 = time.perf_counter()
-        with trace.span("tensorize"):
-            snap = tensorize_session(ssn, self.dtype)
+        try:
+            with trace.span("tensorize"):
+                snap = tensorize_session(ssn, self.dtype)
+        except Exception as exc:
+            ssn._pipeline_reads_all = True
+            # Bind via default: `exc` is unbound once the except block
+            # exits, and the continuation runs later.
+            return lambda err=exc: self._fallback_on_failure(
+                ssn, breaker, "tensorize", err)
         stages["tensorize"] = time.perf_counter() - t0
         if snap.needs_fallback:
             # A tensorization GAP, not a device failure: the reference's
@@ -202,10 +317,14 @@ class TpuAllocateAction(Action):
             self._publish_read_fence(ssn, snap, empty=True)
             return None
 
-        # Ship -> dispatch mutates no session state; a failure there
-        # raises out of the action (no host fallback).  The begin half
-        # stops at the async dispatch; fetch, validation and apply live
-        # in the returned continuation.
+        # Ship -> dispatch -> fetch -> validate is the degradation
+        # boundary: no session state is mutated inside it, so any failure
+        # (device error, poisoned readback) feeds the breaker and safely
+        # degrades this cycle to the host path (on the card: raises
+        # before any mutation).  From the apply phase on,
+        # failures propagate — the session is mutated and a re-run would
+        # double-place.  The begin half stops at the async dispatch;
+        # fetch, validation and apply live in the returned continuation.
         pending = None
         assignment = kind = order = ordered = None
         try:
@@ -315,13 +434,14 @@ class TpuAllocateAction(Action):
                 ordered = placed[np.argsort(order[placed], kind="stable")]
                 scaffold = None
             begin_solve_elapsed = time.perf_counter() - solve_start
-        except BaseException:
+        except Exception as exc:
             if pending is not None:
                 # The dispatch landed before the failure: retire the
                 # handle from the in-flight ledger — nothing will fetch it.
                 discard_solve(pending)
             ssn._pipeline_reads_all = True
-            raise
+            return lambda err=exc: self._fallback_on_failure(
+                ssn, breaker, "solve", err)
 
         # Publish the successor-conflict read fence BEFORE pausing: the
         # pipeline compares predecessors' mutated nodes against this
@@ -332,6 +452,7 @@ class TpuAllocateAction(Action):
 
         def finish():
             nonlocal scaffold, assignment, kind, order, ordered
+            from ..chaos.breaker import solve_deadline_s
             from ..models.tensor_snapshot import build_apply_aggregates
             from ..ops import fused_solver
             from ..ops.solver import fetch_solve
@@ -360,18 +481,21 @@ class TpuAllocateAction(Action):
             except Exception as exc:
                 if ssn._pipeline_stale:
                     # A predecessor committed after this session's
-                    # snapshot: abort for the pipeline's fresh sequential
-                    # rerun (tenancy/pipeline.StaleSessionAbort).
-                    # Nothing has been mutated yet.  The reference
-                    # aborts here only in place of its host fallback; the
-                    # port has none, and a rerun over fresh state is what
-                    # the sequential arm would have run.
+                    # snapshot, and the conflict fence only cleared the
+                    # NARROW solve footprint: the host fallback would
+                    # read arbitrary (stale) node state.  Nothing has
+                    # been mutated yet, so abort for the pipeline's
+                    # fresh sequential rerun instead of degrading here
+                    # (tenancy/pipeline.StaleSessionAbort).  The breaker
+                    # still sees the device failure.
                     from ..tenancy.pipeline import StaleSessionAbort
+                    breaker.failure()
                     metrics.note_device_failure("solve")
                     raise StaleSessionAbort(
                         f"device solve failed mid-pipeline over a stale "
                         f"snapshot ({type(exc).__name__}: {exc})") from exc
-                raise
+                self._fallback_on_failure(ssn, breaker, "solve", exc)
+                return
 
             if inc_state is not None and cached_solve is None:
                 # Cache AFTER validation only: a poisoned readback must
@@ -381,6 +505,30 @@ class TpuAllocateAction(Action):
                 inc_state.solve_result = (assignment, kind, order, ordered)
                 inc_state.solve_route = route
                 metrics.note_generation_reuse(False)
+
+            deadline = solve_deadline_s()
+            if cached_solve is not None:
+                # A reused result is no device health evidence either
+                # way: the breaker and the solve deadline see nothing.
+                pass
+            elif deadline and solve_elapsed > deadline:
+                # Detective, not preemptive: the (valid) late result is
+                # still applied, but a repeatedly slow device opens the
+                # breaker exactly like a failing one.
+                # (Pipelined pause time is excluded: solve_elapsed is the
+                # dispatch half plus the fetch's wall time, never the
+                # window a successor shard's begin half ran in.)
+                breaker.failure()
+                metrics.note_solve_deadline()
+                trace.note_degraded(
+                    f"session solve exceeded deadline "
+                    f"({solve_elapsed * 1e3:.0f} ms > "
+                    f"{deadline * 1e3:.0f} ms)")
+                log.warning("tpu-allocate solve took %.0f ms, over the "
+                            "%.0f ms deadline", solve_elapsed * 1e3,
+                            deadline * 1e3)
+            else:
+                breaker.success()
 
             # Apply placements in device-solve order through the columnar
             # batched path: end state (status indexes, node accounting,

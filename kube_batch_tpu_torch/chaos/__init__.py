@@ -11,14 +11,17 @@ testable under failure (doc/CHAOS.md):
 ``plan``    — the seed-deterministic fault plan: named injection sites
               threaded through the real code paths, each a no-op single
               branch when ``KUBE_BATCH_TPU_CHAOS`` is unset.
-``breaker`` — the device circuit breaker and the solve deadline.  The
-              eviction scanner consults it; nothing feeds it until the
-              degradation path comes (ROADMAP queue 1 item 11): a device
-              failure raises instead of degrading to the host path.
+``breaker`` — the circuit breaker + solve deadline fed by every device
+              failure: on the CPU the cycle degrades to the host-path
+              oracle, on a CUDA device it raises ``DeviceFailure``;
+              repeated failures open the breaker, and a half-open probe
+              returns to the device.
 """
 
 from . import breaker, plan
+from .breaker import CircuitBreaker, DeviceFailure, device_breaker
 from .plan import CHAOS_ENV, Fault, FaultPlan, plan_from_spec
 
 __all__ = ["breaker", "plan", "CHAOS_ENV", "Fault", "FaultPlan",
-           "plan_from_spec"]
+           "plan_from_spec", "CircuitBreaker", "DeviceFailure",
+           "device_breaker"]

@@ -220,7 +220,7 @@ LINEAGE_RING = _knob(
     minimum=1, owner="kube_batch_tpu_torch.trace.lineage")
 PROFILE = _knob(
     "KUBE_BATCH_TPU_PROFILE", "str", None, "doc/OBSERVABILITY.md",
-    "Directory for on-demand JAX profiler captures (unset disables)",
+    "Directory for on-demand torch.profiler captures (unset disables)",
     owner="kube_batch_tpu_torch.actions.tpu_allocate")
 METRIC_SERIES_CAP = _knob(
     "KUBE_BATCH_TPU_METRIC_SERIES_CAP", "int", 64, "doc/OBSERVABILITY.md",

@@ -841,7 +841,8 @@ def ship_shard_counts() -> Dict[str, int]:
 def note_route(family: str, choice: str) -> None:
     """Count one solver-family dispatch routed at the
     choose_solver_mesh / eviction-scan chokepoints (family is
-    allocate | evict | scan; choice is sharded | pallas | xla)."""
+    allocate | evict | scan | topo | fused; the port's allocate
+    choices are cuda | torch | candidates)."""
     solver_route.inc(1.0, family, choice)
 
 

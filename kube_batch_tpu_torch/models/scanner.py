@@ -12,11 +12,13 @@ Statement's commit/discard transaction.
 The scanner only accelerates; decisions (victim chains, Statement
 semantics, gang commit conditions) stay on the host action.  Sessions the
 tensorizer can't express (``snap.needs_fallback``) run the pure-host
-walk, as in the reference.  Unlike the reference, a device FAILURE —
-the scanner's tensorize or the batched eviction dispatch — raises out of
-the action instead of degrading to the host walk (the degradation and
-the breaker feeding come with ROADMAP queue 1 item 11), so no device
-fault on this path can hide behind numpy.
+walk, as in the reference.  A device FAILURE — the scanner's tensorize,
+the batched eviction dispatch, or the fused evict leg's readback —
+feeds the shared device breaker (chaos/breaker.feed_failure).  On the
+CPU it then degrades to the host walk or to per-profile host scoring, as
+in the reference (decisions are identical, the batching only
+accelerates); on a CUDA device it raises ``DeviceFailure``, as does an
+open breaker, so no card work moves to numpy.
 
 The scanner owns a device (CUDA unless the caller asks for the CPU) and
 the float key dtype of its tensorize, both threaded in from the eviction
@@ -100,18 +102,25 @@ def _build_scanner(ssn, use_shipper: bool = False, device=None,
     device = resolve_device(device)
     breaker = device_breaker()
     if not breaker.allow():
-        # Device path quarantined (doc/CHAOS.md): the eviction actions
-        # fall back to the pure-host walk they already support — the
-        # scanner only accelerates, it never decides.  Nothing opens
-        # the breaker until ROADMAP queue 1 item 11 feeds it.
-        from ..trace import spans as trace
-        trace.note_degraded(
-            "device breaker open: eviction actions ran the host walk")
+        # Device path quarantined (doc/CHAOS.md): on the CPU the
+        # eviction actions fall back to the pure-host walk they already
+        # support — the scanner only accelerates, it never decides; on
+        # the card the action raises.
+        from ..chaos.breaker import refuse_open
+        refuse_open("the eviction actions", device,
+                    "device breaker open: eviction actions ran the host "
+                    "walk")
         return None
-    # A tensorize failure raises: the reference degrades it to the host
-    # walk and feeds the breaker, which comes with ROADMAP queue 1
-    # item 11.
-    snap = tensorize_session(ssn, dtype)
+    try:
+        snap = tensorize_session(ssn, dtype)
+    except Exception as exc:
+        from ..chaos.breaker import feed_failure
+        feed_failure("tensorize",
+                     f"scanner tensorize failed ({type(exc).__name__}); "
+                     "eviction actions ran the host walk", exc,
+                     owner=ssn.cache, breaker=breaker,
+                     what="the eviction scanner", device=device)
+        return None
     if snap.needs_fallback or not (snap.tasks or snap.tasks_extra):
         return None
     device_inputs = None
@@ -323,10 +332,10 @@ class DeviceNodeScanner:
         per-family batch_seed would have — keyed at the dispatch-time
         edit-log position, so rows dirtied while the readback was parked
         patch through the normal edit-log path.  A readback fault (chaos
-        ``fused.poison``/``fused.slow``) is counted and raises, as the
-        per-family dispatch failure does: the reference degrades it to
-        per-profile host scoring and feeds the breaker (ROADMAP queue 1
-        item 11)."""
+        ``fused.poison``/``fused.slow``, a device error) feeds the shared
+        breaker and then, like a dispatch failure, degrades on the CPU
+        (caches stay unseeded, every scores() call takes the per-profile
+        host path) or raises ``DeviceFailure`` on the card."""
         pb = self._pending_batch
         if pb is None:
             return
@@ -340,10 +349,18 @@ class DeviceNodeScanner:
                 mat, perm = fused_solver.consume_evict(
                     pb["scores"], pb["perm"], pb["ready"], pb["kb"],
                     self.dyn.shape[0])
-        except Exception:
-            metrics.note_device_failure("fused")
+        except Exception as exc:
+            from ..chaos.breaker import feed_failure
+            self._batched = False
+            self.stats["batch_dispatches"] -= 1
+            self.stats["seeded_profiles"] -= len(pb["keys"])
             metrics.note_fused_leg("evict", "failed")
-            raise
+            feed_failure("fused",
+                         f"fused evict readback failed "
+                         f"({type(exc).__name__}); per-profile host "
+                         "scoring", exc, owner=pb["owner"],
+                         what="the eviction scanner", device=self.device)
+            return
         from ..chaos.breaker import device_breaker
         breaker = device_breaker()
         if not breaker.closed():
@@ -447,9 +464,7 @@ class DeviceNodeScanner:
         # staged topo scan — from ONE enqueue sequence; the readback
         # parks on _pending_batch until the first consumer.  None =>
         # per-family dispatch below, exactly the KUBE_BATCH_TPU_FUSED=0
-        # control.  A dispatch failure raises: the reference degrades it
-        # to per-profile host scoring and feeds the breaker (ROADMAP
-        # queue 1 item 11).
+        # control.
         from ..chaos.breaker import device_breaker
         from ..ops import fused_solver
         dev = self.device
@@ -461,19 +476,35 @@ class DeviceNodeScanner:
                 self._pending_batch = dict(
                     scores=fused[0], perm=fused[1], ready=fused[2], kb=kb,
                     keys=keys, vic_uids=vic_uids, m=m,
-                    stock_order=stock_order, pos=len(self._edit_log))
+                    stock_order=stock_order, pos=len(self._edit_log),
+                    owner=ssn.cache)
                 self._batched = True
                 self.stats["batch_dispatches"] += 1
                 self.stats["seeded_profiles"] += len(keys)
                 return
-            scores, perm = evict_solver.dispatch_evict_batch_solve(
-                self.cfg, self.r, self.np_pad, self.ns_pad,
-                self.statics, torch.as_tensor(self.dyn, device=dev),
-                torch.as_tensor(trows, device=dev),
-                torch.as_tensor(node_p, device=dev),
-                torch.as_tensor(rank_p, device=dev))
-            mat = _readback(scores).astype(np.int64)
-            perm = _readback(perm)
+            try:
+                scores, perm = evict_solver.dispatch_evict_batch_solve(
+                    self.cfg, self.r, self.np_pad, self.ns_pad,
+                    self.statics, torch.as_tensor(self.dyn, device=dev),
+                    torch.as_tensor(trows, device=dev),
+                    torch.as_tensor(node_p, device=dev),
+                    torch.as_tensor(rank_p, device=dev))
+                mat = _readback(scores).astype(np.int64)
+                perm = _readback(perm)
+            except Exception as exc:
+                # The failure feeds the shared device breaker
+                # (doc/CHAOS.md).  On the CPU an unseeded scanner still
+                # answers every scores() call through the per-profile
+                # host path and the victim order falls back to the exact
+                # session queue — decisions identical, the batching is
+                # only an accelerator.  On the card it raises.
+                from ..chaos.breaker import feed_failure
+                feed_failure("evict_solve",
+                             f"batched eviction solve failed "
+                             f"({type(exc).__name__}); per-profile host "
+                             "scoring", exc, owner=ssn.cache,
+                             what="the eviction scanner", device=dev)
+                return
         breaker = device_breaker()
         if not breaker.closed():
             # Resolve a half-open probe: this dispatch IS the recovery

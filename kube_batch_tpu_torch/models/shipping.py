@@ -34,7 +34,9 @@ import torch
 
 from .. import knobs
 from ..device import check_float_dtype, resolve_device
+from ..metrics import memledger, metrics
 from ..ops.solver import SolverInputs
+from ..trace import spans as trace
 
 # Dirty-detection granularity: 64 int64 words per block.
 _BLOCK = 512
@@ -140,6 +142,24 @@ class _ShipState:
                  "inputs")
 
 
+def _buf_nbytes(buf) -> int:
+    if buf is None:
+        return 0
+    if isinstance(buf, torch.Tensor):
+        return buf.numel() * buf.element_size()
+    return int(buf.nbytes)
+
+
+def _resident_nbytes(sh: "DeviceResidentShipper") -> int:
+    """Host + device bytes pinned by the resident image plus the
+    recycled host pack scratch.  Reads sizes only: no device call."""
+    n = _buf_nbytes(sh._scratch)
+    st = sh._state
+    if st is not None:
+        n += _buf_nbytes(st.host_flat) + _buf_nbytes(st.device_flat)
+    return n
+
+
 class DeviceResidentShipper:
     """Delta shipping against a device-resident SolverInputs buffer.
 
@@ -147,7 +167,13 @@ class DeviceResidentShipper:
     bucket, leaf spec, float dtype), any solver-config change, a dirty
     fraction above _DELTA_MAX_FRACTION, or KUBE_BATCH_TPU_DELTA_SHIP=0.
     The returned leaves are bit-identical to a full ship of the same
-    staging in every mode."""
+    staging in every mode.
+
+    Memory accounting (metrics/memledger.py):
+    # mem-ledger: resident
+
+    Every ship counts ``kube_batch_tpu_ship_total{mode}`` and its bytes,
+    and tags the enclosing trace span with mode and bytes."""
 
     def __init__(self, device=None):
         self.device = resolve_device(device)
@@ -162,12 +188,26 @@ class DeviceResidentShipper:
         self.generation: int = 0
         # Owning cache identity (resident_shipper's aliasing guard).
         self._owner_id = None
+        self._mem_key = memledger.ledger("resident").track(
+            self, sizer=_resident_nbytes)
+
+    def _mem_refresh(self) -> None:
+        """Re-price the resident ledger (every ship() return and
+        invalidate(): where the image or the pack scratch is rebound)."""
+        memledger.ledger("resident").set(self._mem_key,
+                                         _resident_nbytes(self))
 
     def invalidate(self) -> None:
-        """Drop the resident image so the next ship is a full one; bumps
-        the generation, so nothing keyed to the dropped image is reused."""
+        """Drop the resident image so the next ship is a full one.  Every
+        degradation path calls this after a device failure: a delta ship
+        that died midway has already rewritten part of the resident
+        tensor in place, so it must never serve as the next baseline.
+        Bumps the generation, so nothing keyed to the dropped image is
+        reused.  It only drops references and launches nothing, so it is
+        safe after a sticky CUDA error."""
         self._state = None
         self.generation += 1
+        self._mem_refresh()
 
     def _to_device(self, flat: np.ndarray) -> torch.Tensor:
         # copy=True: the resident tensor never aliases a host buffer that
@@ -180,6 +220,13 @@ class DeviceResidentShipper:
         """Ship ``inp`` (numpy or tensor leaves) and return its leaves on
         the device.  ``float_dtype`` is the float key dtype, by default
         the dtype of the staging's float leaves."""
+        out = self._ship(inp, cfg, float_dtype)
+        self._mem_refresh()
+        metrics.note_ship(self.last_mode, self.last_bytes)
+        trace.note_ship(self.last_mode, self.last_bytes)
+        return out
+
+    def _ship(self, inp: SolverInputs, cfg, float_dtype) -> SolverInputs:
         float_dtype = check_float_dtype(
             float_dtype if float_dtype is not None else _float_dtype_of(inp))
         np_float = _np_float(float_dtype)

@@ -77,9 +77,8 @@ def dispatch_evict_batch_solve(cfg, r: int, np_pad: int, ns_pad: int,
     engine is off.  The port has one route, PyTorch on the statics'
     device: the reference's mesh gate, which follows the resident
     buffer's sharding, comes with the node-sharded layout (ROADMAP queue
-    1 item 5).  The scanner lets a failure here raise
-    (models/scanner.py batch_seed): the host-walk degradation comes with
-    ROADMAP queue 1 item 11."""
+    1 item 5).  A failure here degrades the scanner to per-profile host
+    scoring and feeds the breaker (models/scanner.py batch_seed)."""
     from ..chaos import plan as chaos_plan
     from ..metrics import metrics
     plan = chaos_plan.PLAN

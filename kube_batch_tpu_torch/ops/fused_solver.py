@@ -39,10 +39,11 @@ config and the same candidate gather.  Anything else counts a
 ``kube_batch_tpu_fused_legs_total{outcome="invalidated"}`` and the family
 re-dispatches on the card.  ``KUBE_BATCH_TPU_FUSED=0`` is the control.
 
-A fused dispatch or readback failure counts, invalidates the resident
-image and re-dispatches per family on the card.  Unlike the reference it
-does not feed the device breaker, and the sharded legs raise: the
-breaker feeds come with ROADMAP queue 1 item 11, the mesh with item 5.
+A fused dispatch or readback failure feeds the device breaker, counts,
+invalidates the resident image and re-dispatches per family on the card,
+as in the reference; a family whose own dispatch then fails raises
+``DeviceFailure`` on the card (chaos/breaker.py).  The sharded legs raise: the mesh comes
+with ROADMAP queue 1 item 5.
 """
 
 from __future__ import annotations
@@ -440,8 +441,8 @@ def _fused_program(legs, acfg, has_cand, ainp, cand_idx, cand_valid,
             vic_rank))
         out["evict"] = (scores, perm, ready)
     if "solve" in legs:
-        from .solver import (_gather_candidate_inputs, best_solve_allocate,
-                             packed_host, pending_of)
+        from .solver import (_gather_candidate_inputs, packed_host,
+                             pending_of, solve_on_route)
         host = packed_host(ainp)
         sinp = ainp
         if "postevict" in legs:
@@ -454,7 +455,7 @@ def _fused_program(legs, acfg, has_cand, ainp, cand_idx, cand_valid,
             out["postevict"] = (meta, sel, ready)
         if has_cand:
             sinp = _gather_candidate_inputs(ainp, cand_idx, cand_valid)
-        res = best_solve_allocate(sinp, acfg)
+        res = solve_on_route(sinp, acfg)
         out["alloc"] = pending_of(res, cand_remap, host)
     return out
 
@@ -592,11 +593,11 @@ def _chaos_consume(arr: np.ndarray) -> np.ndarray:
 
 
 def _fail(ssn, st: FusedState, exc: Exception, families) -> None:
-    """Shared degrade path: invalidate the resident image (the fused
-    program may have died mid-write), count the failure, and let every
-    family re-dispatch on the card."""
+    """Shared degrade path: feed the breaker, invalidate the resident
+    image (the fused program may have died mid-write), count the
+    failure, and let every family re-dispatch on its own device."""
+    from ..chaos.breaker import feed_failure
     from ..metrics import metrics
-    from ..trace import spans as trace
     st.failed = True
     st.alloc_pending = None
     st.alloc_leg = None
@@ -606,17 +607,12 @@ def _fail(ssn, st: FusedState, exc: Exception, families) -> None:
         st.storm = None
         ssn._fused_mutlog = None
         storm.release()
-    # The reference feeds the device breaker here; the port's breaker is
-    # consulted but never fed until ROADMAP queue 1 item 11.
-    metrics.note_device_failure("fused")
     for fam in families:
         metrics.note_fused_leg(fam, "failed")
-    shipper = getattr(ssn.cache, "_ship_cache", None)
-    if shipper is not None:
-        shipper.invalidate()
-    trace.note_degraded(
-        f"fused dispatch failed ({type(exc).__name__}); per-family "
-        "re-dispatch")
+    feed_failure("fused",
+                 f"fused dispatch failed ({type(exc).__name__}); per-family "
+                 "re-dispatch", exc, owner=ssn.cache,
+                 what="the fused session dispatch")
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,15 @@ path (``KUBE_BATCH_TPU_PIPELINE=0``).  A candidate-row solve
 (ops/prefilter.py) gathers the prefiltered node rows out of the resident
 inputs and runs the same route on them; the fetch scatters the
 assignment back to full-space rows.
+
+Observability, as in the reference: the ``solver.dispatch`` span covers
+the enqueue and the ``solver.fetch`` span the event wait and the host
+read; each solve counts ``kube_batch_solver_route_total{family=
+"allocate"}`` under its route, ``cuda`` (the kernel), ``torch`` (its
+plain version on the CPU) or ``candidates`` (the gathered rows, on
+either).  The chaos sites ``solve.device_error`` (the dispatch),
+``solve.slow`` and ``solve.poison`` (the readback) are one no-op branch
+each when the chaos engine is off.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..chaos import plan as chaos_plan
 from .scoring import ScoreWeights
 
 
@@ -137,8 +147,10 @@ _inflight = 0  # guarded-by: _inflight_lock
 
 def _note_dispatch(delta: int) -> None:
     global _inflight
+    from ..metrics import metrics
     with _inflight_lock:
         _inflight = max(0, _inflight + delta)
+        metrics.set_solver_inflight(_inflight)
 
 
 def solver_inflight() -> int:
@@ -150,7 +162,8 @@ def solver_inflight() -> int:
 def discard_solve(pending: PendingSolve) -> None:
     """Abandon a dispatched solve without reading it back.  The resident
     input image stays a valid delta baseline: the ship that fed this
-    dispatch completed."""
+    dispatch completed.  It only drops the handle and calls nothing on
+    the device."""
     if pending is not None:
         _note_dispatch(-1)
 
@@ -232,13 +245,21 @@ def _solve_candidates(inp: SolverInputs, cfg: SolverConfig,
     ``choose_solver_mesh`` picks for the gathered inputs (the kernel on
     the card, its plain version on the CPU).  Placement-identical to the
     full program by the prefilter's exactness argument (ops/prefilter.py;
-    tests/test_torch_prefilter.py holds it)."""
+    tests/test_torch_prefilter.py holds it).  Counted under the route
+    ``candidates``."""
+    # Same chaos chokepoint as best_solve_allocate: the candidate path is
+    # still a device dispatch and must feed the breaker under injection.
+    _chaos_dispatch()
+    from ..metrics import metrics
+    from ..trace import spans as trace
+    metrics.note_route("allocate", "candidates")
+    trace.annotate(route="candidates", mesh_devices=1,
+                   candidate_rows=candidates.count)
     dev = inp.node_idle.device
     # The index and valid rows go to the device once per session.
     idx = torch.as_tensor(candidates.idx, dtype=torch.long, device=dev)
     valid = torch.as_tensor(candidates.valid, device=dev)
-    return best_solve_allocate(_gather_candidate_inputs(inp, idx, valid),
-                               cfg)
+    return solve_on_route(_gather_candidate_inputs(inp, idx, valid), cfg)
 
 
 def to_host_async(*tensors, out=None):
@@ -292,16 +313,46 @@ def dispatch_solve(inp: SolverInputs, cfg: SolverConfig,
     (ops/prefilter.CandidateSet) narrows the node axis to the
     prefiltered rows; the fetch remaps the result to full space.  Counts
     one ``solve`` session dispatch, as the reference does."""
-    host = packed_host(inp)
-    if candidates is not None:
-        result = _solve_candidates(inp, cfg, candidates)
-        remap = candidates.remap
-    else:
-        result = best_solve_allocate(inp, cfg)
-        remap = None
     from ..metrics import metrics
+    from ..trace import spans as trace
+    with trace.span("solver.dispatch"):
+        host = packed_host(inp)
+        if candidates is not None:
+            result = _solve_candidates(inp, cfg, candidates)
+            remap = candidates.remap
+        else:
+            result = best_solve_allocate(inp, cfg)
+            remap = None
+        pending = pending_of(result, remap, host)
     metrics.note_session_dispatch("solve")
-    return pending_of(result, remap, host)
+    return pending
+
+
+def _chaos_dispatch() -> None:
+    """The device dispatch fault site (doc/CHAOS.md
+    ``solve.device_error``): one no-op branch when chaos is off."""
+    plan = chaos_plan.PLAN
+    if plan is not None and plan.fire("solve.device_error"):
+        raise RuntimeError("chaos: device solve dispatch failed (injected)")
+
+
+def _chaos_fetch(packed: np.ndarray) -> np.ndarray:
+    """Readback fault sites (doc/CHAOS.md): a slow device (``solve.slow``
+    sleeps before the readback is consumed) and a poisoned readback
+    (``solve.poison`` truncates a column, the shape every consumer must
+    validate before applying).  Poison returns a truncated slice and
+    never writes into ``packed``, which may be a solve's pinned buffer.
+    One no-op branch when chaos is off."""
+    plan = chaos_plan.PLAN
+    if plan is None:
+        return packed
+    slow = plan.fire("solve.slow")
+    if slow is not None:
+        import time
+        time.sleep(0.01 + 0.05 * slow.magnitude)
+    if plan.fire("solve.poison") and packed.shape[-1]:
+        return packed[:, :-1]
+    return packed
 
 
 def fetch_solve(pending: PendingSolve):
@@ -314,14 +365,17 @@ def fetch_solve(pending: PendingSolve):
     full-space node rows here (unplaced rows keep -1), so consumers never
     see program-local indices; ``perm`` indexes tasks, not nodes, and
     passes through unchanged."""
+    from ..trace import spans as trace
     try:
-        if pending.ready is not None:
-            pending.ready.synchronize()
-        packed = pending.packed.numpy()
+        with trace.span("solver.fetch"):
+            if pending.ready is not None:
+                pending.ready.synchronize()
+            packed = pending.packed.numpy()
     finally:
         # Consumed either way: a fetch that raises still retires the
         # handle from the in-flight ledger.
         _note_dispatch(-1)
+    packed = _chaos_fetch(packed)
     assignment, kind, order, perm = packed
     if pending.remap is not None:
         # A placement outside the gathered program's C rows is a
@@ -346,8 +400,11 @@ def fetch_result(result: SolveResult):
     the sequential (``KUBE_BATCH_TPU_PIPELINE=0``) counterpart of
     ``dispatch_solve`` -> ``fetch_solve``.  ``torch.stack`` allocates, so
     the numpy rows never alias the solver's tensors."""
-    packed = torch.stack([result.assignment, result.kind,
-                          result.order]).cpu().numpy()
+    from ..trace import spans as trace
+    with trace.span("solver.fetch"):
+        packed = torch.stack([result.assignment, result.kind,
+                              result.order]).cpu().numpy()
+    packed = _chaos_fetch(packed)
     return packed[0], packed[1], packed[2]
 
 
@@ -361,9 +418,23 @@ def choose_solver_mesh(inp: SolverInputs):
 
 
 def best_solve_allocate(inp: SolverInputs, cfg: SolverConfig) -> SolveResult:
-    """The session solve on the route ``choose_solver_mesh`` picks.  Both
-    routes are placement-identical (tests and chip_smoke.py hold the
-    kernel against the plain version)."""
+    """The session solve on the route ``choose_solver_mesh`` picks, behind
+    the ``solve.device_error`` chaos site and counted under its route.
+    Both routes are placement-identical (tests and chip_smoke.py hold
+    the kernel against the plain version)."""
+    _chaos_dispatch()
+    choice = choose_solver_mesh(inp)[0]
+    from ..metrics import metrics
+    from ..trace import spans as trace
+    metrics.note_route("allocate", choice)
+    trace.annotate(route=choice, mesh_devices=1)
+    return solve_on_route(inp, cfg)
+
+
+def solve_on_route(inp: SolverInputs, cfg: SolverConfig) -> SolveResult:
+    """The kernel for CUDA tensors, its plain version for CPU tensors:
+    no chaos site and no route count (the fused program's allocate leg
+    counts its own ``fused`` route, as the reference's does)."""
     from .cuda_solver import solve_allocate_cuda, solve_allocate_plain
     if choose_solver_mesh(inp)[0] == "cuda":
         return solve_allocate_cuda(inp, cfg)[0]

@@ -214,8 +214,8 @@ def stage_box_inputs(inp: BoxInputs, device) -> BoxInputs:
 def dispatch_box_scan(inp: BoxInputs, shape, device) -> np.ndarray:
     """Route and run one batched box scan on ``device``, returning host
     [N, 6] i32.  The one production chokepoint: the route counter and
-    the dispatch counter live here.  A failure raises: the reference's
-    degrade to the numpy oracle comes with ROADMAP queue 1 item 11."""
+    the dispatch counter live here.  A failure raises to the caller,
+    which degrades to the numpy oracle (actions/topo_allocate.py)."""
     from ..metrics import metrics
     from ..trace import spans as trace
 

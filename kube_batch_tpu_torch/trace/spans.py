@@ -40,6 +40,19 @@ _MAX_VERDICTS = 10_000
 _session_ids = itertools.count(1)  # itertools.count is atomic in CPython
 _tls = threading.local()
 
+# A profiler capture (actions/tpu_allocate.py, KUBE_BATCH_TPU_PROFILE)
+# sets this to ``torch.profiler.record_function``: every span opened while
+# it is set is mirrored into the profile as a range of the same name.
+# None, the default, costs one global read per span.
+_profiler_range = None
+
+
+def set_profiler_range(factory) -> None:
+    """Mirror spans into a profiler (``factory(name)`` -> context
+    manager), or stop with None."""
+    global _profiler_range
+    _profiler_range = factory
+
 
 def enabled() -> bool:
     return knobs.TRACE.enabled()
@@ -94,14 +107,19 @@ class _SpanCtx:
     ``annotate()`` while open are captured; the record's args dict stays
     the same object, so late annotation before export still lands."""
 
-    __slots__ = ("_trace", "name", "args", "_start", "_track", "_depth")
+    __slots__ = ("_trace", "name", "args", "_start", "_track", "_depth",
+                 "_range")
 
     def __init__(self, trace: SessionTrace, name: str, args: Optional[dict]):
         self._trace = trace
         self.name = name
         self.args = args
+        self._range = None
 
     def __enter__(self):
+        if _profiler_range is not None:
+            self._range = _profiler_range(self.name)
+            self._range.__enter__()
         tr = self._trace
         stack = tr._stack
         self._depth = len(stack)
@@ -121,6 +139,9 @@ class _SpanCtx:
         tr.spans.append(SpanRecord(self.name, ts, (end - self._start) * 1e6,
                                    self._track, self._depth,
                                    self.args or {}))
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
+            self._range = None
         return False
 
     def annotate(self, **kv) -> None:
@@ -146,6 +167,23 @@ class _NoopSpan:
 
 
 _NOOP = _NoopSpan()
+
+
+class _RangeOnly(_NoopSpan):
+    """A profiler range for a span opened with no active session."""
+
+    __slots__ = ("_range",)
+
+    def __init__(self, rng):
+        self._range = rng
+
+    def __enter__(self):
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._range.__exit__(exc_type, exc, tb)
+        return False
 
 
 # ----------------------------------------------------------------------
@@ -230,6 +268,8 @@ def span(name: str, **args):
     tracing is off or no session is active (zero locks, zero state)."""
     tr = getattr(_tls, "trace", None)
     if tr is None:
+        if _profiler_range is not None:
+            return _RangeOnly(_profiler_range(name))
         return _NOOP
     return _SpanCtx(tr, name, args or None)
 

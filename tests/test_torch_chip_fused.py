@@ -67,7 +67,8 @@ def test_fused_quiet_phase_one_dispatch_per_session(capsys):
 
 def test_fused_storm_phase_arms_equal(capsys):
     launches = chip_smoke.fused_storm_phase(
-        cuda_solver, "cpu", shape=(1200, 120, 40, 4), device="cpu")
+        cuda_solver, "cpu", shape=(1200, 120, 40, 4), device="cpu",
+        cycles=3)
     lines = _lines(capsys)
     (line,) = lines["fused-storm"]
     assert line["evictions"] > 0 and line["identical_arms"] is True

@@ -45,7 +45,8 @@ def _unfrozen():
 
 
 def test_tenancy_phase_holds_every_dispatch(capsys):
-    chip_smoke.tenancy_phase(cuda_solver, "cpu", device="cpu", shape=SMALL)
+    chip_smoke.tenancy_phase(cuda_solver, "cpu", device="cpu", shape=SMALL,
+                             rounds=4)
     lines = _lines(capsys)
     arms = lines["tenancy-arm"]
     assert [arm["concurrent"] for arm in arms] == [False, True, True, False]

@@ -11,15 +11,14 @@ same binds, events (victim order rides in them) and lineage bind
 samples, and each must match its own sequential
 ``KUBE_BATCH_TPU_CONCURRENT_SHARDS=0`` arm.
 
-Left out, with their ROADMAP items: ``test_concurrent_parity_on_force_
-shard_mesh`` (the sharded route, item 5), and
+Left out: ``test_concurrent_parity_on_force_shard_mesh`` (the sharded
+route, ROADMAP queue 1 item 5).  The twins of
 ``test_device_error_mid_pipeline_degrades_one_shard`` and
-``test_stale_fallback_aborts_to_sequential_rerun`` (the
-``solve.device_error`` and ``solve.poison`` sites and the host
-degradation, items 7 and 11).  In their place, on the port alone: a
-failed fetch of a pipelined session whose predecessor committed raises
+``test_stale_fallback_aborts_to_sequential_rerun`` are in
+tests/test_torch_degrade.py.  On the port alone: a failed fetch of a
+pipelined session whose predecessor committed raises
 ``StaleSessionAbort`` and reruns the shard fresh, and a failed fetch
-without a committed predecessor backs off that shard alone.
+without a committed predecessor degrades that shard to the host oracle.
 """
 
 import logging
@@ -416,6 +415,10 @@ def test_stale_fetch_failure_aborts_to_a_fresh_rerun(monkeypatch):
 
     monkeypatch.setattr(lp.sched_mod.Scheduler, "finish_shard_session",
                         finish)
+    import kube_batch_tpu_torch.chaos.breaker as brk
+    breaker = brk.CircuitBreaker("device_solve", threshold=99,
+                                 cooldown=1.0)
+    monkeypatch.setattr(brk, "_device_breaker", breaker)
     cluster, cache, scheduler, calls = _two_tenant_run(
         lp, monkeypatch, True, fail_calls=(2,))
     assert calls == [1, 2, 3]   # shard 0, shard 1 (fails), the rerun
@@ -430,17 +433,29 @@ def test_stale_fetch_failure_aborts_to_a_fresh_rerun(monkeypatch):
 
 
 def test_fresh_fetch_failure_backs_off_one_shard(monkeypatch):
-    """A failed fetch with no committed predecessor is not stale: it
-    raises out of the retire half, and only that shard backs off while
-    the other binds."""
+    """A failed fetch with no committed predecessor is not stale: the
+    retire half degrades that shard's session to the host oracle, as the
+    reference does, instead of raising — no shard backs off, both shards
+    bind what the sequential arm binds, the failure feeds the breaker
+    once, and only the failing shard's resident image is dropped."""
+    import kube_batch_tpu_torch.chaos.breaker as brk
     lp = Loop("torch")
+    cluster, _, _, _ = _two_tenant_run(lp, monkeypatch, False)
+    seq_binds = bind_map(cluster)
+    breaker = brk.CircuitBreaker("device_solve", threshold=99,
+                                 cooldown=1.0)
+    monkeypatch.setattr(brk, "_device_breaker", breaker)
+    failures = lp.metrics.device_solve_failures.value("solve")
+    real_failure = breaker.failure
+    fed = []
+    breaker.failure = lambda: (fed.append(1), real_failure())[1]
     cluster, _, scheduler, calls = _two_tenant_run(
         lp, monkeypatch, True, fail_calls=(1,))
     assert calls == [1, 2]
     engine = scheduler.tenancy
-    assert engine._failures == {0: 1}
-    assert 0 in engine._next_ok and 1 not in engine._next_ok
-    binds = bind_map(cluster)
-    assert any("/base-1-" in k for k in binds)
-    assert not any("/base-0-" in k for k in binds)
+    assert engine._failures == {}
+    assert bind_map(cluster) == seq_binds
+    assert any("/base-0-" in k for k in seq_binds)
+    assert lp.metrics.device_solve_failures.value("solve") == failures + 1
+    assert fed == [1]
     assert lp.solver.solver_inflight() == 0

@@ -117,15 +117,21 @@ def test_topology_three_family_dispatch_parity():
 def test_device_error_redispatches_per_family(monkeypatch):
     """Chaos site fused.device_error: the fused dispatch fails, every
     staged leg counts ``failed``, the families re-dispatch per family
-    with the FUSED=0 arm's binds, and the port's breaker is not fed
-    (ROADMAP queue 1 item 11)."""
+    with the FUSED=0 arm's binds, and both packages feed the breaker
+    once (stage ``fused``), which the re-dispatched solve's success then
+    resets."""
     def body(p):
         brk = p.mod.chaos_breaker
         fresh = brk.CircuitBreaker("device_solve", threshold=99,
                                    cooldown=1.0)
         monkeypatch.setattr(brk, "_device_breaker", fresh)
+        fed = []
+        real_failure = fresh.failure
+        fresh.failure = lambda: (fed.append(1), real_failure())[1]
         control = session(p, quiet, {"KUBE_BATCH_TPU_FUSED": "0"})
         plan_mod = p.mod.chaos_plan
+        mm = p.mod.metrics_metrics
+        before = mm.device_solve_failures.value("fused")
         plan = plan_mod.install(plan_mod.FaultPlan(
             seed=3, rate=1.0, sites=("fused.device_error",)))
         try:
@@ -134,17 +140,16 @@ def test_device_error_redispatches_per_family(monkeypatch):
             plan_mod.disable()
         return (control, failed,
                 plan.injected().get("fused.device_error", 0),
-                fresh.state(), fresh._failures)
-    control, failed, injected, state, failures = twin(body)
+                fresh.state(), fresh._failures, len(fed),
+                mm.device_solve_failures.value("fused") - before)
+    control, failed, injected, state, failures, fed, counted = twin(body)
     assert injected == 1
     assert failed[:3] == control[:3] and failed[2]
     assert failed[3] == {"evict": 1, "solve": 1}
     assert failed[4] == {"evict/failed": 1, "postevict/failed": 1,
                          "solve/failed": 1}
     assert state == "closed"
-    # Only the port's breaker stays unfed: the reference feeds it once.
-    import kube_batch_tpu_torch.chaos.breaker as torch_breaker
-    assert torch_breaker.device_breaker()._failures == 0
+    assert (fed, counted, failures) == (1, 1, 0)
 
 
 # -- begin-half read fences (tenancy/footprint.py) --------------------------

@@ -15,7 +15,9 @@ allocate leg served, binds), checks that the C host walk
 loaded and the session's apply runs it, runs the topology conf on a 4x4x2
 torus until the slice binds, runs one global ``Scheduler.cycle()`` and one
 tenancy cycle of the concurrent shard pipeline over two dirty shards (both
-must bind), checks that ``TpuAllocateAction()`` without a device raises
+must bind), runs one session that degrades to the host path under
+``solve.device_error`` and binds, checks that ``TpuAllocateAction()``
+without a device raises
 when there is no CUDA, and that no shared object of the reference was
 loaded.
 """
@@ -207,6 +209,26 @@ assert bound_queues == {"q0", "q1"}, bound_queues
 for key in ("KUBE_BATCH_TPU_TENANCY", "KUBE_BATCH_TPU_SHARD_MAP",
             "KUBE_BATCH_TPU_CONCURRENT_SHARDS"):
     del os.environ[key]
+
+# One session that degrades: solve.device_error at rate 1, the host
+# allocate action binds, the failure is counted and the breaker fed.
+from kube_batch_tpu_torch.chaos import plan as chaos_plan
+from kube_batch_tpu_torch.chaos.breaker import device_breaker
+from kube_batch_tpu_torch.metrics.metrics import device_solve_failures
+degraded, degraded_binder = make_synthetic_cache(120, 16, 6, 2)
+failures = device_solve_failures.value("solve")
+plan = chaos_plan.install(chaos_plan.FaultPlan(
+    seed=1, rate=1.0, sites=("solve.device_error",)))
+ssn = open_session(degraded, tiers)
+try:
+    TpuAllocateAction(device="cpu").execute(ssn)
+finally:
+    close_session(ssn)
+    chaos_plan.disable()
+assert plan.injected().get("solve.device_error", 0) == 1
+assert device_solve_failures.value("solve") == failures + 1
+assert degraded_binder.binds and device_breaker()._failures == 1
+device_breaker().reset()
 
 if not torch.cuda.is_available():
     try:

@@ -58,12 +58,19 @@ def test_registries_declare_the_same_knobs():
     assert len(torch_knobs.REGISTRY) >= 40
 
 
+# Help texts that name the port's own tool where the reference names
+# JAX's: (the reference's words, the port's words).
+HELP_WORDS = {"KUBE_BATCH_TPU_PROFILE": ("JAX profiler", "torch.profiler")}
+
+
 @pytest.mark.parametrize("env", sorted(jax_knobs.REGISTRY))
 def test_knob_reads_equal_the_reference(env):
     ref, ours = jax_knobs.REGISTRY[env], torch_knobs.REGISTRY[env]
     for field in ("kind", "default", "parity", "minimum", "clamp_min",
-                  "doc", "help"):
+                  "doc"):
         assert getattr(ours, field) == getattr(ref, field), field
+    assert ours.help == ref.help.replace(*HELP_WORDS.get(env, ("", ""))), \
+        "help"
     assert ours.owner == ref.owner.replace("kube_batch_tpu.",
                                            "kube_batch_tpu_torch.", 1)
     for raw in RAWS:

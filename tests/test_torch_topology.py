@@ -27,7 +27,7 @@ import torch
 from kube_batch_tpu_torch.ops.compile_cache import bucket
 from tests.test_torch_utils import reference_gc_guard  # noqa: F401
 from tests.test_torch_utils import (Pkg, _status_record, build_node,
-                                    environ, twin)
+                                    environ, session_state, twin)
 
 TOPO_CONF = """
 actions: "topo-allocate, tpu-allocate, backfill"
@@ -55,7 +55,7 @@ def mods(pkg):
         for name in ("models.topology", "ops.topo_solver", "chaos.plan",
                      "chaos.breaker", "metrics.metrics", "ops.resources",
                      "models.synthetic", "framework", "api",
-                     "models.incremental")})
+                     "models.incremental", "trace.spans")})
 
 
 @pytest.fixture(autouse=True)
@@ -546,22 +546,50 @@ def test_max_nodes_cap_degrades_and_never_scatters():
 
 
 def test_a_failed_device_scan_raises(monkeypatch):
-    """The reference degrades to the oracle; the port raises until the
-    degradation lands (ROADMAP queue 1 item 11)."""
+    """A failed device box scan degrades to the numpy oracle, as in the
+    reference: the action does not raise, places what the
+    ``TOPO_BATCH=0`` arm places, counts the swallowed scan, and — unlike
+    the reference — also feeds the device breaker under stage ``topo``
+    with a degraded note (a fed breaker is what keeps the fallback
+    from being silent)."""
     m = mods("torch")
+    import kube_batch_tpu_torch.chaos.breaker as brk
+    breaker = brk.CircuitBreaker("device_solve", threshold=99,
+                                 cooldown=1.0)
+    monkeypatch.setattr(brk, "_device_breaker", breaker)
+
+    def arm(batch):
+        with environ({m.topology.TOPO_BATCH_ENV: batch,
+                      "KUBE_BATCH_TPU_FUSED": "0"}):
+            cache, _binder = m.synthetic.make_topo_cache()
+            actions, tiers = Pkg("torch").load(TOPO_CONF)
+            ssn = m.framework.open_session(cache, tiers)
+            m.spans.begin_session()
+            try:
+                actions[0].execute(ssn)
+                notes = m.spans.current_trace().meta.get("degraded", [])
+                return session_state(ssn), list(cache.evictor.evicts), notes
+            finally:
+                m.spans.end_session()
+                m.framework.close_session(ssn)
+
+    oracle = arm("0")
 
     def fail(*_a, **_k):
         raise RuntimeError("device scan failed")
 
     monkeypatch.setattr(m.topo_solver, "box_scan", fail)
-    cache, _binder = m.synthetic.make_topo_cache()
-    actions, tiers = Pkg("torch").load(TOPO_CONF)
-    ssn = m.framework.open_session(cache, tiers)
-    try:
-        with pytest.raises(RuntimeError, match="device scan failed"):
-            actions[0].execute(ssn)
-    finally:
-        m.framework.close_session(ssn)
+    swallowed = m.metrics.swallowed_exceptions.value("topo_box_scan")
+    failures = m.metrics.device_solve_failures.value("topo")
+    state, evicts, notes = arm("1")
+    assert (state, evicts) == oracle[:2] and evicts
+    assert m.metrics.swallowed_exceptions.value("topo_box_scan") \
+        == swallowed + 1
+    assert m.metrics.device_solve_failures.value("topo") == failures + 1
+    assert breaker._failures == 1
+    assert [n for n in notes if "host oracle" in n] == [
+        "topo box scan degraded to the host oracle (RuntimeError: device "
+        "scan failed)"]
 
 
 # ----------------------------------------------------------------------
