@@ -4,11 +4,23 @@
 
 Phases, each printed on its own line:
   1. device: the card's name and power limit; exits non-zero without CUDA;
-  2. build: compiles csrc/solve_session.cu with nvcc and prints the seconds;
+     daemon: kube_batch_tpu_torch.cli.main, run as ``python -m`` runs
+     it, booted three times against a north-star cluster-state file
+     (cold with --warmup-buckets, whose boot builds K1 into
+     build/torch_kernels on a fresh checkout; warm, which must load it
+     without nvcc; a control without warmup), read over HTTP; every pod
+     must land where an in-process cycle of the plain route on the CPU
+     puts it (see daemon_phase);
+  2. build: loads the library the daemon built (nvcc must not run again:
+     csrc/solve_session.cu is compiled in units at once, then linked) and
+     prints the seconds;
      native: the C host walk (native/fastpath.c, built with cc at import)
      must have loaded unless KUBE_BATCH_TPU_NO_NATIVE is set;
   3. kernel against plain: the session-solve kernel must equal its plain
-     PyTorch version exactly (assignment, kind, order, step and the final
+     PyTorch version (run on a CPU copy of the inputs, in three worker
+     processes while this one launches the kernel and drives the main
+     path; compared after it: HostPlains) exactly
+     (assignment, kind, order, step and the final
      node, job and queue buffers) on the test matrix and on cases that
      launch it as clusters of every size its plan takes, in float32 and
      float64; each line names the cluster size and shared memory;
@@ -17,7 +29,7 @@ Phases, each printed on its own line:
      shipper, each followed by dispatch_solve -> fetch_solve on the cuda
      route with the kernel's launch count reset just before and read just
      after; the result is validated, compared once with the plain version
-     on the card (on the full ship's inputs), and timed (7 warm dispatch -> fetch rounds, and the
+     (on the card, on the full ship's inputs), and timed (7 warm dispatch -> fetch rounds, and the
      kernel alone with CUDA events); one more launch with the kernel's
      phase stamps on prints the phase split (`kernel-phases`: cluster
      size, shared memory, microseconds per phase, per placement, per
@@ -38,6 +50,8 @@ Phases, each printed on its own line:
      more warm session per arm under cProfile, outside the timed ones
      (apply-profile: the functions of largest own time under
      Session.batch_apply_solved and under tensorize_session);
+     warmup: SolverWarmup in process on the session phase's cache; the
+     next session must be a compile-cache hit, every launch held;
   6. session-vs-cpu: one 5k x 1k session on the card and on the CPU (the
      plain route) must give the same binds in the same order and the
      same pod-group statuses;
@@ -90,31 +104,35 @@ Phases, each printed on its own line:
      KUBE_BATCH_TPU_PROFILE: the torch.profiler trace, K1's device time,
      the device's busy time and idle share), degrade-solve (the breaker
      cycle at DRILL_SHAPE and a poisoned readback), degrade-evict,
-     degrade-topo, degrade-fused and degrade-shard (see their
-     functions).  On the card a device failure raises DeviceFailure
+     degrade-topo, degrade-fused, degrade-shard and tensorize-limit (a
+     session past the tensorizer's 64 host-port keys: the host path on
+     the card as on the CPU, counted; see their functions).  On the card a device failure raises DeviceFailure
      after the breaker is fed and never runs the host path
      (chaos/breaker.py), so the drills check that the failed session
      raised with nothing mutated, and that the next healthy session
      binds as its control; the fused dispatch's failure re-dispatches
      each family on the card.
 Every phase before the drills runs inside ``guarded``: the device
-failure counter (every stage), the solve-deadline counter and the
-breaker are read before and after it, and a phase that moved either
-counter or left the breaker open fails the script (a ``no-fallback``
-line each).
+failure counter (every stage), the solve-deadline counter, the
+tensorizer-limit counter and the breaker are read before and after it,
+and a phase that moved any of them or left the breaker open fails the
+script (a ``no-fallback`` line each).
 The functions' defaults are the depth the script runs, cut below the
 protocols' earlier depth to keep the script inside its time limit, never
 narrower: 2 tenancy rounds per arm (was 4), the 10,000 and 30,000
 backlogs (2,500 dropped), 3 fused-quiet sessions per arm (was 4), 2
-fused-storm cycles (was 3) and 4 fused-steady rounds (was 6).  The
-session phase keeps 4 sessions per arm and the evict phase its
-off/on/on/off timed cycles.
+fused-storm cycles (was 3), 4 fused-steady rounds (was 6) and 3
+sessions per arm in the session phase (was 4, one cold and two warm;
+cut when the main path's plain version went back on the card).  The
+evict phase keeps its off/on/on/off timed cycles.
 Every launch held against the plain version goes through LaunchLedger:
 where its inputs are byte-equal to a solve already held in this run
 (tenancy-streams' seed-0 solo and the main path's full ship, the arms of
 a phase that stage the same session), the outputs are compared byte for
 byte instead; the kernel table counts both.  ``python3 chip_smoke.py
-fused`` runs the build and the five fused phases alone.
+fused`` runs the build and the five fused phases alone; ``python3
+chip_smoke.py daemon`` runs daemon, the build, a 2-session session
+phase, warmup and tensorize-limit alone.
 Each phase line carries ``t_s``, the seconds since the script started.
 The kernel-vs-plain matrix includes the shapes the kernel once refused:
 2,500 queues in float64 (the queue piece in global memory) and 10 and 20
@@ -132,6 +150,7 @@ import math
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -201,8 +220,47 @@ def compare(kernel_out, plain_out) -> int:
         if a.shape != b.shape or a.dtype != b.dtype:
             raise AssertionError(f"shape/dtype mismatch {a.shape} {a.dtype} "
                                  f"vs {b.shape} {b.dtype}")
-        worst = max(worst, int((a.long() - b.long()).abs().max()))
+        worst = max(worst, int((a.cpu().long() - b.cpu().long()).abs().max()))
     return worst
+
+
+def plain_on_host(job):
+    """One kernel-vs-plain case's plain version on the host's CPU, in a
+    worker process (HostPlains): numpy leaves in, numpy out."""
+    kind, leaves, cfg = job
+    from kube_batch_tpu_torch.ops import cuda_solver
+    torch.set_num_threads(1)
+    res, final = cuda_solver.solve_allocate_plain(
+        kind(*(torch.from_numpy(a) for a in leaves)), cfg)
+    return (tuple(t.numpy() for t in res), tuple(t.numpy() for t in final))
+
+
+class HostPlains:
+    """The plain version of each case of ``cases`` ([(inputs, cfg)]) on
+    the host's CPU, in ``workers`` processes of their own, so that it
+    runs while this process drives the card; ``results()`` waits for
+    them and stops the workers.  Each result is (SolveResult,
+    FinalState) of CPU tensors, as solve_allocate_plain returns."""
+
+    def __init__(self, cases, workers: int = 3):
+        import multiprocessing
+        jobs = [(type(inp), tuple(t.cpu().numpy() for t in inp), cfg)
+                for inp, cfg in cases]
+        self._pool = multiprocessing.get_context("spawn").Pool(workers)
+        self._pending = self._pool.map_async(plain_on_host, jobs,
+                                             chunksize=1)
+
+    def results(self, seconds: float = 900.0) -> list:
+        from kube_batch_tpu_torch.ops.cuda_solver import FinalState
+        from kube_batch_tpu_torch.ops.solver import SolveResult
+        try:
+            out = self._pending.get(seconds)
+        finally:
+            self._pool.terminate()
+            self._pool.join()
+        return [(SolveResult(*map(torch.from_numpy, res)),
+                 FinalState(*map(torch.from_numpy, final)))
+                for res, final in out]
 
 
 def matrix(dtype):
@@ -464,7 +522,7 @@ def native_arm(on: bool):
          native.clone_task_map) = saved
 
 
-def session_phase(cuda_solver, card, sessions=4) -> int:
+def session_phase(cuda_solver, card, sessions=3) -> int:
     """The slice's main path at the north star, in both native arms: the
     C host walk and the NO_NATIVE=1 control (native_arm), each on its own
     make_synthetic_cache built through the cache's ingestion.
@@ -1018,8 +1076,9 @@ def solve_vs_plain(cuda_solver, inputs, cfg, got, remap=None,
     candidate-row solve's assignment.  The plain version runs on the
     host's CPU, on a copy of ``inputs``: the same code on the same
     values, and there a placement costs a few small operations instead
-    of a few kernel launches (``plain_ms`` is the CPU's time).  The main
-    path and the kernel-vs-plain matrix run it on the card."""
+    of a few kernel launches (``plain_ms`` is the CPU's time).  The
+    kernel-vs-plain matrix runs it there too; the main path's north-star
+    check runs it on the card (the kernels line's ``plain_ms``)."""
     inputs = type(inputs)(*(t.cpu() for t in inputs))
     t0 = time.perf_counter()
     res, _ = cuda_solver.solve_allocate_plain(inputs, cfg)
@@ -2471,7 +2530,8 @@ def fused_counters() -> dict:
     counters that a device path which fell back would move: fused legs
     failed, device failures at any stage (the breaker's feed: tensorize,
     solve, evict_solve, fused, topo), solves over the deadline, swallowed
-    exceptions at the fused staging sites and at the box scan."""
+    exceptions at the fused staging sites and at the box scan, and
+    sessions a tensorizer limit sent to the host path."""
     from kube_batch_tpu_torch.metrics import metrics as m
     return dict(
         dispatches=m.session_dispatch_counts(), legs=m.fused_leg_counts(),
@@ -2486,7 +2546,8 @@ def fused_counters() -> dict:
             deadline_overruns=int(m.solve_deadline_exceeded.value()),
             swallowed=int(sum(
                 v for labels, v in m.swallowed_exceptions.values().items()
-                if labels and labels[0] in FUSED_SWALLOW_SITES))))
+                if labels and labels[0] in FUSED_SWALLOW_SITES)),
+            tensorize_limits=sum(m.tensorize_limit_counts().values())))
 
 
 def counters_delta(before: dict, after: dict) -> dict:
@@ -2520,7 +2581,7 @@ def guarded(run, *args, where=None, **kw):
 def no_fallback_since(before: dict, where: str) -> None:
     check_no_fallback(counters_delta(before, fused_counters()), where)
     phase("no-fallback", where=where, device_failures=0,
-          deadline_overruns=0, breaker="closed")
+          deadline_overruns=0, tensorize_limits=0, breaker="closed")
 
 
 def stamped_session(cache, actions, tiers) -> dict:
@@ -3690,9 +3751,649 @@ def profile_phase(cuda_solver, card, out_dir="chiprun_out/profile",
     return len(records)
 
 
+# ---------------------------------------------------------------------------
+# The daemon: boot warmup, K1's build cache, the HTTP surfaces
+# ---------------------------------------------------------------------------
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+DAEMON_DIR = os.path.join(REPO, "build", "daemon")
+# The pod lineage tracks every pod of the north star in the daemon, so
+# its /metrics counts binds by queue (kube_batch_slo_time_to_bind's
+# count per queue); the default ring holds 2,048 pods.
+DAEMON_ENV = {"KUBE_BATCH_TPU_LINEAGE_RING": "65536"}
+
+
+def write_cluster_state(path, shape=NORTH_STAR) -> None:
+    """make_synthetic_cache's cluster as a cluster-state file, as far as
+    load_cluster_state's format carries it (no creation times, no
+    uids): nodes of 16 CPU / 64 GiB, queues of weight 1 + q % 4, gang
+    groups of minMember 4/5 of their pods striped over the queues, and
+    the same pod requests."""
+    n_tasks, n_nodes, n_jobs, n_queues = shape
+    per_job = max(1, n_tasks // n_jobs)
+    cpus = ["250m", "500m", "1", "2"]
+    mems = ["512Mi", "1Gi", "2Gi", "4Gi"]
+    state = dict(
+        nodes=[{"name": f"n{i:05d}", "allocatable": {
+            "cpu": "16", "memory": "64Gi", "pods": 110}}
+            for i in range(n_nodes)],
+        queues=[{"name": f"q{q}", "weight": 1 + q % 4}
+                for q in range(n_queues)],
+        podGroups=[{"name": f"pg{j}", "namespace": "bench",
+                    "minMember": max(1, per_job * 4 // 5),
+                    "queue": f"q{j % n_queues}"} for j in range(n_jobs)],
+        pods=[{"name": f"p{i:06d}", "namespace": "bench",
+               "group": f"pg{min(i // per_job, n_jobs - 1)}",
+               "requests": {"cpu": cpus[i % 4],
+                            "memory": mems[(i // 2) % 4]}}
+              for i in range(n_tasks)])
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(state, fh)
+
+
+def parse_metrics(text: str) -> dict:
+    """{'name{labels}': value} of a Prometheus text exposition."""
+    out = {}
+    for line in text.splitlines():
+        if line and not line.startswith("#"):
+            key, _, value = line.rpartition(" ")
+            out[key] = float(value)
+    return out
+
+
+def metric_total(parsed: dict, name: str) -> float:
+    return sum(v for k, v in parsed.items()
+               if k == name or k.startswith(name + "{"))
+
+
+def metric_by(parsed: dict, name: str, label: str) -> dict:
+    """{label value: value} of one labelled series."""
+    out = {}
+    prefix = f'{name}{{{label}="'
+    for k, v in parsed.items():
+        if k.startswith(prefix):
+            out[k[len(prefix):].split('"', 1)[0]] = v
+    return out
+
+
+def span_split(doc: dict, floor_ms: float = 1.0) -> dict:
+    """Milliseconds by span name of a /debug/trace document (Chrome
+    trace events), the spans of at least ``floor_ms`` in all."""
+    out = {}
+    for ev in doc["traceEvents"]:
+        if ev.get("ph") == "X":
+            out[ev["name"]] = out.get(ev["name"], 0.0) + ev["dur"] / 1e3
+    return {k: v for k, v in sorted(out.items()) if v >= floor_ms}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+# Runs kube_batch_tpu_torch.cli.main as ``python -m`` runs it (runpy,
+# as __main__), with ServerRuntime.stop wrapped to write where every pod
+# landed ({"namespace/name": node}) to argv[1] once the runtime stopped.
+# argv[2] is "cpu" for a rehearsal on the CPU (the daemon itself has no
+# device flag), else empty; the daemon's flags follow.
+DAEMON_LAUNCHER = """
+import json, runpy, sys
+out, device = sys.argv[1], sys.argv[2]
+sys.argv = sys.argv[2:]
+if device:
+    import torch
+    import kube_batch_tpu_torch.device as kdev
+    kdev.resolve_device = lambda d=None: torch.device(device)
+from kube_batch_tpu_torch.cli import server
+stop = server.ServerRuntime.stop
+def stop_and_write(self):
+    stop(self)
+    with open(out, "w") as fh:
+        json.dump({k: p.spec.node_name
+                   for k, p in list(self.cluster.pods.items())}, fh)
+server.ServerRuntime.stop = stop_and_write
+runpy.run_module("kube_batch_tpu_torch.cli.main", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+class Daemon:
+    """One boot of the daemon's entry point (kube_batch_tpu_torch.cli.main,
+    run as ``python -m`` runs it: DAEMON_LAUNCHER) on the card, its output
+    in build/daemon/<name>.log and its placements in
+    build/daemon/<name>.placements.json; ``stop`` sends SIGTERM and waits
+    for a clean exit."""
+
+    def __init__(self, name: str, argv: list, device: str = "cuda"):
+        port = free_port()
+        self.name = name
+        self.base = f"http://127.0.0.1:{port}"
+        self.log_path = os.path.join(DAEMON_DIR, f"{name}.log")
+        self.placements_path = os.path.join(DAEMON_DIR,
+                                            f"{name}.placements.json")
+        if os.path.exists(self.placements_path):
+            os.remove(self.placements_path)
+        self.log = open(self.log_path, "w")
+        self.began = time.time()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", DAEMON_LAUNCHER, self.placements_path,
+             "" if device == "cuda" else device, *argv,
+             "--listen-address", f"127.0.0.1:{port}"],
+            stdout=self.log, stderr=subprocess.STDOUT, cwd=REPO,
+            env=dict(os.environ, **DAEMON_ENV))
+
+    def placements(self) -> dict:
+        """{"namespace/name": node} the stopped daemon wrote."""
+        with open(self.placements_path) as fh:
+            return json.load(fh)
+
+    def tail(self) -> str:
+        self.log.flush()
+        with open(self.log_path) as fh:
+            return fh.read()[-3000:]
+
+    def get(self, path: str):
+        """(status, body text) of GET ``path``; (None, "") while the
+        server does not answer."""
+        import urllib.error
+        import urllib.request
+        try:
+            with urllib.request.urlopen(self.base + path, timeout=10) as r:
+                return r.status, r.read().decode()
+        except urllib.error.HTTPError as exc:
+            return exc.code, exc.read().decode()
+        except OSError:
+            return None, ""
+
+    def json(self, path: str):
+        status, body = self.get(path)
+        if status != 200:
+            raise AssertionError(f"daemon {self.name}: GET {path} -> "
+                                 f"{status}")
+        return json.loads(body)
+
+    def metrics(self) -> dict:
+        status, body = self.get("/metrics")
+        if status != 200:
+            raise AssertionError(f"daemon {self.name}: /metrics -> {status}")
+        return parse_metrics(body)
+
+    def wait(self, what: str, check, seconds: float):
+        """Poll ``check()`` until it returns a truthy value; raise when the
+        daemon exits or ``seconds`` pass."""
+        deadline = time.monotonic() + seconds
+        while True:
+            got = check()
+            if got:
+                return got
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"daemon {self.name} exited with {self.proc.returncode} "
+                    f"before {what}:\n{self.tail()}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"daemon {self.name}: no {what} in "
+                                     f"{seconds} s:\n{self.tail()}")
+            time.sleep(0.2)
+
+    def stop(self, seconds: float = 60.0) -> float:
+        """SIGTERM, then the seconds to a clean exit (exit code 0)."""
+        import signal
+        t0 = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = self.proc.wait(seconds)
+        except subprocess.TimeoutExpired:
+            self.kill()
+            raise AssertionError(f"daemon {self.name} ignored SIGTERM for "
+                                 f"{seconds} s:\n{self.tail()}")
+        self.log.close()
+        if rc != 0:
+            raise AssertionError(f"daemon {self.name} exited with {rc}:\n"
+                                 f"{self.tail()}")
+        return time.perf_counter() - t0
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(30)
+        self.log.close()
+
+
+def library_stamp(path) -> tuple:
+    """(exists, mtime ns) of the kernel library."""
+    try:
+        return True, os.stat(path).st_mtime_ns
+    except OSError:
+        return False, None
+
+
+def k1_launches_by_route(parsed: dict) -> int:
+    """The session solves of a daemon's /metrics that launched K1 on the
+    card: the allocate family's ``cuda`` and ``candidates`` routes and
+    the fused program's dispatches with a ``solve`` leg."""
+    routes = "kube_batch_solver_route_total"
+    total = 0.0
+    for k, v in parsed.items():
+        if k.startswith(routes + "{"):
+            family = k.split('family="', 1)[1].split('"', 1)[0]
+            choice = k.split('choice="', 1)[1].split('"', 1)[0]
+            if (family == "allocate" and choice in ("cuda", "candidates")) \
+                    or (family == "fused" and "solve" in choice.split("+")):
+                total += v
+    return int(total)
+
+
+def daemon_boot(name: str, state_path: str, cache_dir: str, warm: bool,
+                shape: tuple, boot_s: float, device: str = "cuda") -> dict:
+    """One boot of the daemon against ``state_path`` with its K1 build in
+    ``cache_dir``, and with --warmup-buckets at ``shape`` when ``warm``:
+    boot -> /healthz, the first session's end and its stage split
+    (/debug/sessions), the warmup's end and its members (the manifest),
+    every pod bound (/metrics, binds by queue), the tenant table once
+    nothing is pending (/debug/tenants), the counters (compile-cache hits
+    and misses, device failures, deadline overruns, tensorizer limits,
+    the routes that launched K1), then SIGTERM and where every pod
+    landed (``placements``)."""
+    from kube_batch_tpu_torch.ops import compile_cache as cc
+    from kube_batch_tpu_torch.ops import cuda_solver
+    n_tasks = shape[0]
+    lib = cuda_solver.library_path(cache_dir)
+    before = library_stamp(lib)
+    argv = ["--cluster-state", state_path, "--compile-cache-dir", cache_dir]
+    if warm:
+        argv += ["--warmup-buckets", "x".join(map(str, shape))]
+    d = Daemon(name, argv, device)
+    try:
+        healthy = d.wait("/healthz", lambda: d.get("/healthz") == (200, "ok")
+                         and time.time(), boot_s)
+
+        def first_session():
+            status, body = d.get("/debug/sessions")
+            sessions = json.loads(body)["sessions"] if status == 200 else []
+            return sessions[-1] if sessions else None
+
+        first = d.wait("the first session", first_session, boot_s)
+        counts_first = d.metrics()
+        split = span_split(d.json(f"/debug/trace?session={first['session']}"))
+        warmed = {}
+        if warm:
+            def manifest():
+                doc = cc.read_manifest(cache_dir)["warmed"]
+                mine = [e for e in doc.values()
+                        if e.get("warmed_at", 0) >= d.began]
+                return mine or None
+            warmed = d.wait("the warmup's manifest", manifest, boot_s)
+        metrics = d.wait(
+            "every bind", lambda: (lambda m: m if metric_total(
+                m, "kube_batch_slo_time_to_bind_seconds_count") >= n_tasks
+                else None)(d.metrics()), boot_s)
+
+        def settled():
+            doc = d.json("/debug/tenants")
+            rows = doc["queues"]
+            return doc if rows and all(
+                r["pending_jobs"] == 0 for r in rows.values()) else None
+
+        tenants = d.wait("an empty backlog in /debug/tenants", settled, 60)
+        metrics = d.metrics()
+        stop_s = d.stop()
+        placements = d.placements()
+    except BaseException:
+        d.kill()
+        raise
+    after = library_stamp(lib)
+    by_queue = {q: int(v) for q, v in metric_by(
+        metrics, "kube_batch_slo_time_to_bind_seconds_count",
+        "queue").items()}
+    out = dict(
+        boot=name, warmup=warm,
+        library_before=before[0],
+        library_rebuilt=before != after,
+        healthy_s=healthy - d.began,
+        first_session_end_s=(first["start"] + first["duration_ms"] / 1e3
+                             - d.began),
+        first_session_phases_ms=first["phases_ms"],
+        first_session_spans_ms=split,
+        first_session_ms=first["duration_ms"],
+        compile_cache_at_first_session=dict(
+            hits=int(metric_total(counts_first,
+                                  "kube_batch_compile_cache_hits_total")),
+            misses=int(metric_total(
+                counts_first, "kube_batch_compile_cache_misses_total"))),
+        compile_cache=dict(
+            hits=int(metric_total(metrics,
+                                  "kube_batch_compile_cache_hits_total")),
+            misses=int(metric_total(
+                metrics, "kube_batch_compile_cache_misses_total"))),
+        guards=dict(
+            device_failures=int(metric_total(
+                metrics, "kube_batch_device_solve_failures_total")),
+            deadline_overruns=int(metric_total(
+                metrics, "kube_batch_solve_deadline_exceeded_total")),
+            tensorize_limits=int(metric_total(
+                metrics, "kube_batch_tensorize_limit_total"))),
+        binds_by_queue=by_queue,
+        tenants={q: {k: r[k] for k in ("share", "deserved_share",
+                                       "allocated_share", "pending_jobs")}
+                 for q, r in sorted(tenants["queues"].items())},
+        stop_s=stop_s, placements=placements,
+        k1_launches=k1_launches_by_route(metrics) if device == "cuda" else 0)
+    if warm:
+        out["warmup_done_s"] = max(e["warmed_at"] for e in warmed) - d.began
+        out["warmup_compile_ms"] = {e["solver"]: e["compile_ms"]
+                                    for e in warmed}
+        out["library"] = next((e["library"] for e in warmed
+                               if e["solver"] == "cuda"), None)
+        # The warmup's K1 members: the full axis, the gathered rows and
+        # the fused program's allocate leg (no route count: setup).
+        if device == "cuda":
+            out["k1_launches"] += sum(
+                e["solver"] in ("cuda", "candidate", "fused") for e in warmed)
+    return out
+
+
+def placements_differ(got: dict, want: dict) -> int:
+    """How many pods of ``got`` and ``want`` ({"namespace/name": node})
+    are not on the same node in both, a pod missing from one included."""
+    return sum(got.get(k) != want.get(k) for k in set(got) | set(want))
+
+
+def daemon_phase(cuda_solver, card, shape=NORTH_STAR, device="cuda") -> int:
+    """The daemon on the card, booted three times against one
+    cluster-state file of ``shape`` (write_cluster_state): (1) cold, with
+    --warmup-buckets at ``shape`` and --compile-cache-dir the directory
+    the rest of this script loads K1 from (build/torch_kernels), so on a
+    fresh checkout its boot pays the one nvcc build of the run (where a
+    library is there already, it loads it: ``library_before``); (2) the
+    same again, which must load K1 without nvcc (the manifest's
+    ``library`` is ``loaded``, the library file untouched); (3) a control
+    without --warmup-buckets, whose first live solve is a compile-cache
+    miss.  A warmed boot's first live solve is a hit when the warmup's
+    K1 member ended before it, a miss when it raced the warmup (counted
+    as the reference counts it; the cold boot's races the nvcc build);
+    both are printed.  Each boot must bind every pod with no device
+    failure, deadline overrun or tensorizer limit.  Every pod must land
+    on the node one in-process Scheduler cycle of the plain route on the
+    host CPU gives it, on a cache loaded from the same file
+    (in_process_cycle): the daemons' K1 decisions held pod for pod
+    against the plain version; binds by queue and the tenant table must
+    be equal too.  ``device`` is where the boots run (a rehearsal on the
+    CPU builds and launches nothing).  Returns 0: the phase launches K1
+    only in the daemons' processes; their launches, read from each
+    daemon's /metrics routes and warmup manifest, are kept in
+    KEPT["daemon_launches"] for the kernels line."""
+    state_path = os.path.join(DAEMON_DIR, "cluster-state.json")
+    t0 = time.perf_counter()
+    write_cluster_state(state_path, shape)
+    state_s = time.perf_counter() - t0
+    cache_dir = str(cuda_solver.BUILD_DIR)
+    # The reference cycle runs in a thread beside the cold boot, whose
+    # numbers are its load and its nvcc build's; the warm boot and the
+    # control, which are compared, run alone.
+    ref = {}
+
+    def reference():
+        try:
+            ref["cycle"] = in_process_cycle(state_path)
+        except BaseException as exc:  # re-raised below, after the join
+            ref["error"] = exc
+
+    thread = threading.Thread(target=reference, name="daemon-reference")
+    thread.start()
+    try:
+        boots = [daemon_boot("cold", state_path, cache_dir, True, shape, 600,
+                             device)]
+    finally:
+        thread.join()
+    if "error" in ref:
+        raise ref["error"]
+    boots += [daemon_boot("warm", state_path, cache_dir, True, shape, 300,
+                          device),
+              daemon_boot("control", state_path, cache_dir, False, shape,
+                          300, device)]
+    cycle = ref["cycle"]
+    placed = cycle.pop("placements")
+    problems = []
+    for b in boots:
+        b["placements_differ"] = placements_differ(b.pop("placements"),
+                                                   placed)
+        phase("daemon-boot", **b, card=card)
+        if b["placements_differ"]:
+            problems.append(f"{b['boot']}: {b['placements_differ']} pods "
+                            f"landed elsewhere than in-process")
+        if b["binds_by_queue"] != cycle["binds_by_queue"]:
+            problems.append(f"{b['boot']} binds by queue "
+                            f"{b['binds_by_queue']} != in-process "
+                            f"{cycle['binds_by_queue']}")
+        if b["tenants"] != cycle["tenants"]:
+            problems.append(f"{b['boot']} tenants {b['tenants']} != "
+                            f"in-process {cycle['tenants']}")
+        if any(b["guards"].values()):
+            problems.append(f"{b['boot']} guards {b['guards']}")
+    cold, warm, control = boots
+    n_placed = sum(1 for v in placed.values() if v)
+    if n_placed != shape[0]:
+        problems.append(f"in-process binds {n_placed}")
+    # (A rehearsal on the CPU builds no library.)
+    if device == "cuda" and (
+            warm["library"] != "loaded" or warm["library_rebuilt"]
+            or control["library_rebuilt"]):
+        problems.append(
+            f"library: warm {warm['library']} rebuilt "
+            f"{warm['library_rebuilt']}, control rebuilt "
+            f"{control['library_rebuilt']}")
+    if control["compile_cache_at_first_session"] != dict(hits=0, misses=1):
+        problems.append(f"control: the first live solve was not a miss: "
+                        f"{control['compile_cache_at_first_session']}")
+    if problems:
+        raise AssertionError("daemon: " + "; ".join(problems))
+    KEPT["daemon_launches"] = sum(b["k1_launches"] for b in boots)
+    phase("daemon", shape=list(shape), state_file_s=state_s,
+          library_before=cold["library_before"],
+          built_by=cold["library"], second_boot_library=warm["library"],
+          first_solve={b["boot"]: "hit" if b[
+              "compile_cache_at_first_session"]["hits"] else "miss"
+              for b in boots},
+          first_session_end_s={b["boot"]: b["first_session_end_s"]
+                               for b in boots},
+          first_session_ms={b["boot"]: b["first_session_ms"] for b in boots},
+          healthy_s={b["boot"]: b["healthy_s"] for b in boots},
+          warmup_done_s={b["boot"]: b.get("warmup_done_s") for b in boots},
+          binds_by_queue=cycle["binds_by_queue"], placements_held=n_placed,
+          placements_equal_in_process_cpu=True,
+          in_process_load_s=cycle["load_s"],
+          in_process_cycle_s=cycle["cycle_s"], launches=0,
+          k1_launches_in_daemons={b["boot"]: b["k1_launches"]
+                                  for b in boots}, card=card)
+    return 0
+
+
+def in_process_cycle(state_path: str) -> dict:
+    """The daemon phase's reference: one Scheduler cycle with the plain
+    route on the host CPU, on a cache loaded from ``state_path`` as the
+    daemon loads it; where every pod landed, its binds by queue, and the
+    tenant table a second cycle publishes with nothing pending.  Launches
+    nothing on the card, so it runs beside the cold boot
+    (daemon_phase)."""
+    from kube_batch_tpu_torch.cache import Cluster, new_scheduler_cache
+    from kube_batch_tpu_torch.apis.scheduling.v1alpha1 import \
+        GroupNameAnnotationKey
+    from kube_batch_tpu_torch.cli.server import load_cluster_state
+    from kube_batch_tpu_torch.metrics.tenants import tenant_table
+    from kube_batch_tpu_torch.scheduler import Scheduler
+
+    t0 = time.perf_counter()
+    cluster = Cluster()
+    load_cluster_state(cluster, state_path)
+    cache = new_scheduler_cache(cluster)
+    sched = Scheduler(cache, schedule_period=3600, device="cpu")
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if not sched.cycle():
+        raise AssertionError("daemon: the in-process cycle failed")
+    cycle_s = time.perf_counter() - t0
+    queue_of = {key: pg.spec.queue for key, pg in cluster.pod_groups.items()}
+    by_queue = {}
+    for pod in cluster.pods.values():
+        if pod.spec.node_name:
+            group = pod.metadata.annotations[GroupNameAnnotationKey]
+            q = queue_of[f"{pod.metadata.namespace}/{group}"]
+            by_queue[q] = by_queue.get(q, 0) + 1
+    placements = {k: p.spec.node_name for k, p in cluster.pods.items()}
+    sched.cycle()  # publishes the tenant table with nothing pending
+    rows = tenant_table.snapshot()["queues"]
+    return dict(
+        binds_by_queue=by_queue, load_s=load_s, cycle_s=cycle_s,
+        placements=placements,
+        tenants={q: {k: r[k] for k in ("share", "deserved_share",
+                                       "allocated_share", "pending_jobs")}
+                 for q, r in sorted(rows.items())})
+
+
+def warmup_phase(cuda_solver, card, device="cuda", shape=NORTH_STAR) -> int:
+    """SolverWarmup in process at ``shape`` (the north star), on the
+    session phase's C walk cache, then one live tpu-allocate session
+    there.  The in-process
+    signatures are forgotten first (compile_cache.reset_seen), so the
+    session's solve is a hit only because the warmup noted its key.
+    Every K1 launch of the phase — the warmup's three (the full axis, the
+    gathered rows, the fused program's allocate leg) and the session's —
+    is held against the plain version through LaunchLedger; the session
+    binds what the session phase's last warm session bound.  Prints the
+    session's wall time beside the session phase's cold and warm ones
+    (this process is warm already: the daemon phase measures a cold
+    boot).  Returns the K1 launches."""
+    from kube_batch_tpu_torch.metrics import metrics as m
+    from kube_batch_tpu_torch.models.tensor_snapshot import \
+        solver_config_from_tiers
+    from kube_batch_tpu_torch.ops import compile_cache as cc
+    arm = KEPT["session"]
+    cfg = solver_config_from_tiers(arm["tiers"])
+    want = dict(arm["binds"][-1])
+    with incremental_arm(False), LaunchLedger(cuda_solver, device) as ledger:
+        cc.reset_seen()
+        t0 = time.perf_counter()
+        w = cc.SolverWarmup([cc.BucketSpec(*shape)], cfg=cfg,
+                            device=device).start()
+        w.join(300)
+        warm_s = time.perf_counter() - t0
+        if not w.done or w.errors:
+            raise AssertionError(f"warmup: done {w.done}, errors {w.errors}")
+        warm_records = ledger.take()
+        h0, m0 = m.compile_cache_counts()
+        with gc_posture():
+            run = drill_session(arm["cache"], arm["binder"], arm["pods"],
+                                arm["tiers"], arm["action"])
+        h1, m1 = m.compile_cache_counts()
+        session_records = ledger.take()
+        held = ledger.hold(warm_records + session_records, "warmup")
+    if (h1 - h0, m1 - m0) != (1, 0) or len(session_records) != 1 \
+            or len(warm_records) != 3:
+        raise AssertionError(f"warmup: the session's hits/misses "
+                             f"{(h1 - h0, m1 - m0)}, launches "
+                             f"{len(warm_records)} + {len(session_records)}")
+    if dict(run["binds"]) != want:
+        raise AssertionError("warmup: the session's binds differ from the "
+                             "session phase's")
+    runs = arm["runs"]
+    phase("warmup", shape=list(shape), warmup_s=warm_s,
+          members_ms={r.solver: r.compile_ms for r in w.records},
+          session_hits=h1 - h0, session_misses=m1 - m0,
+          wall_ms_after_warmup=run["wall_ms"],
+          session_phase_cold_wall_ms=runs[0][1] * 1e3,
+          session_phase_warm_wall_ms_median=float(
+              np.median([r[1] for r in runs[1:]])) * 1e3,
+          binds=len(want), held=held,
+          launches=len(warm_records) + len(session_records), card=card)
+    return len(warm_records) + len(session_records)
+
+
+# One past the tensorizer's 64 host-port keys.
+PORT_KEYS = 65
+
+
+def tensorize_limit_phase(cuda_solver, card, shape=DRILL_SHAPE,
+                          device="cuda") -> int:
+    """A session at one of the tensorizer's limits, on the card and on
+    the CPU: make_synthetic_cache(*shape) plus one job of PORT_KEYS pods,
+    each asking for its own host port.  The tensorizer cannot stage it,
+    so tpu-allocate runs the host allocate action on either device (the
+    reference's boundary, kept on the card): on the card it must move
+    kube_batch_tensorize_limit_total{reason="host_ports",
+    site="tpu-allocate"} by 1, note it on the session trace, launch no
+    kernel, bind what the CPU binds, and leave every other guard at 0
+    and the breaker closed.  Returns 0 (no K1 launch)."""
+    from kube_batch_tpu_torch.actions.tpu_allocate import TpuAllocateAction
+    from kube_batch_tpu_torch.api import (Container, ContainerPort,
+                                          ObjectMeta, Pod, PodSpec,
+                                          PodStatus, pod_key)
+    from kube_batch_tpu_torch.apis.scheduling import v1alpha1
+    from kube_batch_tpu_torch.chaos.breaker import device_breaker
+    from kube_batch_tpu_torch.metrics import metrics as m
+    from kube_batch_tpu_torch.models.synthetic import make_synthetic_cache
+
+    runs = {}
+    for label, dev in (("card", device), ("cpu", "cpu")):
+        tiers = _register(dev)
+        cache, binder = make_synthetic_cache(*shape)
+        cache.add_pod_group(v1alpha1.PodGroup(
+            metadata=ObjectMeta(name="ports", namespace="bench"),
+            spec=v1alpha1.PodGroupSpec(min_member=1, queue="q0")))
+        for i in range(PORT_KEYS):
+            cache.add_pod(Pod(
+                metadata=ObjectMeta(
+                    name=f"ports-{i}", namespace="bench", uid=f"ports-{i}",
+                    annotations={v1alpha1.GroupNameAnnotationKey: "ports"},
+                    creation_timestamp=float(shape[0] + i)),
+                spec=PodSpec(containers=[Container(
+                    requests={"cpu": "100m", "memory": "128Mi"},
+                    ports=[ContainerPort(host_port=20000 + i)])]),
+                status=PodStatus(phase="Pending")))
+        pods = {pod_key(t.pod): t.pod for job in cache.jobs.values()
+                for t in job.tasks.values()}
+        before, limits = fused_counters(), m.tensorize_limit_counts()
+        with incremental_arm(False), LaunchLedger(cuda_solver, dev) as ledger:
+            run = drill_session(cache, binder, pods, tiers,
+                                TpuAllocateAction(device=dev,
+                                                  dtype=torch.float32))
+        now = m.tensorize_limit_counts()
+        run["limits"] = {k: v - limits.get(k, 0) for k, v in now.items()
+                         if v != limits.get(k, 0)}
+        run["fallback"] = counters_delta(before, fused_counters())["fallback"]
+        run["launches"] = len(ledger.take())
+        runs[label] = run
+    card_run, cpu_run = runs["card"], runs["cpu"]
+    if not card_run["binds"] or dict(card_run["binds"]) != dict(
+            cpu_run["binds"]):
+        raise AssertionError("tensorize-limit: the card's binds differ from "
+                             "the CPU's")
+    for label, run in runs.items():
+        if run["limits"] != {"host_ports/tpu-allocate": 1} \
+                or run["fallback"] != {"tensorize_limits": 1} \
+                or run["launches"] or not any(
+                    "tensorizer limit" in n for n in run["notes"]):
+            raise AssertionError(
+                f"tensorize-limit on the {label}: limits {run['limits']}, "
+                f"guards "
+                f"{run['fallback']}, launches {run['launches']}, notes "
+                f"{run['notes']}")
+    if device_breaker().state() != "closed":
+        raise AssertionError("tensorize-limit: the breaker is not closed")
+    phase("tensorize-limit", shape=list(shape), port_keys=PORT_KEYS,
+          binds=len(card_run["binds"]), binds_equal_cpu=True,
+          limits=card_run["limits"], guards=card_run["fallback"],
+          notes=card_run["notes"], launches=0,
+          wall_ms={label: run["wall_ms"] for label, run in runs.items()},
+          card=card)
+    return 0
+
+
 DRILL_PHASES = (degrade_deadline_phase, profile_phase, degrade_solve_phase,
                 degrade_evict_phase, degrade_topo_phase, degrade_fused_phase,
-                degrade_shard_phase)
+                degrade_shard_phase, tensorize_limit_phase)
 
 
 def main() -> int:
@@ -3701,6 +4402,8 @@ def main() -> int:
         return 1
     if sys.argv[1:] == ["fused"]:
         return fused_only()
+    if sys.argv[1:] == ["daemon"]:
+        return daemon_only()
     from kube_batch_tpu_torch.models.shipping import resident_shipper
     from kube_batch_tpu_torch.models.synthetic import make_synthetic_inputs
     from kube_batch_tpu_torch.ops import cuda_solver
@@ -3711,29 +4414,37 @@ def main() -> int:
     phase("device", card=card, torch=torch.__version__,
           cuda=torch.version.cuda, count=torch.cuda.device_count())
 
+    # The daemon boots first: its cold boot builds K1 into the directory
+    # this process then loads it from.
+    daemon_launches = guarded(daemon_phase, cuda_solver, card)
     main_before = fused_counters()
     began = time.perf_counter()
     cuda_solver.build_kernel()
     phase("build", seconds=time.perf_counter() - began,
+          built=cuda_solver._Kernel.built,
+          library=str(cuda_solver._Kernel.path),
           ptxas=cuda_solver._Kernel.build_log.strip().splitlines()[-6:])
+    if cuda_solver._Kernel.built:
+        raise AssertionError("build: the script ran nvcc a second time "
+                             "after the daemon's cold boot built K1")
     from kube_batch_tpu_torch import native
     phase("native", **native.status())
     if not native.status()["loaded"] \
             and not os.environ.get("KUBE_BATCH_TPU_NO_NATIVE"):
         raise AssertionError("the C host walk did not load")
 
-    for dtype in (torch.float32, torch.float64):
-        for name, (inp, cfg) in matrix(dtype):
-            kout = cuda_solver.solve_allocate_cuda(inp, cfg)
-            wait_device(f"the kernel on {name}")
-            pout = cuda_solver.solve_allocate_plain(inp, cfg)
-            err = compare(kout, pout)
-            if err:
-                raise AssertionError(f"kernel != plain on {name} {dtype}: "
-                                     f"max abs err {err}")
-            phase("kernel-vs-plain", case=name, dtype=str(dtype),
-                  steps=int(kout[0].step), max_abs_err=err,
-                  **plan_fields(cuda_solver, inp, cfg))
+    # The matrix's plain versions run on the host's CPU, as the holds run
+    # them (the same code on the same values, faster there), in worker
+    # processes while this process launches the kernel on each case and
+    # drives the main path; they are compared once the main path is done.
+    cases = [(dtype, name, inp, cfg)
+             for dtype in (torch.float32, torch.float64)
+             for name, (inp, cfg) in matrix(dtype)]
+    host_plains = HostPlains([(inp, cfg) for _, _, inp, cfg in cases])
+    kouts = []
+    for dtype, name, inp, cfg in cases:
+        kouts.append(cuda_solver.solve_allocate_cuda(inp, cfg))
+        wait_device(f"the kernel on {name}")
 
     # ---- the main path at the north-star shape ---------------------------
     inp, cfg = make_synthetic_inputs(*NORTH_STAR, seed=0,
@@ -3785,7 +4496,8 @@ def main() -> int:
         raise AssertionError("a clean ship changed the solve's result")
 
     # Once against the plain version on the card, on the full ship's
-    # inputs (cloned above: the delta ship rewrote the resident leaves).
+    # inputs (cloned above: the delta ship rewrote the resident leaves):
+    # plain_ms is the card's time for the plain version.
     shipped, fetched = full, results[0][1]
     kout = cuda_solver.solve_allocate_cuda(shipped, cfg)
     torch.cuda.synchronize()
@@ -3843,9 +4555,21 @@ def main() -> int:
           dispatch_fetch_ms_all=rounds, kernel_ms=kernel_ms,
           plain_ms=plain_ms, **bound, card=card)
 
+    for (dtype, name, inp, cfg), kout, pout in zip(
+            cases, kouts, host_plains.results()):
+        err = compare(kout, pout)
+        if err:
+            raise AssertionError(f"kernel != plain on {name} {dtype}: "
+                                 f"max abs err {err}")
+        phase("kernel-vs-plain", case=name, dtype=str(dtype),
+              steps=int(kout[0].step), max_abs_err=err,
+              **plan_fields(cuda_solver, inp, cfg))
+    del cases, kouts
+
     no_fallback_since(main_before, "main-path")
 
     session_launches = guarded(session_phase, cuda_solver, card)
+    warmup_launches = guarded(warmup_phase, cuda_solver, card)
     guarded(session_vs_cpu_phase, cuda_solver)
     steady_launches = guarded(steady_phase, cuda_solver, card)
     evict_launches = guarded(evict_phase, cuda_solver, card)
@@ -3867,10 +4591,14 @@ def main() -> int:
         "name": "solve_session", "route": "cuda",
         "source": "kube_batch_tpu_torch/csrc/solve_session.cu",
         "replaces": "kube_batch_tpu/ops/pallas_solver.py:60",
-        "launches": (session_launches + steady_launches + evict_launches
+        "launches": (daemon_launches + session_launches + warmup_launches
+                     + steady_launches + evict_launches
                      + topo_launches + streams_launches + tenancy_launches
                      + backlog_launches + loop_launches + fused_launches
                      + drill_launches),
+        # K1's launches in the daemons' own processes (their /metrics
+        # routes and warmup manifests), held pod for pod by placement.
+        "launches_in_daemons": KEPT.get("daemon_launches", 0),
         "held_vs_plain": LaunchLedger.counts["plain"],
         "held_byte_equal": LaunchLedger.counts["byte_equal"],
         "max_abs_err": max_err,
@@ -3896,6 +4624,27 @@ def fused_only() -> int:
     phase("build", seconds=time.perf_counter() - began)
     launches = sum(guarded(run, cuda_solver, card) for run in FUSED_PHASES)
     phase("fused-only", launches=launches, held=LaunchLedger.counts)
+    return 0
+
+
+def daemon_only() -> int:
+    """``python3 chip_smoke.py daemon``: the daemon phase, the build (a
+    load), a 2-session session phase, warmup and tensorize-limit alone
+    (a shorter run while working on them); prints no kernels line and no
+    result line."""
+    from kube_batch_tpu_torch.ops import cuda_solver
+    card = card_line()
+    phase("device", card=card, torch=torch.__version__,
+          cuda=torch.version.cuda, count=torch.cuda.device_count())
+    launches = guarded(daemon_phase, cuda_solver, card)
+    began = time.perf_counter()
+    cuda_solver.build_kernel()
+    phase("build", seconds=time.perf_counter() - began,
+          built=cuda_solver._Kernel.built)
+    launches += guarded(session_phase, cuda_solver, card, sessions=2)
+    launches += guarded(warmup_phase, cuda_solver, card)
+    launches += tensorize_limit_phase(cuda_solver, card)
+    phase("daemon-only", launches=launches, held=LaunchLedger.counts)
     return 0
 
 

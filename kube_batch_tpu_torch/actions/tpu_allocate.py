@@ -8,7 +8,9 @@ the CPU), then apply the placements back through the session so plugins,
 gang dispatch and binders observe exactly the same sequence of events as
 the host allocate action.  The tensorizer's expressiveness gaps
 (``snap.needs_fallback``) run the host allocate action, as in the
-reference.
+reference, on the card too; each such session is counted in
+``kube_batch_tensorize_limit_total{reason, site}``, noted on its trace
+and logged (the reference gives no signal).
 
 The action owns its device and float key type: CUDA unless the caller
 asks for the CPU, float32 unless it asks for float64.  A device failure
@@ -291,8 +293,12 @@ class TpuAllocateAction(Action):
         stages["tensorize"] = time.perf_counter() - t0
         if snap.needs_fallback:
             # A tensorization GAP, not a device failure: the reference's
-            # expressiveness boundary, where the host oracle serves.  The
-            # fallback mutates the session and binds: retire-phase work.
+            # expressiveness boundary, where the host oracle serves, on
+            # the card too — counted, noted and logged.  The fallback
+            # mutates the session and binds: retire-phase work.
+            from ..models.tensor_snapshot import note_tensorize_limit
+            note_tensorize_limit(snap, "tpu-allocate",
+                                 "the host allocate action")
             ssn._pipeline_reads_all = True
             return lambda: self._run_host_fallback(ssn)
         metrics.observe_tpu_transfer_latency(time.time() - start)

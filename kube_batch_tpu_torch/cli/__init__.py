@@ -1,13 +1,16 @@
-"""Process runtime (L6), as far as the port has it: leader election.
+"""Process runtime (L6): flags, server, metrics endpoint, leader election.
 
-Counterpart of kube_batch_tpu/cli/.  Only ``leader_election`` is ported
-(the shard leases of tenancy/leases.py build on its ``StoreLock``); the
-flags, the server runtime and the metrics endpoint come with the wire
-slice (ROADMAP queue 1 item 9).
+Counterpart of kube_batch_tpu/cli/.  ``main`` boots the daemon on the
+card; ``ServerRuntime`` also runs on the CPU when its caller passes
+``device="cpu"``.
 """
 
+from .options import ServerOption, parse_options
+from .server import ServerRuntime, start_metrics_server, load_cluster_state
 from .leader_election import (FileLock, LeaderElectionConfig, LeaderElector,
                               StoreLock, cas_release)
 
-__all__ = ["FileLock", "LeaderElectionConfig", "LeaderElector", "StoreLock",
+__all__ = ["ServerOption", "parse_options", "ServerRuntime",
+           "start_metrics_server", "load_cluster_state",
+           "FileLock", "LeaderElectionConfig", "LeaderElector", "StoreLock",
            "cas_release"]

@@ -903,17 +903,46 @@ int launch(const SolveArgs& a, cudaStream_t s, int* clusters) {
   return static_cast<int>(cudaGetLastError());
 }
 
+}  // namespace
+
+// Each instantiation behind one function of external linkage, so that a
+// build compiles them in separate units in parallel and links the units
+// (ops/cuda_solver.build_kernel): a unit, built with KBT_UNIT_T,
+// KBT_UNIT_STAMP and KBT_UNIT_CHIP, defines the three kR instantiations
+// of one (T, kStamp, kOnChip); the entry unit, built without them,
+// dispatches to all 24 and carries the C interface.
+template <typename T, bool kStamp, int kR, bool kOnChip>
+int launch_instance(const SolveArgs& a, cudaStream_t s, int* clusters);
+
+#ifdef KBT_UNIT_T
+
+template <typename T, bool kStamp, int kR, bool kOnChip>
+int launch_instance(const SolveArgs& a, cudaStream_t s, int* clusters) {
+  return launch<T, kStamp, kR, kOnChip>(a, s, clusters);
+}
+
+template int launch_instance<KBT_UNIT_T, KBT_UNIT_STAMP, 2, KBT_UNIT_CHIP>(
+    const SolveArgs&, cudaStream_t, int*);
+template int launch_instance<KBT_UNIT_T, KBT_UNIT_STAMP, kMaxR, KBT_UNIT_CHIP>(
+    const SolveArgs&, cudaStream_t, int*);
+template int launch_instance<KBT_UNIT_T, KBT_UNIT_STAMP, kAnyR, KBT_UNIT_CHIP>(
+    const SolveArgs&, cudaStream_t, int*);
+
+#else
+
+namespace {
+
 template <typename T, bool kStamp>
 int launch_for(const SolveArgs& a, cudaStream_t s, int* clusters) {
   const bool on_chip = a.smem_rows == a.rows && a.queue_smem;
   if (a.r <= 2)
-    return on_chip ? launch<T, kStamp, 2, true>(a, s, clusters)
-                   : launch<T, kStamp, 2, false>(a, s, clusters);
+    return on_chip ? launch_instance<T, kStamp, 2, true>(a, s, clusters)
+                   : launch_instance<T, kStamp, 2, false>(a, s, clusters);
   if (a.r <= kMaxR)
-    return on_chip ? launch<T, kStamp, kMaxR, true>(a, s, clusters)
-                   : launch<T, kStamp, kMaxR, false>(a, s, clusters);
-  return on_chip ? launch<T, kStamp, kAnyR, true>(a, s, clusters)
-                 : launch<T, kStamp, kAnyR, false>(a, s, clusters);
+    return on_chip ? launch_instance<T, kStamp, kMaxR, true>(a, s, clusters)
+                   : launch_instance<T, kStamp, kMaxR, false>(a, s, clusters);
+  return on_chip ? launch_instance<T, kStamp, kAnyR, true>(a, s, clusters)
+                 : launch_instance<T, kStamp, kAnyR, false>(a, s, clusters);
 }
 
 template <bool kStamp>
@@ -944,3 +973,5 @@ extern "C" const char* kbt_error_string(int code) {
            "(cudaOccupancyMaxActiveClusters returned 0)";
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
+
+#endif  // KBT_UNIT_T

@@ -268,15 +268,18 @@ PIPELINE = _knob(
     "KUBE_BATCH_TPU_PIPELINE", "flag-on", True, "doc/PIPELINE.md",
     "Async dispatch window overlapping host commit with device solve",
     parity=True, owner="kube_batch_tpu_torch.actions.tpu_allocate")
+# lint: disable=knob-registry (the mesh route reads it, ROADMAP queue 1 item 5)
 SHARD_NODES = _knob(
     "KUBE_BATCH_TPU_SHARD_NODES", "int", 16384, "doc/SHARDING.md",
     "Node-count threshold that routes a session to the sharded solver",
     owner="kube_batch_tpu_torch.ops.solver")
+# lint: disable=knob-registry (the mesh route reads it, ROADMAP queue 1 item 5)
 SHARD_BYTES = _knob(
     "KUBE_BATCH_TPU_SHARD_BYTES", "int", 256 * 1024 * 1024,
     "doc/SHARDING.md",
     "Session tensor-footprint threshold for the sharded solver, bytes",
     owner="kube_batch_tpu_torch.ops.solver")
+# lint: disable=knob-registry (the mesh route reads it, ROADMAP queue 1 item 5)
 FORCE_SHARD = _knob(
     "KUBE_BATCH_TPU_FORCE_SHARD", "flag-opt-in", False, "doc/SHARDING.md",
     "Force the sharded solver regardless of thresholds (1 forces)",
@@ -301,14 +304,17 @@ BREAKER_COOLDOWN_S = _knob(
     owner="kube_batch_tpu_torch.chaos.breaker")
 
 # -- edge / ingest ----------------------------------------------------
+# lint: disable=knob-registry (the edge reads it, ROADMAP queue 1 item 9a)
 WIRE_SHARD = _knob(
     "KUBE_BATCH_TPU_WIRE_SHARD", "flag-on", True, "doc/INGEST.md",
     "Shard-scoped watch registration (0 mirrors the full cluster)",
     parity=True, owner="kube_batch_tpu_torch.edge.wire_shard")
+# lint: disable=knob-registry (the edge reads it, ROADMAP queue 1 item 9a)
 LAZY_MIRROR = _knob(
     "KUBE_BATCH_TPU_LAZY_MIRROR", "flag-on", True, "doc/INGEST.md",
     "Lazy out-of-scope mirror hydration on the edge client",
     parity=True, owner="kube_batch_tpu_torch.edge.wire_shard")
+# lint: disable=knob-registry (the edge reads it, ROADMAP queue 1 item 9a)
 BASELINE_BUDGET = _knob(
     "KUBE_BATCH_TPU_BASELINE_BUDGET", "spec", None, "doc/INGEST.md",
     "Bounded baseline store budget spec; malformed raises",

@@ -418,6 +418,16 @@ device_solve_failures = registry.register(Counter(
     f"{SUBSYSTEM}_device_solve_failures_total",
     "Device-path failures degraded to the host path, by stage",
     ("stage",)))
+# The port's own (the reference has none): sessions the tensorizer could
+# not stage (more than 64 host-port keys or 32 affinity selectors, a
+# fractional pod-affinity weight, an int32 overflow, or a conf it does
+# not express), which the host path then ran — the reference's
+# expressiveness boundary, made visible (models/tensor_snapshot.py
+# ``note_tensorize_limit``).
+tensorize_limits = registry.register(Counter(
+    f"{SUBSYSTEM}_tensorize_limit_total",
+    "Sessions the tensorizer could not stage and the host path ran, by "
+    "reason and call site", ("reason", "site")))
 bind_ambiguous = registry.register(Counter(
     f"{SUBSYSTEM}_bind_ambiguous_total",
     "Binds whose POST was delivered but whose outcome needed proof, by "
@@ -941,6 +951,18 @@ def note_device_failure(stage: str) -> None:
     """Count one device-path failure degraded to the host path (the
     breaker's feed — stage is tensorize | solve | evict_solve)."""
     device_solve_failures.inc(1.0, stage)
+
+
+def note_tensorize_limit(reason: str, site: str) -> None:
+    """Count one session a tensorizer limit sent to the host path."""
+    tensorize_limits.inc(1.0, reason, site)
+
+
+def tensorize_limit_counts() -> Dict[str, int]:
+    """{"reason/site": count} so far."""
+    return {f"{labels[0]}/{labels[1]}": int(v)
+            for labels, v in tensorize_limits.values().items()
+            if len(labels) == 2}
 
 
 def note_bind_ambiguous(outcome: str) -> None:

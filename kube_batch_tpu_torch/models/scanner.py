@@ -12,7 +12,8 @@ Statement's commit/discard transaction.
 The scanner only accelerates; decisions (victim chains, Statement
 semantics, gang commit conditions) stay on the host action.  Sessions the
 tensorizer can't express (``snap.needs_fallback``) run the pure-host
-walk, as in the reference.  A device FAILURE — the scanner's tensorize,
+walk, as in the reference, on the card too; each is counted in
+``kube_batch_tensorize_limit_total``, noted and logged.  A device FAILURE — the scanner's tensorize,
 the batched eviction dispatch, or the fused evict leg's readback —
 feeds the shared device breaker (chaos/breaker.feed_failure).  On the
 CPU it then degrades to the host walk or to per-profile host scoring, as
@@ -121,7 +122,11 @@ def _build_scanner(ssn, use_shipper: bool = False, device=None,
                      owner=ssn.cache, breaker=breaker,
                      what="the eviction scanner", device=device)
         return None
-    if snap.needs_fallback or not (snap.tasks or snap.tasks_extra):
+    if snap.needs_fallback:
+        from .tensor_snapshot import note_tensorize_limit
+        note_tensorize_limit(snap, "scanner", "the eviction host walk")
+        return None
+    if not (snap.tasks or snap.tasks_extra):
         return None
     device_inputs = None
     if use_shipper and _shipper_wanted(device):
@@ -514,8 +519,10 @@ class DeviceNodeScanner:
             # a small evict solve succeeding must not mask an allocate
             # solve that errors or overruns its deadline every session.
             breaker.success()
-        # The reference notes evict_solve_key in its compile cache here;
-        # the port's warmup ledger comes with ROADMAP queue 1 item 8.
+        from ..ops.compile_cache import note_solve_key
+        note_solve_key(evict_solver.evict_solve_key(
+            self.cfg, self.r, self.np_pad, self.ns_pad, self.dyn.shape[0],
+            kb, mb, int(self.statics.sig_mask.shape[0]), route="torch"))
         pos = len(self._edit_log)
         for i, key in enumerate(keys):
             self._score_cache[key] = [mat[i], pos]

@@ -11,6 +11,7 @@ jitted solver compiles once per bucket, not once per cluster state
 from __future__ import annotations
 
 import functools
+import logging
 import operator
 import time
 from dataclasses import dataclass, field
@@ -26,6 +27,8 @@ from ..metrics import memledger
 # compile-cache key space); re-exported here for the existing callers.
 from ..ops.compile_cache import bucket  # noqa: F401
 from ..plugins.nodeorder import NodeOrderPlugin
+
+log = logging.getLogger(__name__)
 
 _F = np.float64  # host-side staging dtype; cast at device put
 
@@ -44,6 +47,9 @@ class TensorSnapshot:
     queue_ids: List[str] = field(default_factory=list)
     resource_names: List[str] = field(default_factory=list)
     fallback_reason: str = ""       # non-empty -> host path required
+    # The limit the reason names, as the tensorize-limit counter's label
+    # (host_ports, selectors, fractional_weight, int32_overflow or conf).
+    limit: str = ""
     task_job: Optional[np.ndarray] = None    # [P_real] i32 job index
     # Persistent object-array mirror of ``tasks`` (the staging layer's
     # stage_tasks_arr) when the fast-stage path served this session:
@@ -1143,10 +1149,37 @@ def tensorize_session(ssn, dtype: torch.dtype) -> TensorSnapshot:
             tc._mem_refresh()
 
 
+def _at_limit(snap: TensorSnapshot, limit: str,
+              reason: str) -> TensorSnapshot:
+    """Mark ``snap`` past one of the tensorizer's limits: ``reason`` is
+    the reference's text, ``limit`` the counter's label."""
+    snap.limit, snap.fallback_reason = limit, reason
+    return snap
+
+
+def note_tensorize_limit(snap: TensorSnapshot, site: str, what: str) -> None:
+    """Signal one session that reached a limit of the tensorizer
+    (``snap.needs_fallback``) before ``site`` runs ``what`` on the host:
+    ``kube_batch_tensorize_limit_total{reason, site}``, a ``degraded``
+    note on the session trace and a warning.  The host run itself is the
+    reference's expressiveness boundary, on the card too: its binds are
+    the reference's."""
+    from ..metrics import metrics
+    from ..trace import spans as trace
+    metrics.note_tensorize_limit(snap.limit, site)
+    trace.note_degraded(f"tensorizer limit ({snap.fallback_reason}); "
+                        f"{site} ran {what}")
+    log.warning("%s: the tensorizer cannot stage this session (%s); %s "
+                "runs on the host", site, snap.fallback_reason, what)
+
+
 def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
     # Chaos site: tensorize is the device pipeline's first failure surface
-    # (doc/CHAOS.md site ``session.tensorize``); its consumers degrade to
-    # the host path and feed the device breaker.  No-op branch when off.
+    # (doc/CHAOS.md site ``session.tensorize``); its consumers feed the
+    # device breaker (chaos/breaker.feed_failure), then on the card they
+    # raise DeviceFailure with nothing mutated and only on the CPU do
+    # they degrade to the host path (host_path_allowed).  No-op branch
+    # when off.
     from ..chaos import plan as _chaos_plan
     plan = _chaos_plan.PLAN
     if plan is not None and plan.fire("session.tensorize"):
@@ -1161,8 +1194,7 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
     # ---- plugin structure -> static config (shared with the warmup) ------
     struct, reason = plugin_structure(ssn.tiers)
     if reason:
-        snap.fallback_reason = reason
-        return snap
+        return _at_limit(snap, "conf", reason)
     enabled_job_order = struct["job_order"]
     enabled_queue_order = struct["queue_order"]
     has_gang = struct["has_gang"]
@@ -1501,25 +1533,25 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
     if w_podaff:
         for _row, _g, w in paff_rows:
             if w != int(w):
-                snap.fallback_reason = "fractional pod-affinity term weight"
-                return snap
+                return _at_limit(snap, "fractional_weight",
+                                 "fractional pod-affinity term weight")
         for _row, _g, w in panti_rows:
             if w != int(w):
-                snap.fallback_reason = "fractional pod-affinity term weight"
-                return snap
+                return _at_limit(snap, "fractional_weight",
+                                 "fractional pod-affinity term weight")
     used_pg = sorted({g for _row, g in port_rows})
     np_real = len(used_pg)
     if np_real > _MAX_PORT_KEYS:
-        snap.fallback_reason = f"{np_real} distinct host-port keys"
-        return snap
+        return _at_limit(snap, "host_ports",
+                         f"{np_real} distinct host-port keys")
     used_sel = sorted({g for _row, g in aff_rows}
                       | {g for _row, g in anti_rows}
                       | {g for _row, g, _w in paff_rows}
                       | {g for _row, g, _w in panti_rows})
     ns_real = len(used_sel)
     if ns_real > _MAX_SELECTORS:
-        snap.fallback_reason = f"{ns_real} distinct affinity selectors"
-        return snap
+        return _at_limit(snap, "selectors",
+                         f"{ns_real} distinct affinity selectors")
     plocal = {g: i for i, g in enumerate(used_pg)}
     slocal = {g: i for i, g in enumerate(used_sel)}
     np_pad = bucket(max(np_real, 1))
@@ -1642,8 +1674,8 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
         # so fraction + pod-affinity + bonus can never jointly wrap int32.
         if (_mws(weights) * 10 + row_w * cnt_bound) * _K \
                 > np.iinfo(np.int32).max // 2:
-            snap.fallback_reason = "pod-affinity score overflows int32"
-            return snap
+            return _at_limit(snap, "int32_overflow",
+                             "pod-affinity score overflows int32")
 
     # ---- static predicate mask [S, N] + static score bonus ----------------
     s_real = max(len(sig_tuples), 1)
@@ -1767,8 +1799,8 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
         from ..ops.resources import SCORE_GRID_K as _K_b
         if (_mws_b(weights) * 10 * _K_b + int(np.abs(sig_bonus).max())
                 > np.iinfo(np.int32).max // 2):
-            snap.fallback_reason = "node-affinity score overflows int32"
-            return snap
+            return _at_limit(snap, "int32_overflow",
+                             "node-affinity score overflows int32")
 
     # Resource tensors quantize to int32 fixed point (ops/resources.py:
     # milli-cpu / MiB / milli-scalar, every epsilon exactly 10 quanta) so
@@ -1808,8 +1840,8 @@ def _tensorize_session_impl(ssn, dtype: torch.dtype) -> TensorSnapshot:
               + np.abs(job_init_q64).sum(axis=0).max()
               + np.abs(queue_alloc_q64).sum(axis=0).max())
     if max(hi, acc) > np.iinfo(np.int32).max:
-        snap.fallback_reason = "resource magnitude overflows int32 quanta"
-        return snap
+        return _at_limit(snap, "int32_overflow",
+                         "resource magnitude overflows int32 quanta")
     task_req_q = np.ascontiguousarray(task_req_q64, dtype=np.int32)
     task_res_q = np.ascontiguousarray(task_res_q64, dtype=np.int32)
     job_init_alloc_q = np.ascontiguousarray(job_init_q64, dtype=np.int32)

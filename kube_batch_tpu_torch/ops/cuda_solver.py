@@ -33,9 +33,11 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -47,6 +49,8 @@ from .fairness import safe_share
 from .resources import EPS_QUANTA, SCORE_GRID_K
 from .scoring import SCORE_NEG_INF
 from .solver import SolveResult, SolverConfig, SolverInputs
+
+log = logging.getLogger(__name__)
 
 # Threads of one CTA (kThreads in the kernel), the shared memory one CTA
 # may hold on an H100, and the cluster sizes the kernel launches with (16
@@ -65,7 +69,16 @@ _SRC = Path(__file__).resolve().parents[1] / "csrc" / "solve_session.cu"
 # Inside the checkout and listed in .gitignore; built at first use.
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+              "-Xcompiler", "-fPIC")
+# The build's units, compiled at once and linked into one library: each
+# defines the three kR instantiations of one (float type, phase stamps,
+# on-chip) combination (csrc/solve_session.cu ``launch_instance``); the
+# entry unit, with none of these macros, dispatches and carries the C
+# interface.
+UNITS = tuple((t, s, c) for t in ("float", "double")
+              for s in ("false", "true") for c in ("true", "false"))
 
 
 def _pad8(x: int) -> int:
@@ -661,45 +674,166 @@ class SolveArgs(ctypes.Structure):
 
 
 class _Kernel:
+    """The loaded library and how this process came by it.  ``lock``
+    guards the check-and-set of ``lib``: a warmup thread and the
+    scheduler thread that reach the first build together share one
+    ``nvcc`` run (ops/compile_cache.py starts the warmup at boot)."""
     lib = None
     build_seconds = None
     build_log = ""
+    # True when this process ran nvcc, False when it loaded a library
+    # an earlier build left in the build directory; None before either.
+    built = None
+    path = None
+    # Where the library is looked for and built; None is BUILD_DIR
+    # (``set_build_dir``, the compile cache's directory).
+    build_dir = None
+    lock = threading.Lock()
+
+
+def kernel_tag() -> str:
+    """The library's key: a hash of the kernel's source, its flags and
+    its units."""
+    src = _SRC.read_bytes()
+    how = repr((NVCC_FLAGS, LINK_FLAGS, UNITS)).encode()
+    return hashlib.sha256(src + how).hexdigest()[:16]
+
+
+def _unit_flags(unit) -> list:
+    t, stamp, chip = unit
+    return [f"-DKBT_UNIT_T={t}", f"-DKBT_UNIT_STAMP={stamp}",
+            f"-DKBT_UNIT_CHIP={chip}"]
+
+
+def _compile(nvcc: str, so: Path, tmp: Path) -> str:
+    """nvcc's units of csrc/solve_session.cu, all at once (one thread
+    each), then one link into ``tmp``; returns their ptxas reports.
+    Raises on the first failed step."""
+    from concurrent.futures import ThreadPoolExecutor
+    objs = [tmp.with_name(f"{tmp.name}.{i}.o")
+            for i in range(len(UNITS) + 1)]
+    argvs = [[nvcc, *NVCC_FLAGS, *_unit_flags(unit), "-c", "-o", str(obj),
+              str(_SRC)] for unit, obj in zip(UNITS, objs)]
+    argvs.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(objs[-1]), str(_SRC)])
+    try:
+        with ThreadPoolExecutor(len(argvs)) as pool:
+            procs = list(pool.map(lambda argv: subprocess.run(
+                argv, capture_output=True, text=True, check=False), argvs))
+        for argv, proc in zip(argvs, procs):
+            if proc.returncode != 0:
+                unit = " ".join(a for a in argv if a.startswith("-DKBT"))
+                raise RuntimeError(f"nvcc failed on {_SRC} "
+                                   f"({unit or 'entry unit'}):\n"
+                                   f"{proc.stderr}")
+        link = subprocess.run(
+            [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+            capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link {so.name}:\n"
+                               f"{link.stderr}")
+    finally:
+        for obj in objs:
+            if obj.exists():
+                obj.unlink()
+    return "".join(proc.stderr for proc in procs)
+
+
+def library_path(build_dir=None) -> Path:
+    """Where the library of this source and these flags lives (ptxas'
+    report of its build beside it, ``.ptxas.txt``)."""
+    root = Path(build_dir or _Kernel.build_dir or BUILD_DIR)
+    return root / f"libsolve_session_{kernel_tag()}.so"
+
+
+def _log_path(so: Path) -> Path:
+    return so.with_name(so.name + ".ptxas.txt")
+
+
+def _publish(src: Path, dest: Path) -> None:
+    """Copy ``src`` to ``dest`` through a temporary file named after the
+    process and the thread, then ``os.replace``: a reader never loads a
+    half-written library."""
+    tmp = dest.with_name(
+        f"{dest.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    try:
+        shutil.copyfile(src, tmp)
+        os.replace(tmp, dest)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
+
+
+def set_build_dir(path) -> Path:
+    """Make ``path`` the directory where ``build_kernel`` looks for the
+    library and builds it.  A library already loaded in this process
+    stays loaded; it is copied into ``path`` (when ``path`` lacks it) so
+    the next process that points there loads it without nvcc."""
+    root = Path(path).resolve()
+    root.mkdir(parents=True, exist_ok=True)
+    with _Kernel.lock:
+        _Kernel.build_dir = root
+        loaded = _Kernel.path
+        dest = library_path(root)
+        if loaded is not None and Path(loaded) != dest and not dest.exists():
+            if _log_path(Path(loaded)).exists():
+                _publish(_log_path(Path(loaded)), _log_path(dest))
+            _publish(Path(loaded), dest)
+            log.warning("the kernel library was loaded from %s before %s "
+                        "became the build directory; copied it there for "
+                        "the next boot", loaded, root)
+    return root
 
 
 def build_kernel() -> ctypes.CDLL:
-    """Compile csrc/solve_session.cu with nvcc into BUILD_DIR (once per
-    source content) and load it.  Raises when nvcc or the build fails."""
-    if _Kernel.lib is not None:
-        return _Kernel.lib
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    so = BUILD_DIR / f"libsolve_session_{tag}.so"
-    began = time.perf_counter()
-    if not so.exists():
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError("nvcc not found: the CUDA toolkit is needed "
-                               "to build csrc/solve_session.cu")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-                              capture_output=True, text=True, check=False)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {_SRC}:\n{proc.stderr}")
-        _Kernel.build_log = proc.stderr
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.kbt_solve_session.argtypes = [ctypes.POINTER(SolveArgs),
-                                      ctypes.c_int, ctypes.c_void_p]
-    lib.kbt_solve_session.restype = ctypes.c_int
-    lib.kbt_cluster_capacity.argtypes = [ctypes.POINTER(SolveArgs),
-                                         ctypes.c_int,
-                                         ctypes.POINTER(ctypes.c_int)]
-    lib.kbt_cluster_capacity.restype = ctypes.c_int
-    lib.kbt_error_string.argtypes = [ctypes.c_int]
-    lib.kbt_error_string.restype = ctypes.c_char_p
-    _Kernel.build_seconds = time.perf_counter() - began
-    _Kernel.lib = lib
+    """Compile csrc/solve_session.cu with nvcc into the build directory
+    (once per source content; its UNITS in parallel, then a link) and
+    load it.  Raises when nvcc or the build fails.  Thread-safe:
+    concurrent first callers share one build."""
+    lib = _Kernel.lib
+    if lib is not None:
+        return lib
+    with _Kernel.lock:
+        if _Kernel.lib is not None:
+            return _Kernel.lib
+        so = library_path()
+        began = time.perf_counter()
+        built = False
+        if not so.exists():
+            nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+            if not os.path.exists(nvcc):
+                raise RuntimeError("nvcc not found: the CUDA toolkit is "
+                                   "needed to build csrc/solve_session.cu")
+            so.parent.mkdir(parents=True, exist_ok=True)
+            # Named after the process and the thread: two builds never
+            # write one temporary file, and os.replace publishes whole.
+            tmp = so.with_name(
+                f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+            try:
+                _Kernel.build_log = _compile(nvcc, so, tmp)
+                _log_path(tmp).write_text(_Kernel.build_log)
+                os.replace(_log_path(tmp), _log_path(so))
+                os.replace(tmp, so)
+            finally:
+                for left in (tmp, _log_path(tmp)):
+                    if left.exists():
+                        left.unlink()
+            built = True
+        elif _log_path(so).exists():
+            _Kernel.build_log = _log_path(so).read_text()
+        lib = ctypes.CDLL(str(so))
+        lib.kbt_solve_session.argtypes = [ctypes.POINTER(SolveArgs),
+                                          ctypes.c_int, ctypes.c_void_p]
+        lib.kbt_solve_session.restype = ctypes.c_int
+        lib.kbt_cluster_capacity.argtypes = [ctypes.POINTER(SolveArgs),
+                                             ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_int)]
+        lib.kbt_cluster_capacity.restype = ctypes.c_int
+        lib.kbt_error_string.argtypes = [ctypes.c_int]
+        lib.kbt_error_string.restype = ctypes.c_char_p
+        _Kernel.build_seconds = time.perf_counter() - began
+        _Kernel.built = built
+        _Kernel.path = so
+        _Kernel.lib = lib
     return lib
 
 

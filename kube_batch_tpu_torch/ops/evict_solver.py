@@ -28,6 +28,10 @@ import torch
 
 from .scan import ScanStatics, _scan_body
 
+# The batched eviction dispatch's compile-cache choice name (the
+# reference's; ops/compile_cache.py keys and warms it).
+EVICT_SOLVE_CHOICE = "evict_batch"
+
 
 def victim_order(vic_node: torch.Tensor,
                  vic_rank: torch.Tensor) -> torch.Tensor:
@@ -77,8 +81,11 @@ def dispatch_evict_batch_solve(cfg, r: int, np_pad: int, ns_pad: int,
     engine is off.  The port has one route, PyTorch on the statics'
     device: the reference's mesh gate, which follows the resident
     buffer's sharding, comes with the node-sharded layout (ROADMAP queue
-    1 item 5).  A failure here degrades the scanner to per-profile host
-    scoring and feeds the breaker (models/scanner.py batch_seed)."""
+    1 item 5).  A failure here feeds the breaker through
+    ``chaos/breaker.feed_failure`` (models/scanner.py batch_seed); then
+    on the card the eviction action raises ``DeviceFailure`` with nothing
+    mutated, and only on the CPU does the scanner degrade to per-profile
+    host scoring (``chaos.breaker.host_path_allowed``)."""
     from ..chaos import plan as chaos_plan
     from ..metrics import metrics
     plan = chaos_plan.PLAN
@@ -91,3 +98,14 @@ def dispatch_evict_batch_solve(cfg, r: int, np_pad: int, ns_pad: int,
     trace.annotate(route="torch", mesh_devices=1)
     return evict_batch_solve(cfg, r, np_pad, ns_pad, statics, dyn, trows,
                              vic_node, vic_rank)
+
+
+def evict_solve_key(cfg, r: int, np_pad: int, ns_pad: int, n_pad: int,
+                    k_pad: int, m_pad: int, s_real: int,
+                    route: str = "torch") -> tuple:
+    """Compile-cache identity of one batched eviction dispatch — the
+    static arguments, every shape and the route — in the same spirit as
+    compile_cache.solve_key for the allocate family (the reference's
+    key; the port's one route is ``torch``)."""
+    return (EVICT_SOLVE_CHOICE, route, r, np_pad, ns_pad, n_pad, k_pad,
+            m_pad, s_real, cfg)

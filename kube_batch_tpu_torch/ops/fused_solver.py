@@ -465,8 +465,8 @@ def fused_solve_key(legs, aroute, has_cand, cand_rows, a_shape,
     """Compile-cache identity of one fused program: the static leg set
     plus each present leg's degrees of freedom (the per-family
     solve_key/evict_solve_key/topo_solve_key disciplines folded into one
-    tuple).  The warmup ledger that records it comes with ROADMAP queue
-    1 item 8."""
+    tuple), noted in ops/compile_cache.py and warmed by its
+    ``_warm_fused``."""
     return (FUSED_SOLVE_CHOICE, tuple(legs), aroute, has_cand, cand_rows,
             a_shape, eroute, e_shape, troute, t_shape)
 
@@ -711,8 +711,20 @@ def take_evict(ssn, scanner, trows, node_p, rank_p):
     st.legs = legs
     metrics.note_session_dispatch("fused")
     metrics.note_route("fused", "+".join(sorted(legs)))
-    # The reference notes fused_solve_key in its warmup ledger here
-    # (note_solve_key); that ledger comes with ROADMAP queue 1 item 8.
+    from .compile_cache import note_solve_key
+    note_solve_key(fused_solve_key(
+        legs,
+        (alloc.route if alloc is not None
+         else ("cuda" if device.type == "cuda" else "torch")),
+        has_cand,
+        (int(cand_remap.shape[0] if cand_remap is not None
+             else alloc.candidates.count) if has_cand else 0),
+        (None if alloc is None
+         else (int(alloc.inputs.node_idle.shape[0]), alloc.cfg)),
+        "torch",
+        (scanner.cfg, scanner.r, scanner.np_pad, scanner.ns_pad,
+         int(np.asarray(trows).shape[0]), int(np.asarray(node_p).shape[0])),
+        "torch", (int(sx), int(sy), int(sz))))
     metrics.set_cycle_floor("fused", time.time() - start)
     trace.annotate(fused_legs=",".join(legs))
 

@@ -259,7 +259,12 @@ def _solve_candidates(inp: SolverInputs, cfg: SolverConfig,
     # The index and valid rows go to the device once per session.
     idx = torch.as_tensor(candidates.idx, dtype=torch.long, device=dev)
     valid = torch.as_tensor(candidates.valid, device=dev)
-    return solve_on_route(_gather_candidate_inputs(inp, idx, valid), cfg)
+    sub = _gather_candidate_inputs(inp, idx, valid)
+    # Keyed under the solver that runs on the gathered rows, as the
+    # reference keys its gathered solve under "xla".
+    from .compile_cache import note_solve
+    note_solve(choose_solver_mesh(sub)[0], sub, cfg)
+    return solve_on_route(sub, cfg)
 
 
 def to_host_async(*tensors, out=None):
@@ -428,6 +433,8 @@ def best_solve_allocate(inp: SolverInputs, cfg: SolverConfig) -> SolveResult:
     from ..trace import spans as trace
     metrics.note_route("allocate", choice)
     trace.annotate(route=choice, mesh_devices=1)
+    from .compile_cache import note_solve
+    note_solve(choice, inp, cfg)  # compile-cache hit/miss observability
     return solve_on_route(inp, cfg)
 
 

@@ -36,8 +36,8 @@ PyTorch tensor code on the inputs' device (the reference runs it as a
 ``jax.jit`` XLA program; no hand-written kernel).  The port has one
 route, ``torch``, on one device: the origin-sharded mesh route
 (``box_scan_sharded``) comes with the multi-device mesh (ROADMAP queue 1
-item 5), and the compile-cache key accounting (``note_solve_key``) with
-warmup (item 8).
+item 5).  The chokepoint is compile-cache keyed (``topo_solve_key`` +
+``note_solve_key``, warmed by compile_cache.warm_bucket).
 """
 
 from __future__ import annotations
@@ -213,11 +213,16 @@ def stage_box_inputs(inp: BoxInputs, device) -> BoxInputs:
 
 def dispatch_box_scan(inp: BoxInputs, shape, device) -> np.ndarray:
     """Route and run one batched box scan on ``device``, returning host
-    [N, 6] i32.  The one production chokepoint: the route counter and
-    the dispatch counter live here.  A failure raises to the caller,
-    which degrades to the numpy oracle (actions/topo_allocate.py)."""
+    [N, 6] i32.  The one production chokepoint: the route counter, the
+    dispatch counter and the compile-cache hit/miss accounting live
+    here.  A failure raises to the caller (actions/topo_allocate.py),
+    which feeds the breaker through ``chaos/breaker.feed_failure``; then
+    on the card topo-allocate raises ``DeviceFailure`` with nothing
+    mutated, and only on the CPU does it degrade to the numpy oracle
+    (``chaos.breaker.host_path_allowed``)."""
     from ..metrics import metrics
     from ..trace import spans as trace
+    from .compile_cache import note_solve_key
 
     sx, sy, sz = (int(v) for v in shape)
     n_pad = int(inp.coords.shape[0])
@@ -225,4 +230,5 @@ def dispatch_box_scan(inp: BoxInputs, shape, device) -> np.ndarray:
     metrics.note_route("topo", route)
     metrics.note_session_dispatch("topo")
     trace.annotate(route=route, mesh_devices=mesh.size if mesh else 1)
+    note_solve_key(topo_solve_key(route, n_pad, (sx, sy, sz)))
     return box_scan(stage_box_inputs(inp, device), sx, sy, sz).cpu().numpy()

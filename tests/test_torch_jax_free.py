@@ -19,7 +19,8 @@ must bind), runs one session that degrades to the host path under
 ``solve.device_error`` and binds, checks that ``TpuAllocateAction()``
 without a device raises
 when there is no CUDA, and that no shared object of the reference was
-loaded.
+loaded.  A second script boots the daemon's ``ServerRuntime`` on the CPU
+under the same hook: it warms, binds, answers /metrics and stops.
 """
 
 import pkgutil
@@ -251,6 +252,56 @@ print("placed", ordered.size, "bound", len(binder.binds), "evicted",
 """
 
 
+# The daemon's runtime on the CPU, under the same hook: boot from a
+# cluster-state file with a warmup bucket and a compile-cache directory,
+# warm, bind every pod, answer /metrics, stop.
+DAEMON_SCRIPT = SCRIPT.split("import torch\n", 1)[0] + r"""
+import json, os, tempfile, time, urllib.request
+from kube_batch_tpu_torch.cli.options import parse_options
+from kube_batch_tpu_torch.cli.server import ServerRuntime
+
+work = tempfile.mkdtemp()
+state = {
+    "nodes": [{"name": f"n{i}", "allocatable": {"cpu": "8",
+               "memory": "16Gi", "pods": 110}} for i in range(4)],
+    "queues": [{"name": "default", "weight": 1}],
+    "podGroups": [{"name": "pg", "namespace": "ns", "minMember": 2,
+                   "queue": "default"}],
+    "pods": [{"name": f"p{i}", "namespace": "ns", "group": "pg",
+              "requests": {"cpu": "1", "memory": "1Gi"}} for i in range(6)],
+}
+with open(os.path.join(work, "state.json"), "w") as fh:
+    json.dump(state, fh)
+opt = parse_options([
+    "--cluster-state", os.path.join(work, "state.json"),
+    "--warmup-buckets", "6x4x1x1", "--schedule-period", "0.1",
+    "--compile-cache-dir", os.path.join(work, "cc"),
+    "--listen-address", "127.0.0.1:0"])
+rt = ServerRuntime(opt, device="cpu")
+rt.run()
+try:
+    rt.warmup.join(120)
+    assert rt.warmup.done and not rt.warmup.errors, rt.warmup.errors
+    deadline = time.time() + 60
+    while time.time() < deadline and not all(
+            p.spec.node_name for p in rt.cluster.pods.values()):
+        time.sleep(0.05)
+    bound = sum(1 for p in rt.cluster.pods.values() if p.spec.node_name)
+    assert bound == 6, bound
+    port = rt.metrics_server.server_address[1]
+    text = urllib.request.urlopen(
+        f"http://127.0.0.1:{port}/metrics", timeout=10).read().decode()
+    assert "kube_batch_compile_cache_hits_total" in text
+finally:
+    rt.stop()
+assert os.listdir(os.path.join(work, "cc"))
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not leaked, leaked
+print("daemon bound", bound, "warmed", len(rt.warmup.records))
+"""
+
+
 def port_modules():
     pkg = kube_batch_tpu_torch
     names = [pkg.__name__]
@@ -304,3 +355,14 @@ def test_the_hook_does_block_the_reference():
         check=False)
     assert proc.returncode != 0
     assert "blocked import of kube_batch_tpu" in proc.stderr
+
+
+def test_daemon_runs_with_jax_and_the_reference_blocked():
+    """A ServerRuntime on the CPU boots from a cluster-state file with
+    --warmup-buckets and --compile-cache-dir, warms, binds, answers
+    /metrics and stops, with no jax in the process."""
+    proc = subprocess.run([sys.executable, "-c", DAEMON_SCRIPT],
+                          cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=300, check=False)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("daemon bound 6 warmed 5")
