@@ -11,6 +11,16 @@ Phases, each printed on its own line:
      without nvcc; a control without warmup), read over HTTP; every pod
      must land where an in-process cycle of the plain route on the CPU
      puts it (see daemon_phase);
+     daemon-edge: the port's API server (python -m
+     kube_batch_tpu_torch.edge.server) in its own process holds the same
+     file, and the daemon booted with --master at it lists, watches,
+     schedules and binds over HTTP; read from the server's store, every
+     pod must be on the in-process cycle's node and every pod group in
+     its phase (see daemon_edge_phase);
+     edge-federation: two replicas with --replica-federation over one
+     API server at the drill shape: shards split, mirrors scoped to
+     their own shards, every pod bound once, both launch K1 (see
+     edge_federation_phase);
   2. build: loads the library the daemon built (nvcc must not run again:
      csrc/solve_session.cu is compiled in units at once, then linked) and
      prints the seconds;
@@ -125,14 +135,18 @@ fused-storm cycles (was 3), 4 fused-steady rounds (was 6) and 3
 sessions per arm in the session phase (was 4, one cold and two warm;
 cut when the main path's plain version went back on the card).  The
 evict phase keeps its off/on/on/off timed cycles.
+From the session phase on, a hold of a large solve (DeferredHolds:
+50,000,000 placement-node cells or more, the north star's 45-55 s on
+the host) runs in one of two worker processes while the script goes on,
+and is checked before the kernels line (``deferred-holds``).
 Every launch held against the plain version goes through LaunchLedger:
 where its inputs are byte-equal to a solve already held in this run
 (tenancy-streams' seed-0 solo and the main path's full ship, the arms of
 a phase that stage the same session), the outputs are compared byte for
 byte instead; the kernel table counts both.  ``python3 chip_smoke.py
 fused`` runs the build and the five fused phases alone; ``python3
-chip_smoke.py daemon`` runs daemon, the build, a 2-session session
-phase, warmup and tensorize-limit alone.
+chip_smoke.py daemon`` runs daemon, daemon-edge, edge-federation, the
+build, a 2-session session phase, warmup and tensorize-limit alone.
 Each phase line carries ``t_s``, the seconds since the script started.
 The kernel-vs-plain matrix includes the shapes the kernel once refused:
 2,500 queues in float64 (the queue piece in global memory) and 10 and 20
@@ -1078,14 +1092,29 @@ def solve_vs_plain(cuda_solver, inputs, cfg, got, remap=None,
     values, and there a placement costs a few small operations instead
     of a few kernel launches (``plain_ms`` is the CPU's time).  The
     kernel-vs-plain matrix runs it there too; the main path's north-star
-    check runs it on the card (the kernels line's ``plain_ms``)."""
+    check runs it on the card (the kernels line's ``plain_ms``).  A
+    large solve is held in a worker process while this one goes on
+    (DeferredHolds, when started): its result says ``deferred`` and the
+    check happens at DeferredHolds.drain."""
+    placed = int((np.asarray(got[1]) > 0).sum())
+    if DeferredHolds.takes(placed, inputs):
+        DeferredHolds.submit(cuda_solver, inputs, cfg, got, remap, where)
+        return dict(placed=placed, deferred=True, max_abs_err=None)
     inputs = type(inputs)(*(t.cpu() for t in inputs))
     t0 = time.perf_counter()
     res, _ = cuda_solver.solve_allocate_plain(inputs, cfg)
     plain_ms = (time.perf_counter() - t0) * 1e3
-    assignment = res.assignment.cpu().numpy().astype(np.int64)
-    kind = res.kind.cpu().numpy().astype(np.int64)
-    order = res.order.cpu().numpy().astype(np.int64)
+    return check_vs_plain(
+        tuple(t.cpu().numpy() for t in (res.assignment, res.kind, res.order,
+                                        res.step)),
+        got, remap, where, plain_ms)
+
+
+def check_vs_plain(plain, got, remap, where: str, plain_ms: float) -> dict:
+    """``got`` (assignment, kind, order) against the plain version's
+    numpy (assignment, kind, order, step): equal exactly, or raise."""
+    assignment, kind, order = (np.asarray(a).astype(np.int64)
+                               for a in plain[:3])
     got_assignment = np.asarray(got[0], np.int64)
     if remap is not None:
         placed = kind > 0
@@ -1106,8 +1135,71 @@ def solve_vs_plain(cuda_solver, inputs, cfg, got, remap=None,
     if err:
         raise AssertionError(f"the launch in {where} != the plain version: "
                              f"max abs err {err}")
-    return dict(placed=int((kind > 0).sum()), steps=int(res.step),
+    return dict(placed=int((kind > 0).sum()), steps=int(plain[3]),
                 plain_ms=plain_ms, max_abs_err=err)
+
+
+def plain_timed(job):
+    """plain_on_host with its own seconds: (assignment, kind, order,
+    step) as numpy and the plain version's ms."""
+    t0 = time.perf_counter()
+    res, _final = plain_on_host(job)
+    return res, (time.perf_counter() - t0) * 1e3
+
+
+class DeferredHolds:
+    """Holds of large solves (``DEFER_CELLS`` placements x nodes or
+    more, the north star's tens of seconds each on the host) in
+    ``workers`` spawned processes on the host's CPU, beside the card
+    work of the phases that follow.  Off until ``start``; ``drain``
+    waits for every pending hold, checks it (check_vs_plain), prints
+    one ``deferred-holds`` line and stops the workers.  A failed hold
+    raises there, before any result line."""
+
+    DEFER_CELLS = 50_000_000
+    pool = None
+    pending = []
+
+    @classmethod
+    def start(cls, workers: int = 2) -> None:
+        import multiprocessing
+        cls.pool = multiprocessing.get_context("spawn").Pool(workers)
+        cls.pending = []
+
+    @classmethod
+    def takes(cls, placed: int, inputs) -> bool:
+        return (cls.pool is not None
+                and placed * int(inputs.node_idle.shape[0])
+                >= cls.DEFER_CELLS)
+
+    @classmethod
+    def submit(cls, cuda_solver, inputs, cfg, got, remap, where) -> None:
+        job = (type(inputs), tuple(t.cpu().numpy() for t in inputs), cfg)
+        cls.pending.append((where, tuple(np.asarray(a) for a in got),
+                            remap, cls.pool.apply_async(plain_timed,
+                                                        (job,))))
+
+    @classmethod
+    def drain(cls, seconds: float = 900.0) -> int:
+        """Check every deferred hold; returns how many."""
+        if cls.pool is None:
+            return 0
+        began = time.perf_counter()
+        held = []
+        try:
+            for where, got, remap, pending in cls.pending:
+                left = max(1.0, seconds - (time.perf_counter() - began))
+                plain, plain_ms = pending.get(left)
+                held.append(dict(where=where, **check_vs_plain(
+                    plain, got, remap, where, plain_ms)))
+        finally:
+            cls.pool.terminate()
+            cls.pool.join()
+            cls.pool, cls.pending = None, []
+        phase("deferred-holds", held=len(held), waited_s=(
+            time.perf_counter() - began), max_abs_err=max(
+            (h["max_abs_err"] for h in held), default=0), holds=held)
+        return len(held)
 
 
 def held_summary(records) -> dict:
@@ -1119,7 +1211,10 @@ def held_summary(records) -> dict:
     plain = sorted(r["plain_ms"] for r in records if "plain_ms" in r)
     return dict(held=len(records),
                 byte_equal=sum(r["held"] == "byte_equal" for r in records),
-                max_abs_err=max(r["max_abs_err"] for r in records),
+                deferred=sum(bool(r.get("deferred")) for r in records),
+                max_abs_err=max((r["max_abs_err"] for r in records
+                                 if r["max_abs_err"] is not None),
+                                default=0),
                 gathered=sum(r["gathered"] for r in records),
                 placed=[r["placed"] for r in records],
                 plain_ms_median=float(np.median(plain)) if plain else None,
@@ -2520,7 +2615,7 @@ class LaunchLedger:
                 tuple(t.cpu().numpy() for t in rec["out"]),
                 f"launch {i} in {where}", plain=plain)
             by[out["held"]] += 1
-            if out["held"] == "plain":
+            if "plain_ms" in out:
                 plain_ms.append(out["plain_ms"])
         return dict(held=by, plain_ms=plain_ms, max_abs_err=0)
 
@@ -3838,9 +3933,18 @@ def free_port() -> int:
 # as __main__), with ServerRuntime.stop wrapped to write where every pod
 # landed ({"namespace/name": node}) to argv[1] once the runtime stopped.
 # argv[2] is "cpu" for a rehearsal on the CPU (the daemon itself has no
-# device flag), else empty; the daemon's flags follow.
+# device flag), else empty; the daemon's flags follow.  Over the HTTP
+# edge (--master) the map is the daemon's mirror, read (flushed) before
+# the stop releases its shard leases, and argv[1] + ".edge.json" gets
+# the edge's own numbers: the reflectors' LIST + SYNC seconds
+# (RemoteCluster.start), ingest bytes and mirrored objects by resource,
+# each bind_pods_many call's (and each single bind_pod's) wall, pods,
+# failures and the keys it bound, and the wall-clock time
+# at which every pod of the mirror was first seen bound (``visible_at``,
+# polled every 0.1 s).  Measurement only: nothing of the runtime's
+# behaviour changes.
 DAEMON_LAUNCHER = """
-import json, runpy, sys
+import json, runpy, sys, threading, time
 out, device = sys.argv[1], sys.argv[2]
 sys.argv = sys.argv[2:]
 if device:
@@ -3848,12 +3952,71 @@ if device:
     import kube_batch_tpu_torch.device as kdev
     kdev.resolve_device = lambda d=None: torch.device(device)
 from kube_batch_tpu_torch.cli import server
+from kube_batch_tpu_torch.edge import client as edge_client
+edge = dict(binds=[], visible_at=None)
+start, bind_many, bind_one = (edge_client.RemoteCluster.start,
+                              edge_client.RemoteCluster.bind_pods_many,
+                              edge_client.RemoteCluster.bind_pod)
+def watch_visible(remote):
+    while not remote._stop.is_set():
+        remote.flush_pending()
+        with remote.lock:
+            pods = list(remote.pods.values())
+        if pods and all(p.spec.node_name for p in pods):
+            if edge["visible_at"] is None:
+                edge["visible_at"] = time.time()
+        else:
+            edge["visible_at"] = None
+        time.sleep(0.1)
+def timed_start(self, *a, **kw):
+    t0 = time.perf_counter()
+    out_ = start(self, *a, **kw)
+    edge["list_sync_s"] = time.perf_counter() - t0
+    edge["list_bytes"] = self.ingest_bytes()
+    threading.Thread(target=watch_visible, args=(self,),
+                     daemon=True).start()
+    return out_
+def key(pod):
+    return pod.metadata.namespace + "/" + pod.metadata.name
+def timed_bind_many(self, pairs, *a, **kw):
+    pairs = list(pairs)
+    t0 = time.perf_counter()
+    failures = bind_many(self, pairs, *a, **kw)
+    failed = {key(f[0]) for f in failures}
+    edge["binds"].append(dict(at=time.time(), pods=len(pairs),
+                              failures=len(failures),
+                              wall_s=time.perf_counter() - t0,
+                              keys=[key(p) for p, _h in pairs
+                                    if key(p) not in failed]))
+    return failures
+def timed_bind_one(self, namespace, name, hostname):
+    t0 = time.perf_counter()
+    bind_one(self, namespace, name, hostname)
+    edge["binds"].append(dict(at=time.time(), pods=1, failures=0,
+                              wall_s=time.perf_counter() - t0,
+                              keys=[namespace + "/" + name]))
+edge_client.RemoteCluster.start = timed_start
+edge_client.RemoteCluster.bind_pods_many = timed_bind_many
+edge_client.RemoteCluster.bind_pod = timed_bind_one
 stop = server.ServerRuntime.stop
 def stop_and_write(self):
+    remote = isinstance(self.cluster, edge_client.RemoteCluster)
+    if remote:
+        self.cluster.flush_pending()
+        with self.cluster.lock:
+            placed = {k: p.spec.node_name
+                      for k, p in self.cluster.pods.items()}
+        edge.update(ingest_bytes=self.cluster.ingest_bytes(),
+                    mirrored=self.cluster.mirrored_objects())
     stop(self)
+    if not remote:
+        placed = {k: p.spec.node_name
+                  for k, p in list(self.cluster.pods.items())}
     with open(out, "w") as fh:
-        json.dump({k: p.spec.node_name
-                   for k, p in list(self.cluster.pods.items())}, fh)
+        json.dump(placed, fh)
+    if remote:
+        with open(out + ".edge.json", "w") as fh:
+            json.dump(edge, fh)
 server.ServerRuntime.stop = stop_and_write
 runpy.run_module("kube_batch_tpu_torch.cli.main", run_name="__main__",
                  alter_sys=True)
@@ -3867,15 +4030,18 @@ class Daemon:
     build/daemon/<name>.placements.json; ``stop`` sends SIGTERM and waits
     for a clean exit."""
 
-    def __init__(self, name: str, argv: list, device: str = "cuda"):
+    def __init__(self, name: str, argv: list, device: str = "cuda",
+                 env=None):
         port = free_port()
         self.name = name
         self.base = f"http://127.0.0.1:{port}"
         self.log_path = os.path.join(DAEMON_DIR, f"{name}.log")
         self.placements_path = os.path.join(DAEMON_DIR,
                                             f"{name}.placements.json")
-        if os.path.exists(self.placements_path):
-            os.remove(self.placements_path)
+        for stale in (self.placements_path,
+                      self.placements_path + ".edge.json"):
+            if os.path.exists(stale):
+                os.remove(stale)
         self.log = open(self.log_path, "w")
         self.began = time.time()
         self.proc = subprocess.Popen(
@@ -3883,11 +4049,17 @@ class Daemon:
              "" if device == "cuda" else device, *argv,
              "--listen-address", f"127.0.0.1:{port}"],
             stdout=self.log, stderr=subprocess.STDOUT, cwd=REPO,
-            env=dict(os.environ, **DAEMON_ENV))
+            env=dict(os.environ, **DAEMON_ENV, **(env or {})))
 
     def placements(self) -> dict:
         """{"namespace/name": node} the stopped daemon wrote."""
         with open(self.placements_path) as fh:
+            return json.load(fh)
+
+    def edge_stats(self) -> dict:
+        """The edge's numbers the stopped daemon wrote (DAEMON_LAUNCHER;
+        only over --master)."""
+        with open(self.placements_path + ".edge.json") as fh:
             return json.load(fh)
 
     def tail(self) -> str:
@@ -3962,6 +4134,15 @@ class Daemon:
         self.log.close()
 
 
+def first_session(d: Daemon):
+    """The daemon's oldest recorded session (/debug/sessions lists the
+    newest first; read once the first one ended, it is the first), or
+    None."""
+    status, body = d.get("/debug/sessions")
+    sessions = json.loads(body)["sessions"] if status == 200 else []
+    return sessions[-1] if sessions else None
+
+
 def library_stamp(path) -> tuple:
     """(exists, mtime ns) of the kernel library."""
     try:
@@ -4009,13 +4190,7 @@ def daemon_boot(name: str, state_path: str, cache_dir: str, warm: bool,
     try:
         healthy = d.wait("/healthz", lambda: d.get("/healthz") == (200, "ok")
                          and time.time(), boot_s)
-
-        def first_session():
-            status, body = d.get("/debug/sessions")
-            sessions = json.loads(body)["sessions"] if status == 200 else []
-            return sessions[-1] if sessions else None
-
-        first = d.wait("the first session", first_session, boot_s)
+        first = d.wait("the first session", lambda: first_session(d), boot_s)
         counts_first = d.metrics()
         split = span_split(d.json(f"/debug/trace?session={first['session']}"))
         warmed = {}
@@ -4101,7 +4276,8 @@ def placements_differ(got: dict, want: dict) -> int:
     return sum(got.get(k) != want.get(k) for k in set(got) | set(want))
 
 
-def daemon_phase(cuda_solver, card, shape=NORTH_STAR, device="cuda") -> int:
+def daemon_phase(cuda_solver, card, shape=NORTH_STAR, device="cuda",
+                 edge_server=False) -> int:
     """The daemon on the card, booted three times against one
     cluster-state file of ``shape`` (write_cluster_state): (1) cold, with
     --warmup-buckets at ``shape`` and --compile-cache-dir the directory
@@ -4129,6 +4305,10 @@ def daemon_phase(cuda_solver, card, shape=NORTH_STAR, device="cuda") -> int:
     t0 = time.perf_counter()
     write_cluster_state(state_path, shape)
     state_s = time.perf_counter() - t0
+    if edge_server:
+        # daemon-edge's API server loads the same file in its own
+        # process meanwhile (KEPT["edge_server"]).
+        KEPT["edge_server"] = EdgeServer("edge-server", state_path)
     cache_dir = str(cuda_solver.BUILD_DIR)
     # The reference cycle runs in a thread beside the cold boot, whose
     # numbers are its load and its nvcc build's; the warm boot and the
@@ -4155,7 +4335,10 @@ def daemon_phase(cuda_solver, card, shape=NORTH_STAR, device="cuda") -> int:
               daemon_boot("control", state_path, cache_dir, False, shape,
                           300, device)]
     cycle = ref["cycle"]
+    # daemon-edge holds its boot against the same cycle.
+    KEPT["daemon_cycle"] = dict(cycle)
     placed = cycle.pop("placements")
+    cycle.pop("pg_phases")
     problems = []
     for b in boots:
         b["placements_differ"] = placements_differ(b.pop("placements"),
@@ -4215,9 +4398,9 @@ def in_process_cycle(state_path: str) -> dict:
     """The daemon phase's reference: one Scheduler cycle with the plain
     route on the host CPU, on a cache loaded from ``state_path`` as the
     daemon loads it; where every pod landed, its binds by queue, and the
-    tenant table a second cycle publishes with nothing pending.  Launches
-    nothing on the card, so it runs beside the cold boot
-    (daemon_phase)."""
+    tenant table and pod-group phases a second cycle leaves with nothing
+    pending.  Launches nothing on the card, so it runs beside the cold
+    boot (daemon_phase)."""
     from kube_batch_tpu_torch.cache import Cluster, new_scheduler_cache
     from kube_batch_tpu_torch.apis.scheduling.v1alpha1 import \
         GroupNameAnnotationKey
@@ -4248,9 +4431,517 @@ def in_process_cycle(state_path: str) -> dict:
     return dict(
         binds_by_queue=by_queue, load_s=load_s, cycle_s=cycle_s,
         placements=placements,
+        pg_phases={k: pg.status.phase
+                   for k, pg in cluster.pod_groups.items()},
         tenants={q: {k: r[k] for k in ("share", "deserved_share",
                                        "allocated_share", "pending_jobs")}
                  for q, r in sorted(rows.items())})
+
+
+class EdgeServer:
+    """The port's API server, ``python -m kube_batch_tpu_torch.edge.server``,
+    in a process of its own on a free port, preloaded from a
+    cluster-state file when ``state_path`` is given; its output in
+    build/daemon/<name>.log.  ``items`` reads its store over HTTP (the
+    native wire): the truth the edge phases hold the daemons to."""
+
+    LIVE = set()    # stopped at exit, whatever failed (stop_live)
+
+    def __init__(self, name: str, state_path=None):
+        port = free_port()
+        self.name = name
+        self.url = f"http://127.0.0.1:{port}"
+        os.makedirs(DAEMON_DIR, exist_ok=True)
+        self.log_path = os.path.join(DAEMON_DIR, f"{name}.log")
+        self.log = open(self.log_path, "w")
+        argv = [sys.executable, "-m", "kube_batch_tpu_torch.edge.server",
+                "--port", str(port)]
+        if state_path:
+            argv += ["--cluster-state", state_path]
+        self.began = time.time()
+        self.proc = subprocess.Popen(argv, stdout=self.log,
+                                     stderr=subprocess.STDOUT, cwd=REPO)
+        EdgeServer.LIVE.add(self)
+
+    def get(self, path: str, timeout: float = 300.0):
+        import urllib.request
+        with urllib.request.urlopen(self.url + path, timeout=timeout) as r:
+            return json.loads(r.read())
+
+    def items(self, resource: str) -> dict:
+        """{key: native wire document} of one resource's store."""
+        out = {}
+        for doc in self.get(f"/v1/{resource}")["items"]:
+            md = doc["metadata"]
+            key = (md["name"] if resource in ("nodes", "queues")
+                   else f"{md['namespace']}/{md['name']}")
+            out[key] = doc
+        return out
+
+    def lease_holder(self, namespace: str, name: str) -> str:
+        record = self.get(f"/v1/leases/{namespace}/{name}")["record"]
+        return (record or {}).get("holderIdentity") or ""
+
+    def wait_ready(self, seconds: float) -> float:
+        """Poll until the server answers (it binds its port once the
+        cluster-state file is loaded); the wall-clock time it did."""
+        deadline = time.monotonic() + seconds
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"{self.name} exited with "
+                                     f"{self.proc.returncode}")
+            try:
+                self.get("/v1/queues", timeout=10)
+                return time.time()
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{self.name}: no answer in "
+                                     f"{seconds} s")
+            time.sleep(0.2)
+
+    def stop(self) -> None:
+        EdgeServer.LIVE.discard(self)
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(30)
+        self.log.close()
+
+    @classmethod
+    def stop_live(cls) -> None:
+        for server in list(cls.LIVE):
+            server.stop()
+
+
+def truth_of(server: EdgeServer) -> dict:
+    """What the API server's store holds: every pod's node ("" when
+    unbound), group and queue (through its pod group), binds by queue,
+    every pod group's phase, and how many nodes hold more than their
+    allocatable (CPU, memory or pod count, exact compares)."""
+    from kube_batch_tpu_torch.api import Resource
+    from kube_batch_tpu_torch.apis.scheduling.v1alpha1 import \
+        GroupNameAnnotationKey
+    pods = server.items("pods")
+    groups = server.items("podgroups")
+    nodes = server.items("nodes")
+    placed, group_of, queue_of, by_queue, used = {}, {}, {}, {}, {}
+    for key, doc in pods.items():
+        md = doc["metadata"]
+        group = f"{md['namespace']}/" \
+                f"{md['annotations'].get(GroupNameAnnotationKey, '')}"
+        node = doc["spec"]["node_name"] or ""
+        q = groups[group]["spec"]["queue"] if group in groups else ""
+        placed[key], group_of[key], queue_of[key] = node, group, q
+        if node:
+            by_queue[q] = by_queue.get(q, 0) + 1
+            have = used.setdefault(node, [Resource.empty(), 0])
+            for c in doc["spec"]["containers"]:
+                have[0].add(Resource.from_resource_list(c["requests"]))
+            have[1] += 1
+    over = 0
+    for name, (res, count) in used.items():
+        alloc = nodes[name]["status"]["allocatable"]
+        cap = Resource.from_resource_list(alloc)
+        if (res.milli_cpu > cap.milli_cpu or res.memory > cap.memory
+                or count > int(alloc.get("pods", count))):
+            over += 1
+    return dict(placed=placed, group_of=group_of, queue_of=queue_of,
+                by_queue=by_queue, groups=groups,
+                pg_phases={k: g["status"]["phase"]
+                           for k, g in groups.items()},
+                over_allocatable=over)
+
+
+def first_difference(got: dict, want: dict, truth: dict) -> str:
+    """The first pod (in key order) that is not on the node ``want``
+    gives it, with its job and that job's order key (priority class,
+    creation time and uid of its pod group: the job order's ties)."""
+    for key in sorted(set(got) | set(want)):
+        if got.get(key) != want.get(key):
+            job = truth["group_of"].get(key, "")
+            md = truth["groups"].get(job, {}).get("metadata", {})
+            spec = truth["groups"].get(job, {}).get("spec", {})
+            order = (spec.get("priority_class_name"),
+                     md.get("creation_timestamp"), md.get("uid"))
+            return (f"first differing pod {key}: on {got.get(key)!r}, the "
+                    f"in-process cycle's {want.get(key)!r}; job {job}, "
+                    f"order key {order}")
+    return ""
+
+
+def daemon_edge_phase(cuda_solver, card, shape=NORTH_STAR,
+                      device="cuda") -> int:
+    """The daemon over the network edge, as a deployment runs it: the
+    port's API server (EdgeServer) holds the daemon phase's cluster-state
+    file, and one boot of the daemon with ``--master`` at it and
+    ``--compile-cache-dir`` the directory K1 is built in (no
+    ``--warmup-buckets``; the library is there, so nothing runs nvcc)
+    lists and watches the whole cluster over HTTP, runs its sessions
+    with K1 on the card, binds every pod and writes every pod-group
+    status back over HTTP, and sees its binds come back on the watch.
+    Read: boot -> /healthz; the reflectors' LIST + SYNC seconds and
+    bytes (DAEMON_LAUNCHER); the first session's wall, its phases and
+    spans; bind_pods_many's wall and pods in that session; the seconds
+    from its end until every pod in the daemon's mirror is bound
+    (``visible_ms``); K1's launches by route; the guards (device
+    failures, deadline overruns, tensorizer limits), which must be 0.
+    Held, against the API server's store read over HTTP (the truth, not
+    the mirror): every pod on the node the daemon phase's in-process
+    cycle of the plain route gives it, binds by queue equal to that
+    cycle's, every pod group's phase equal to its; no node over its
+    allocatable; the mirror equal to the truth.  A difference fails with
+    the first differing pod, its job and that job's order key.  Returns
+    0: K1 launches only in the daemon's process; its launches join
+    KEPT["daemon_launches"] (the kernels line's ``launches_in_daemons``).
+    """
+    cycle = KEPT.get("daemon_cycle")
+    if cycle is None:
+        raise AssertionError("daemon-edge: run the daemon phase first; "
+                             "its in-process cycle is the reference")
+    state_path = os.path.join(DAEMON_DIR, "cluster-state.json")
+    cache_dir = str(cuda_solver.BUILD_DIR)
+    n_tasks = shape[0]
+    server = KEPT.pop("edge_server", None) or EdgeServer("edge-server",
+                                                         state_path)
+    d = None
+    began = time.time()
+    try:
+        ready = server.wait_ready(600)
+        d = Daemon("edge", ["--master", server.url,
+                            "--compile-cache-dir", cache_dir], device)
+        healthy = d.wait("/healthz", lambda: d.get("/healthz") == (200, "ok")
+                         and time.time(), 600)
+        first = d.wait("the first session", lambda: first_session(d), 600)
+        split = span_split(d.json(f"/debug/trace?session={first['session']}"))
+        d.wait("every bind", lambda: metric_total(
+            d.metrics(), "kube_batch_slo_time_to_bind_seconds_count")
+            >= n_tasks, 600)
+
+        def settled():
+            truth = truth_of(server)
+            return truth if truth["pg_phases"] == cycle["pg_phases"] \
+                and all(truth["placed"].values()) else None
+
+        try:
+            truth = d.wait("the pod groups' phases of the in-process cycle",
+                           settled, 120)
+        except AssertionError:
+            truth = truth_of(server)  # held below, difference named
+        metrics = d.metrics()
+        stop_s = d.stop()
+        mirror = d.placements()
+        edge = d.edge_stats()
+    except BaseException:
+        if d is not None:
+            d.kill()
+        raise
+    finally:
+        server.stop()
+    first_end = first["start"] + first["duration_ms"] / 1e3
+    in_first = [b for b in edge["binds"]
+                if first["start"] <= b["at"] <= first_end]
+    guards = dict(
+        device_failures=int(metric_total(
+            metrics, "kube_batch_device_solve_failures_total")),
+        deadline_overruns=int(metric_total(
+            metrics, "kube_batch_solve_deadline_exceeded_total")),
+        tensorize_limits=int(metric_total(
+            metrics, "kube_batch_tensorize_limit_total")))
+    launches = k1_launches_by_route(metrics) if device == "cuda" else 0
+    problems = []
+    moved = placements_differ(truth["placed"], cycle["placements"])
+    if moved:
+        problems.append(f"{moved} pods off the in-process cycle's node: "
+                        + first_difference(truth["placed"],
+                                           cycle["placements"], truth))
+    if truth["by_queue"] != cycle["binds_by_queue"]:
+        problems.append(f"binds by queue {truth['by_queue']} != in-process "
+                        f"{cycle['binds_by_queue']}")
+    phases_differ = sorted(k for k in set(truth["pg_phases"])
+                           | set(cycle["pg_phases"])
+                           if truth["pg_phases"].get(k)
+                           != cycle["pg_phases"].get(k))
+    if phases_differ:
+        k = phases_differ[0]
+        problems.append(f"{len(phases_differ)} pod-group phases differ, "
+                        f"first {k}: {truth['pg_phases'].get(k)!r} over the "
+                        f"wire, {cycle['pg_phases'].get(k)!r} in process")
+    if placements_differ(mirror, truth["placed"]):
+        problems.append("the daemon's mirror differs from the server's "
+                        "store: " + first_difference(mirror, truth["placed"],
+                                                     truth))
+    if truth["over_allocatable"]:
+        problems.append(f"{truth['over_allocatable']} nodes over their "
+                        f"allocatable")
+    if any(guards.values()):
+        problems.append(f"guards {guards}")
+    sent = [k for b in edge["binds"] for k in b["keys"]]
+    if len(sent) != n_tasks or set(sent) != set(truth["placed"]):
+        problems.append(f"bind egress: {len(sent)} binds of "
+                        f"{len(set(sent))} pods for {n_tasks}")
+    if edge["visible_at"] is None:
+        problems.append("the mirror never showed every pod bound")
+    if device == "cuda" and not launches:
+        problems.append("K1 was not launched in the daemon")
+    if problems:
+        raise AssertionError("daemon-edge: " + "; ".join(problems))
+    KEPT["daemon_launches"] = KEPT.get("daemon_launches", 0) + launches
+    phase("daemon-edge", shape=list(shape),
+          # The server loads the file from its start (beside the daemon
+          # phase's boots in a full run) until it answers.
+          server_up_s=ready - server.began,
+          server_wait_s=max(0.0, ready - began),
+          healthy_s=healthy - d.began, list_sync_s=edge["list_sync_s"],
+          list_bytes=edge["list_bytes"], ingest_bytes=edge["ingest_bytes"],
+          mirrored=edge["mirrored"],
+          first_session_end_s=first_end - d.began,
+          first_session_ms=first["duration_ms"],
+          first_session_phases_ms=first["phases_ms"],
+          first_session_spans_ms=split,
+          bind_egress=dict(calls=len(in_first),
+                           pods=sum(b["pods"] for b in in_first),
+                           wall_ms=sum(b["wall_s"] for b in in_first) * 1e3),
+          bind_calls_all=len(edge["binds"]),
+          visible_ms=(edge["visible_at"] - first_end) * 1e3,
+          visible_after_egress_ms=(edge["visible_at"] - max(
+              b["at"] for b in edge["binds"])) * 1e3,
+          binds_by_queue=truth["by_queue"], placements_held=n_tasks,
+          placements_equal_in_process_cpu=True,
+          pod_group_phases_equal=len(truth["pg_phases"]),
+          k1_launches=launches, guards=guards, stop_s=stop_s, card=card)
+    return 0
+
+
+FEDERATION_LEASE_S = 3.0
+# Each shard of the federation phase holds one queue.
+FEDERATION_SHARD_MAP = "q0:0|q1:1|q2:2|q3:3"
+# Replica A loses every claim on shards 2 and 3 as if replica B had
+# won those races (the lease.cas_conflict chaos site), so that the two
+# replicas split the four shards two and two whatever their boot times.
+FEDERATION_CHAOS_A = ("seed=1,rate=1.0,sites=lease.cas_conflict:2"
+                      "|lease.cas_conflict:3")
+
+
+def federation_cluster(url: str, shape) -> dict:
+    """The drill shape's synthetic cluster (write_cluster_state's
+    nodes, queues, gangs and requests), each pod labelled with its
+    queue (edge/wire_shard.QUEUE_LABEL, so the server filters the
+    replicas' unassigned streams), plus one pod per queue that fits no
+    node (64 CPUs): it stays Pending, so each replica has pending pods
+    of its own and foreign ones to keep out of its mirror.  Submitted
+    over REST; returns {pod key: queue}."""
+    from kube_batch_tpu_torch.api.objects import (Container, Node, NodeSpec,
+                                                  NodeStatus, ObjectMeta,
+                                                  Pod, PodSpec)
+    from kube_batch_tpu_torch.apis.scheduling import v1alpha1
+    from kube_batch_tpu_torch.edge import QUEUE_LABEL, RemoteCluster
+    n_tasks, n_nodes, n_jobs, n_queues = shape
+    per_job = max(1, n_tasks // n_jobs)
+    cpus = ["250m", "500m", "1", "2"]
+    mems = ["512Mi", "1Gi", "2Gi", "4Gi"]
+    rest = RemoteCluster(url)
+    for i in range(n_nodes):
+        alloc = {"cpu": "16", "memory": "64Gi", "pods": 110}
+        rest.create_node(Node(metadata=ObjectMeta(name=f"n{i:05d}"),
+                              spec=NodeSpec(),
+                              status=NodeStatus(allocatable=alloc,
+                                                capacity=dict(alloc))))
+    for q in range(n_queues):
+        rest.create_queue(v1alpha1.Queue(
+            metadata=ObjectMeta(name=f"q{q}"),
+            spec=v1alpha1.QueueSpec(weight=1 + q % 4)))
+    groups = [(f"pg{j}", f"q{j % n_queues}", max(1, per_job * 4 // 5))
+              for j in range(n_jobs)]
+    groups += [(f"stuck{q}", f"q{q}", 1) for q in range(n_queues)]
+    for name, queue, min_member in groups:
+        rest.create_pod_group(v1alpha1.PodGroup(
+            metadata=ObjectMeta(name=name, namespace="bench"),
+            spec=v1alpha1.PodGroupSpec(min_member=min_member, queue=queue)))
+    queue_of = {}
+
+    def pod(name, group, queue, requests):
+        queue_of[f"bench/{name}"] = queue
+        rest.create_pod(Pod(
+            metadata=ObjectMeta(
+                name=name, namespace="bench",
+                annotations={v1alpha1.GroupNameAnnotationKey: group},
+                labels={QUEUE_LABEL: queue}),
+            spec=PodSpec(containers=[Container(requests=requests)])))
+
+    for i in range(n_tasks):
+        j = min(i // per_job, n_jobs - 1)
+        pod(f"p{i:06d}", f"pg{j}", f"q{j % n_queues}",
+            {"cpu": cpus[i % 4], "memory": mems[(i // 2) % 4]})
+    for q in range(n_queues):
+        pod(f"stuck{q}", f"stuck{q}", f"q{q}", {"cpu": "64",
+                                                "memory": "1Gi"})
+    return queue_of
+
+
+def edge_federation_phase(cuda_solver, card, shape=DRILL_SHAPE,
+                          device="cuda") -> int:
+    """Replica federation over the edge: one API server (EdgeServer,
+    federation_cluster submitted over REST) and two daemons on the one
+    card, each booted with ``--master`` at it, ``--tenancy-shards 4``
+    and ``--replica-federation`` (leases of FEDERATION_LEASE_S; one
+    queue per shard).  Replica A boots first with the chaos plan's
+    lease.cas_conflict at shards 2 and 3 (FEDERATION_CHAOS_A), B once A
+    holds 0 and 1.  Once every schedulable pod is bound in the server's
+    store, both are stopped at once.  Held: each shard's lease, in the
+    server's store, is held by exactly one replica, the one whose
+    /debug/shards says it owns it, and the two own disjoint shards
+    covering all four; each replica's mirror (DAEMON_LAUNCHER, read
+    before the stop releases its leases) holds exactly its own queues'
+    unbound pods and every bound pod, none of a foreign queue unbound;
+    every pod but the four that fit no node is bound, exactly once (the
+    replicas' bind egress adds up to the binds); no node over its
+    allocatable; each replica's binds (/metrics, by queue) only in its
+    own queues; both replicas launched K1; the guards 0 in both.  No
+    pod-for-pod hold: two replicas race for node capacity, so their
+    placements are not a single cycle's.  Returns 0; the launches join
+    KEPT["daemon_launches"]."""
+    n_tasks = shape[0]
+    cache_dir = str(cuda_solver.BUILD_DIR)
+    argv = ["--master", None, "--tenancy-shards", "4",
+            "--replica-federation", "--lock-object-namespace", "kube-system",
+            "--shard-lease-duration", str(FEDERATION_LEASE_S),
+            "--schedule-period", "0.2", "--compile-cache-dir", cache_dir]
+    server = EdgeServer("federation-server")
+    replicas = {}
+    try:
+        server.wait_ready(120)
+        argv[1] = server.url
+        t0 = time.perf_counter()
+        queue_of = federation_cluster(server.url, shape)
+        submit_s = time.perf_counter() - t0
+
+        def holders():
+            return [server.lease_holder("kube-system",
+                                        f"kube-batch-shard-{i}")
+                    for i in range(4)]
+
+        env = {"KUBE_BATCH_TPU_SHARD_MAP": FEDERATION_SHARD_MAP}
+        replicas["a"] = Daemon("federation-a", list(argv), device,
+                               env=dict(env, KUBE_BATCH_TPU_CHAOS=(
+                                   FEDERATION_CHAOS_A)))
+        replicas["a"].wait("shards 0 and 1", lambda: (lambda h: all(
+            h[:2]) and not any(h[2:]))(holders()), 300)
+        replicas["b"] = Daemon("federation-b", list(argv), device, env=env)
+        replicas["b"].wait("every shard held", lambda: all(holders()), 300)
+        pending = {k for k in queue_of if k.startswith("bench/stuck")}
+
+        def all_bound():
+            truth = truth_of(server)
+            return truth if sum(1 for v in truth["placed"].values()
+                                if v) == n_tasks else None
+
+        truth = replicas["b"].wait("every schedulable pod bound", all_bound,
+                                   300)
+        shards = {name: d.json("/debug/shards") for name, d in
+                  replicas.items()}
+        lease_holders = holders()
+        metrics = {name: d.metrics() for name, d in replicas.items()}
+        for d in replicas.values():     # both at once: see the docstring
+            d.proc.send_signal(__import__("signal").SIGTERM)
+        stop_s = {name: d.stop() for name, d in replicas.items()}
+        mirrors = {name: d.placements() for name, d in replicas.items()}
+        edges = {name: d.edge_stats() for name, d in replicas.items()}
+    except BaseException:
+        for d in replicas.values():
+            d.kill()
+        raise
+    finally:
+        server.stop()
+    problems = []
+    owned = {}
+    for name, doc in shards.items():
+        owned[name] = sorted(int(s) for s, row in doc["shards"].items()
+                             if row.get("owned_here"))
+    if sorted(owned["a"] + owned["b"]) != [0, 1, 2, 3]:
+        problems.append(f"shards owned {owned}")
+    ident = {}
+    for name in owned:
+        held = {lease_holders[s] for s in owned[name]}
+        if len(held) != 1 or "" in held:
+            problems.append(f"replica {name}'s shards {owned[name]} have "
+                            f"lease holders {held}")
+        ident[name] = next(iter(held), "")
+    if ident.get("a") == ident.get("b"):
+        problems.append(f"one holder for both replicas: {ident}")
+    own_queues = {name: {f"q{s}" for s in owned[name]} for name in owned}
+    bound = {k for k, v in truth["placed"].items() if v}
+    for name, mirror in mirrors.items():
+        want = bound | {k for k in pending
+                        if queue_of[k] in own_queues[name]}
+        if set(mirror) != want:
+            extra = sorted(set(mirror) - want)
+            missing = sorted(want - set(mirror))
+            problems.append(f"replica {name}'s mirror: {len(extra)} pods "
+                            f"not its own (first {extra[:1]}), {len(missing)}"
+                            f" missing (first {missing[:1]})")
+        foreign = [k for k, v in mirror.items()
+                   if not v and queue_of.get(k) not in own_queues[name]]
+        if foreign:
+            problems.append(f"replica {name} mirrors foreign pending pods "
+                            f"{foreign[:3]}")
+    if set(truth["placed"]) - bound != pending:
+        problems.append(f"unbound pods {sorted(set(truth['placed']) - bound)[:5]}")
+    # Binds by queue per replica, from each replica's own bind egress
+    # (its /metrics time-to-bind samples count the other's binds too,
+    # once their watch echo proves them).
+    sent = {name: [k for b in e["binds"] for k in b["keys"]]
+            for name, e in edges.items()}
+    by_queue = {}
+    for name, keys in sent.items():
+        for k in keys:
+            q = queue_of.get(k, "")
+            by_queue.setdefault(name, {})[q] = \
+                by_queue.setdefault(name, {}).get(q, 0) + 1
+        if not set(by_queue.get(name, {})) <= own_queues[name]:
+            problems.append(f"replica {name} bound in queues "
+                            f"{by_queue.get(name)}, owns "
+                            f"{sorted(own_queues[name])}")
+    everyone = sent["a"] + sent["b"]
+    if len(everyone) != n_tasks or set(everyone) != bound:
+        problems.append(f"bind egress: {len(sent['a'])} + {len(sent['b'])} "
+                        f"binds, {len(set(everyone))} distinct, for "
+                        f"{len(bound)} bound pods")
+    if truth["over_allocatable"]:
+        problems.append(f"{truth['over_allocatable']} nodes over their "
+                        f"allocatable")
+    guards, launches = {}, {}
+    for name, m in metrics.items():
+        guards[name] = dict(
+            device_failures=int(metric_total(
+                m, "kube_batch_device_solve_failures_total")),
+            deadline_overruns=int(metric_total(
+                m, "kube_batch_solve_deadline_exceeded_total")),
+            tensorize_limits=int(metric_total(
+                m, "kube_batch_tensorize_limit_total")))
+        if any(guards[name].values()):
+            problems.append(f"replica {name} guards {guards[name]}")
+        launches[name] = k1_launches_by_route(m) if device == "cuda" else 0
+        if device == "cuda" and not launches[name]:
+            problems.append(f"replica {name} did not launch K1")
+    if problems:
+        raise AssertionError("edge-federation: " + "; ".join(problems))
+    KEPT["daemon_launches"] = (KEPT.get("daemon_launches", 0)
+                               + sum(launches.values()))
+    phase("edge-federation", shape=list(shape), submit_s=submit_s,
+          shards_owned=owned, binds_by_queue=by_queue,
+          bind_calls={name: len(e["binds"]) for name, e in edges.items()},
+          mirrored={name: e["mirrored"] for name, e in edges.items()},
+          ingest_bytes={name: e["ingest_bytes"] for name, e in edges.items()},
+          list_sync_s={name: e["list_sync_s"] for name, e in edges.items()},
+          scope_dropped={name: metric_total(
+              m, "kube_batch_ingest_dropped_total")
+              for name, m in metrics.items()},
+          k1_launches=launches, guards=guards, stop_s=stop_s, card=card)
+    return 0
 
 
 def warmup_phase(cuda_solver, card, device="cuda", shape=NORTH_STAR) -> int:
@@ -4415,8 +5106,13 @@ def main() -> int:
           cuda=torch.version.cuda, count=torch.cuda.device_count())
 
     # The daemon boots first: its cold boot builds K1 into the directory
-    # this process then loads it from.
-    daemon_launches = guarded(daemon_phase, cuda_solver, card)
+    # this process then loads it from.  Then the daemon over the network
+    # edge, held against the daemon phase's in-process cycle, and replica
+    # federation over the edge.
+    daemon_launches = guarded(daemon_phase, cuda_solver, card,
+                              edge_server=True)
+    guarded(daemon_edge_phase, cuda_solver, card)
+    guarded(edge_federation_phase, cuda_solver, card)
     main_before = fused_counters()
     began = time.perf_counter()
     cuda_solver.build_kernel()
@@ -4568,6 +5264,9 @@ def main() -> int:
 
     no_fallback_since(main_before, "main-path")
 
+    # From here the large holds of the plain version run in worker
+    # processes beside the card work, checked before the kernels line.
+    DeferredHolds.start()
     session_launches = guarded(session_phase, cuda_solver, card)
     warmup_launches = guarded(warmup_phase, cuda_solver, card)
     guarded(session_vs_cpu_phase, cuda_solver)
@@ -4585,6 +5284,7 @@ def main() -> int:
     # The drills inject their own faults and check exactly those; the
     # breaker is closed again after each.
     drill_launches = sum(run(cuda_solver, card) for run in DRILL_PHASES)
+    DeferredHolds.drain()
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -4622,31 +5322,39 @@ def fused_only() -> int:
     began = time.perf_counter()
     cuda_solver.build_kernel()
     phase("build", seconds=time.perf_counter() - began)
+    DeferredHolds.start()
     launches = sum(guarded(run, cuda_solver, card) for run in FUSED_PHASES)
+    DeferredHolds.drain()
     phase("fused-only", launches=launches, held=LaunchLedger.counts)
     return 0
 
 
 def daemon_only() -> int:
-    """``python3 chip_smoke.py daemon``: the daemon phase, the build (a
-    load), a 2-session session phase, warmup and tensorize-limit alone
-    (a shorter run while working on them); prints no kernels line and no
-    result line."""
+    """``python3 chip_smoke.py daemon``: the daemon phase, daemon-edge,
+    edge-federation, the build (a load), a 2-session session phase,
+    warmup and tensorize-limit alone (a shorter run while working on
+    them); prints no kernels line and no result line."""
     from kube_batch_tpu_torch.ops import cuda_solver
     card = card_line()
     phase("device", card=card, torch=torch.__version__,
           cuda=torch.version.cuda, count=torch.cuda.device_count())
-    launches = guarded(daemon_phase, cuda_solver, card)
+    launches = guarded(daemon_phase, cuda_solver, card, edge_server=True)
+    guarded(daemon_edge_phase, cuda_solver, card)
+    guarded(edge_federation_phase, cuda_solver, card)
     began = time.perf_counter()
     cuda_solver.build_kernel()
     phase("build", seconds=time.perf_counter() - began,
           built=cuda_solver._Kernel.built)
+    DeferredHolds.start()
     launches += guarded(session_phase, cuda_solver, card, sessions=2)
     launches += guarded(warmup_phase, cuda_solver, card)
     launches += tensorize_limit_phase(cuda_solver, card)
+    DeferredHolds.drain()
     phase("daemon-only", launches=launches, held=LaunchLedger.counts)
     return 0
 
 
 if __name__ == "__main__":
+    import atexit
+    atexit.register(EdgeServer.stop_live)
     sys.exit(main())

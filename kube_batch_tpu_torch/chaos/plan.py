@@ -1,4 +1,3 @@
-# lint: disable=chaos-registry (the wire's sites wait for the edge, item 9a)
 """Seed-deterministic fault plan: the chaos engine's decision core.
 
 Every hardened code path hosts one or more *named injection sites* (the

@@ -7,9 +7,9 @@ reference's names for the port's counterparts: ``--compile-cache-dir`` is
 the directory of K1's built library and the warmup manifest
 (ops/compile_cache.py), and ``--jax-profile-dir`` sets
 ``KUBE_BATCH_TPU_PROFILE``, the port's ``torch.profiler`` trace of each
-session.  ``--master`` names a cluster edge the port does not have yet
-(ROADMAP queue 1 item 9a): the server refuses it.  There is no device
-flag: the daemon runs on the card.
+session.  ``--master`` points the daemon at an ``edge.server.ApiServer``
+(the port's or the reference's: the wire is the same).  There is no
+device flag: the daemon runs on the card.
 """
 
 from __future__ import annotations

@@ -6,11 +6,11 @@ of K1 and its family for the configured buckets (ops/compile_cache.py,
 on a thread beside the scheduler loop), and runs the scheduling loop,
 wrapped in leader election when enabled.  The scheduler's default actions
 run on ``device`` (the card unless the caller passes the CPU, as the tests
-do).  ``--master`` names a cluster edge over HTTP, which the port does
-not have yet (ROADMAP queue 1 item 9a): it raises rather than boot a
-scheduler over a private store that would schedule nothing of the real
-cluster's.  The flight-recorder endpoints (doc/OBSERVABILITY.md) ride the
-same server:
+do).  ``--master`` points the runtime at an ``edge.server.ApiServer``:
+ingest rides the ``edge.client.RemoteCluster`` reflectors and every
+effector verb rides REST, so the store is shared with every other
+scheduler pointed at the same server.  The flight-recorder endpoints
+(doc/OBSERVABILITY.md) ride the same server:
 
   /debug                     index of every debug endpoint (JSON)
   /debug/sessions            recent session summaries (JSON)
@@ -274,12 +274,6 @@ class ServerRuntime:
     def __init__(self, opt: ServerOption, cluster: Optional[Cluster] = None,
                  lease_config: Optional[LeaderElectionConfig] = None, *,
                  device=None, dtype: torch.dtype = torch.float32):
-        if opt.master:
-            raise NotImplementedError(
-                "--master needs the cluster edge over HTTP (edge/, "
-                "RemoteCluster), which the port does not have yet "
-                "(ROADMAP queue 1 item 9a); without it the scheduler "
-                "would schedule a private store, not the cluster")
         self.opt = opt
         self._lease_config = lease_config
         self.device = resolve_device(device)
@@ -306,16 +300,26 @@ class ServerRuntime:
         # Whether the backing store is SHARED with other standbys — the
         # precondition for a store-hosted election lock.  An injected
         # cluster is shared by construction (the embedder hands the same
-        # object to every runtime); a self-built in-process Cluster is
-        # private to this process, so a lease in it would only ever elect
-        # ourselves.
+        # object/edge to every runtime); a --master edge is shared by the
+        # server behind it; a self-built in-process Cluster is private to
+        # this process, so a lease in it would only ever elect ourselves.
         self._cluster_shared = True
+        self._owns_edge = False
         if cluster is not None:
             self.cluster = cluster
+        elif opt.master:
+            # The network edge (reference server.go:55-60 buildConfig):
+            # --master points at an edge.server.ApiServer; ingest and
+            # effectors ride HTTP instead of the in-process store.
+            from ..edge import RemoteCluster
+            self.cluster = RemoteCluster(opt.master).start()
+            self._owns_edge = True
         else:
             self.cluster = Cluster()
             self._cluster_shared = False
         if opt.cluster_state:
+            # Works against both edges: RemoteCluster exposes the same
+            # create verbs over REST, so a seed file submits remotely too.
             load_cluster_state(self.cluster, opt.cluster_state)
         self.cache = new_scheduler_cache(
             self.cluster, scheduler_name=opt.scheduler_name,
@@ -379,10 +383,10 @@ class ServerRuntime:
                     and hasattr(self.cluster, "cas_lease")):
                 raise ValueError(
                     "replica federation needs a SHARED store for its "
-                    "shard leases (inject one cluster into every "
-                    "replica; the --master edge is ROADMAP queue 1 item "
-                    "9a); a process-private store would elect this "
-                    "replica onto every shard in its own world")
+                    "shard leases (point every replica at one cluster "
+                    "edge via --master); a process-private store would "
+                    "elect this replica onto every shard in its own "
+                    "world")
             from ..tenancy import ShardLeaseManager
             duration = self.opt.shard_lease_duration
             self.shard_leases = ShardLeaseManager(
@@ -392,18 +396,25 @@ class ServerRuntime:
                 renew_deadline=duration * 0.6,
                 retry_period=max(0.05, duration / 5.0))
             engine.attach_leases(self.shard_leases)
-            # Shard-filtered ingest over the HTTP edge
-            # (attach_shard_scope) comes with the edge, ROADMAP queue 1
-            # item 9a: the in-process store is never filtered.
+            # Shard-filtered ingest (doc/INGEST.md): over the HTTP edge,
+            # scope the reflectors to the shards this replica owns.
+            # MUST come after attach_leases — attach_shard_scope pins
+            # the lease manager's load-based shed off (a filtered
+            # mirror undercounts foreign load) and chains its
+            # ownership-change hook.
+            from ..edge import RemoteCluster, attach_shard_scope
+            if isinstance(self.cluster, RemoteCluster):
+                attach_shard_scope(self.cluster, engine.map,
+                                   self.shard_leases)
             self.shard_leases.start()
             self.scheduler.run()
         elif self.opt.enable_leader_election:
             self.opt.check_option_or_die()
-            # The HA lock lives IN THE STORE whenever the shared store
-            # supports leases (the in-process simulator; the HTTP edge
-            # comes with item 9a) — kube-batch's ConfigMap lock: any
-            # standby pointing at the same store can take over.  The lock
-            # file remains the fallback for bare shared-filesystem runs.
+            # The HA lock lives IN THE STORE whenever the cluster edge
+            # supports leases (in-process simulator or the HTTP edge) —
+            # kube-batch's ConfigMap lock: any standby pointing at the
+            # same store can take over.  The lock file remains the
+            # fallback for bare shared-filesystem runs.
             if self._cluster_shared and hasattr(self.cluster, "cas_lease"):
                 lock = StoreLock(self.cluster,
                                  self.opt.lock_object_namespace)
@@ -428,9 +439,10 @@ class ServerRuntime:
                         "private (or has no lease support); the file-"
                         "lock fallback is safe for SAME-HOST standbys "
                         "only (flock coherence is per-host on network "
-                        "filesystems).  Inject one shared cluster into "
-                        "every standby, or pass --leader-elect-file-lock "
-                        "to accept same-host-only failover.")
+                        "filesystems).  Point every standby at one "
+                        "cluster edge (--master), or pass "
+                        "--leader-elect-file-lock to accept same-host-"
+                        "only failover.")
                 default_path = (f"{self.opt.lock_object_namespace}/"
                                 f"kube-batch-lock.json")
                 if self._lease_config is None:
@@ -480,3 +492,8 @@ class ServerRuntime:
             recorder.stop()
         if self.metrics_server is not None:
             stop_metrics_server(self.metrics_server)
+        if self._owns_edge:
+            # The reflectors of the edge this runtime built (an injected
+            # store belongs to its caller) are told to stop here, so a
+            # stopped runtime stops watching the server.
+            self.cluster.stop()

@@ -304,17 +304,14 @@ BREAKER_COOLDOWN_S = _knob(
     owner="kube_batch_tpu_torch.chaos.breaker")
 
 # -- edge / ingest ----------------------------------------------------
-# lint: disable=knob-registry (the edge reads it, ROADMAP queue 1 item 9a)
 WIRE_SHARD = _knob(
     "KUBE_BATCH_TPU_WIRE_SHARD", "flag-on", True, "doc/INGEST.md",
     "Shard-scoped watch registration (0 mirrors the full cluster)",
     parity=True, owner="kube_batch_tpu_torch.edge.wire_shard")
-# lint: disable=knob-registry (the edge reads it, ROADMAP queue 1 item 9a)
 LAZY_MIRROR = _knob(
     "KUBE_BATCH_TPU_LAZY_MIRROR", "flag-on", True, "doc/INGEST.md",
     "Lazy out-of-scope mirror hydration on the edge client",
     parity=True, owner="kube_batch_tpu_torch.edge.wire_shard")
-# lint: disable=knob-registry (the edge reads it, ROADMAP queue 1 item 9a)
 BASELINE_BUDGET = _knob(
     "KUBE_BATCH_TPU_BASELINE_BUDGET", "spec", None, "doc/INGEST.md",
     "Bounded baseline store budget spec; malformed raises",

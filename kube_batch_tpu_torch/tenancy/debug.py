@@ -1,7 +1,7 @@
 """Shard ownership table: the /debug/shards surface.
 
-Counterpart of kube_batch_tpu/tenancy/debug.py, copied whole (the HTTP
-endpoint itself comes with ROADMAP queue 1 item 9).
+Counterpart of kube_batch_tpu/tenancy/debug.py, copied whole (served at
+``/debug/shards`` by cli/server.py).
 
 Follows the /debug/tenants pattern (metrics/tenants.py): writers are the
 tenancy engine (per-session queue membership) and the lease manager

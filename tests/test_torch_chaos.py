@@ -11,10 +11,10 @@ the time-to-bind samples under ambiguous binds
 Each case runs its body once per package (loop_twin) and both must
 return the same.  The breaker cases are in tests/test_torch_breaker.py.
 
-Not twinned here: ``TestWatchFaults``, the watch-storm case of
-``TestLineageUnderChaos`` and ``TestSoakSmoke`` need the HTTP edge
-(``edge.ApiServer``, ``RemoteCluster``) and ``tools/chaos_soak``, which
-come with the wire (ROADMAP queue 1 item 9).
+``TestWatchFaults`` (the ``watch.*`` sites of edge/client.py) is
+twinned in tests/test_torch_edge_wire.py.  Not twinned here: the
+watch-storm case of ``TestLineageUnderChaos`` and ``TestSoakSmoke``
+need ``tools/chaos_soak``'s twin (ROADMAP queue 1 item 9c).
 """
 
 import importlib

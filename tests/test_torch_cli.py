@@ -4,10 +4,11 @@ CPU.
 Twin of tests/test_cli.py, case for case, with ``ServerRuntime(...,
 device="cpu")``: the options (every flag and default the reference's),
 the leader election store-locked and file-locked, the metrics endpoint
-and the cluster-state loader.  Added: ``--master`` raises (the edge is
-ROADMAP queue 1 item 9a), ``main`` without a card exits non-zero, and
-``python -m kube_batch_tpu_torch.cli.main --version`` prints the port's
-version.
+and the cluster-state loader.  Added: ``--master`` boots over the
+port's ``edge.ApiServer`` and binds there, ``--replica-federation`` over
+``--master`` attaches a ``ShardScope``, ``main`` without a card exits
+non-zero, and ``python -m kube_batch_tpu_torch.cli.main --version``
+prints the port's version.
 """
 
 import dataclasses
@@ -283,13 +284,89 @@ class TestServerRuntime:
             rt.stop()
         assert rt.shard_leases.owned_shards() == []
 
-    def test_master_raises_naming_the_edge_item(self):
-        """--master needs the HTTP edge (ROADMAP queue 1 item 9a): the
-        runtime refuses it rather than schedule a private store."""
-        opt = ServerOption(master="http://127.0.0.1:1",
-                           enable_leader_election=False, listen_address="")
-        with pytest.raises(NotImplementedError, match="item 9a"):
-            runtime(opt)
+    def test_master_boots_over_the_ports_api_server_and_binds(
+            self, tmp_path):
+        """--master points the runtime at an edge.ApiServer: the store is
+        a RemoteCluster, --cluster-state submits over REST, a gang binds
+        in the server's store and the runtime stops its reflectors."""
+        from kube_batch_tpu_torch.edge import ApiServer, RemoteCluster
+        state = {
+            "nodes": [{"name": f"n{i}", "allocatable": {
+                "cpu": "4", "memory": "8Gi", "pods": 110}}
+                for i in range(2)],
+            "queues": [{"name": "default", "weight": 1}],
+            "podGroups": [{"name": "pg", "namespace": "ns",
+                           "minMember": 3, "queue": "default"}],
+            "pods": [{"name": f"p{i}", "namespace": "ns", "group": "pg",
+                      "requests": {"cpu": "2", "memory": "2Gi"}}
+                     for i in range(3)],
+        }
+        cluster = Cluster()
+        server = ApiServer(cluster).start()
+        rt = None
+        try:
+            state_file = str(tmp_path / "state.json")
+            with open(state_file, "w") as fh:
+                json.dump(state, fh)
+            opt = ServerOption(master=server.url, cluster_state=state_file,
+                               enable_leader_election=False,
+                               listen_address="", schedule_period=0.05)
+            rt = runtime(opt)
+            assert isinstance(rt.cluster, RemoteCluster)
+            with cluster.lock:  # submitted over REST at boot
+                assert len(cluster.pods) == 3 and len(cluster.nodes) == 2
+            rt.run()
+            deadline = time.time() + 30
+            while time.time() < deadline:
+                with cluster.lock:
+                    binds = {k: p.spec.node_name
+                             for k, p in cluster.pods.items()}
+                    phase = cluster.pod_groups["ns/pg"].status.phase
+                if all(binds.values()) and phase == "Running":
+                    break
+                time.sleep(0.05)
+            assert all(binds.values()), binds
+            assert phase == "Running"  # the gang's status, over REST
+        finally:
+            if rt is not None:
+                rt.stop()
+                assert rt.cluster._stop.is_set()
+            server.stop()
+
+    def test_replica_federation_over_master_attaches_a_shard_scope(self):
+        """--replica-federation over --master: the shard leases live in
+        the API server's store, and the RemoteCluster's reflectors are
+        scoped to the owned shards (attach_shard_scope after
+        attach_leases)."""
+        from kube_batch_tpu_torch.edge import ApiServer, ShardScope
+        cluster = Cluster()
+        server = ApiServer(cluster).start()
+        rt = None
+        try:
+            opt = ServerOption(master=server.url,
+                               enable_leader_election=False,
+                               replica_federation=True, tenancy_shards=2,
+                               lock_object_namespace="kube-system",
+                               listen_address="", schedule_period=0.1,
+                               shard_lease_duration=1.0)
+            rt = runtime(opt)
+            rt.run()
+            scope = rt.cluster._scope
+            assert isinstance(scope, ShardScope)
+            deadline = time.time() + 10
+            while (time.time() < deadline
+                   and rt.shard_leases.owned_shards() != [0, 1]):
+                time.sleep(0.05)
+            assert rt.shard_leases.owned_shards() == [0, 1]
+            with cluster.lock:  # the leases are server-side objects
+                held = {key.split("/", 1)[1] for key in cluster.leases
+                        if key.startswith("kube-system/")}
+            assert {"kube-batch-shard-0", "kube-batch-shard-1"} <= held
+        finally:
+            if rt is not None:
+                rt.stop()
+            server.stop()
+        assert rt.shard_leases.owned_shards() == []
 
 
 def _main(*argv, env=None):

@@ -13,8 +13,8 @@ counters — in both ``KUBE_BATCH_TPU_BATCH_EVICT`` and
 pass the reference test's own assertions.  Where tpu-allocate runs in the
 session, both float modes: JAX with x64 against float64 keys, and under
 ``jax.enable_x64(False)`` against float32.  TestBenchAB (it imports
-bench.py) and TestEdgeWire (the wire, ROADMAP queue 1 item 9) have no
-twin here.
+bench.py) has no twin here; TestEdgeWire is twinned in
+tests/test_torch_edge_wire.py.
 """
 
 import os

@@ -20,7 +20,10 @@ must bind), runs one session that degrades to the host path under
 without a device raises
 when there is no CUDA, and that no shared object of the reference was
 loaded.  A second script boots the daemon's ``ServerRuntime`` on the CPU
-under the same hook: it warms, binds, answers /metrics and stops.
+under the same hook: it warms, binds, answers /metrics and stops.  A
+third starts the port's ``edge.ApiServer`` and boots a ``ServerRuntime``
+with ``--master`` against it: the gang binds over HTTP and the runtime
+stops.
 """
 
 import pkgutil
@@ -302,6 +305,58 @@ print("daemon bound", bound, "warmed", len(rt.warmup.records))
 """
 
 
+# The network edge under the same hook: the port's API server holds the
+# cluster, a runtime booted with --master lists and watches it over HTTP,
+# submits a gang over REST, binds it there and stops.
+MASTER_SCRIPT = SCRIPT.split("import torch\n", 1)[0] + r"""
+import json, os, tempfile, time
+from kube_batch_tpu_torch.cache import Cluster
+from kube_batch_tpu_torch.cli.options import parse_options
+from kube_batch_tpu_torch.cli.server import ServerRuntime
+from kube_batch_tpu_torch.edge import ApiServer, RemoteCluster
+
+work = tempfile.mkdtemp()
+state = {
+    "nodes": [{"name": f"n{i}", "allocatable": {"cpu": "8",
+               "memory": "16Gi", "pods": 110}} for i in range(3)],
+    "queues": [{"name": "default", "weight": 1}],
+    "podGroups": [{"name": "pg", "namespace": "ns", "minMember": 3,
+                   "queue": "default"}],
+    "pods": [{"name": f"p{i}", "namespace": "ns", "group": "pg",
+              "requests": {"cpu": "2", "memory": "2Gi"}} for i in range(3)],
+}
+with open(os.path.join(work, "state.json"), "w") as fh:
+    json.dump(state, fh)
+cluster = Cluster()
+server = ApiServer(cluster).start()
+rt = None
+try:
+    opt = parse_options([
+        "--master", server.url, "--cluster-state",
+        os.path.join(work, "state.json"), "--schedule-period", "0.1",
+        "--listen-address", ""])
+    rt = ServerRuntime(opt, device="cpu")
+    assert isinstance(rt.cluster, RemoteCluster)
+    rt.run()
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        with cluster.lock:
+            bound = sum(1 for p in cluster.pods.values() if p.spec.node_name)
+        if bound == 3:
+            break
+        time.sleep(0.05)
+    assert bound == 3, bound
+finally:
+    if rt is not None:
+        rt.stop()
+    server.stop()
+leaked = sorted(m for m in sys.modules
+                if any(m == b or m.startswith(b + ".") for b in BLOCKED))
+assert not leaked, leaked
+print("master bound", bound, "over", opt.master.split(":")[0])
+"""
+
+
 def port_modules():
     pkg = kube_batch_tpu_torch
     names = [pkg.__name__]
@@ -340,7 +395,11 @@ def test_port_runs_with_jax_and_the_reference_blocked():
             "kube_batch_tpu_torch.tenancy.pipeline",
             "kube_batch_tpu_torch.tenancy.leases",
             "kube_batch_tpu_torch.tenancy.view",
-            "kube_batch_tpu_torch.tenancy.footprint"} <= set(modules)
+            "kube_batch_tpu_torch.tenancy.footprint",
+            "kube_batch_tpu_torch.edge.server",
+            "kube_batch_tpu_torch.edge.client",
+            "kube_batch_tpu_torch.edge.codec_k8s",
+            "kube_batch_tpu_torch.client.clientset"} <= set(modules)
     proc = subprocess.run([sys.executable, "-c", SCRIPT, *modules],
                           cwd=str(ROOT), capture_output=True, text=True,
                           timeout=300, check=False)
@@ -366,3 +425,14 @@ def test_daemon_runs_with_jax_and_the_reference_blocked():
                           timeout=300, check=False)
     assert proc.returncode == 0, proc.stderr[-4000:]
     assert proc.stdout.startswith("daemon bound 6 warmed 5")
+
+
+def test_master_runtime_runs_with_jax_and_the_reference_blocked():
+    """The port's ApiServer and a ServerRuntime booted with --master
+    against it on the CPU: the gang binds over HTTP, with no jax and
+    nothing of the reference in the process."""
+    proc = subprocess.run([sys.executable, "-c", MASTER_SCRIPT],
+                          cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=300, check=False)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    assert proc.stdout.startswith("master bound 3 over http")

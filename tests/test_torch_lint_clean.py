@@ -24,10 +24,8 @@ from tools.graftlint.core import (RULES, Context, SourceFile,  # noqa: E402
 
 PORT = str(ROOT / "kube_batch_tpu_torch")
 AS_REFERENCE = str(ROOT / "kube_batch_tpu")
-# The chaos sites of the wire (edge/), catalogued in doc/CHAOS.md and
-# required by tools/chaos_soak.py, that the port gains with the edge
-# (ROADMAP queue 1 item 9a); kube_batch_tpu_torch/chaos/plan.py's
-# suppression names this wait.
+# The chaos sites of the wire (edge/client.py), catalogued in
+# doc/CHAOS.md and required by tools/chaos_soak.py.
 WIRE_SITES = {"watch.disconnect", "watch.stale", "watch.truncate",
               "ingest.handover_race"}
 
@@ -128,19 +126,19 @@ def test_registries_collected_equal_the_reference():
     """The cross-file registries see the port's contract files (an
     anchor-path regression would make a rule vacuously green) and hold
     what the reference's hold: the same knobs and ledgers, at least its
-    metrics, and every chaos site but the wire's."""
+    metrics, and the same chaos sites, the wire's included."""
     port = _collected(_port_files())
     ref = _collected(load_files([AS_REFERENCE]))
     assert set(port.knob_decls) == set(ref.knob_decls)
     assert len(port.knob_decls) == 45
     assert set(ref.metric_decls) <= set(port.metric_decls)
-    assert set(ref.chaos_sites) - set(port.chaos_sites) == WIRE_SITES
-    assert set(port.chaos_sites) <= set(ref.chaos_sites)
+    assert WIRE_SITES <= set(port.chaos_sites)
+    assert set(port.chaos_sites) == set(ref.chaos_sites)
     assert set(port.ledger_catalogue) == set(ref.ledger_catalogue)
     assert len(port.ledger_catalogue) == 13
     marked = {name for _p, _l, _c, name in port.ledger_markers}
     # The wire's three ledgers (mirror, pending, baseline) are marked by
-    # edge/ classes, which come with ROADMAP queue 1 item 9a;
-    # compile_cache's store is a module-level set.
-    assert set(port.ledger_catalogue) - marked == {
-        "compile_cache", "mirror", "pending", "baseline"}
+    # edge/client.py's classes; compile_cache's store is a module-level
+    # set.
+    assert {"mirror", "pending", "baseline"} <= marked
+    assert set(port.ledger_catalogue) - marked == {"compile_cache"}

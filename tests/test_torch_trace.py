@@ -8,8 +8,8 @@ histogram, the ship span's mode and bytes, why-pending, summaries,
 percentiles, the solver tally and log correlation; and the
 ``solver.dispatch`` / ``solver.fetch`` spans of the device half.  Each
 case runs once per package (loop_twin) and both must return the same.
-``test_debug_endpoints_http`` waits for the HTTP surface (ROADMAP queue
-1 item 9).
+``test_debug_endpoints_http`` is twinned in
+tests/test_torch_debug_http.py.
 """
 
 import importlib
