@@ -91,7 +91,7 @@ Phases, each printed on its own line:
      equal their solo launches (see tenancy_streams_phase);
  12. tenancy: bench.py's concurrent-shard storm through a real Scheduler
      and TenancyEngine at 10,000 nodes, KUBE_BATCH_TPU_CONCURRENT_SHARDS
-     off/on/on/off: equal binds, events and lineage, a pipeline that
+     off and on: equal binds, events and lineage, a pipeline that
      overlapped, every shard's launches on its own view's stream, no
      shard failure and no host fallback, every launch held against the
      plain version (see tenancy_phase); then tenancy-backlog, the
@@ -121,7 +121,22 @@ Phases, each printed on its own line:
      (chaos/breaker.py), so the drills check that the failed session
      raised with nothing mutated, and that the next healthy session
      binds as its control; the fused dispatch's failure re-dispatches
-     each family on the card.
+     each family on the card;
+ 16. the verification harnesses (kube_batch_tpu_torch/tools/), after the
+     drills: scenarios (scenario_gen's sweep, one seed per kind, both
+     arms on the card and equal, the breaker never tripped, the replay
+     round trip bit-identical; scenarios-vs-cpu: the batched arm on the
+     card equal to the CPU's), chaos-soak (chaos_soak at chaos-smoke's
+     shape, its seeds swept in order until every required site fired,
+     in process and over the edge, and an oracle + chaos pair at 2,000
+     nodes: no loop death or double bind, convergence to the oracle or
+     a divergence the fault-free scheduler reaches from the state the
+     faults left, no host path run on the card, the breaker's trips,
+     probes and waits; the overhead A/B; the plan off and the breaker
+     closed after it) and replica-soak (replica_soak
+     at soak-replicas' shape: every invariant, the steal time against
+     the lease, the key ledger's hits and misses around the kill); every
+     K1 launch held against the plain version (see their functions).
 Every phase before the drills runs inside ``guarded``: the device
 failure counter (every stage), the solve-deadline counter, the
 tensorizer-limit counter and the breaker are read before and after it,
@@ -129,12 +144,14 @@ and a phase that moved any of them or left the breaker open fails the
 script (a ``no-fallback`` line each).
 The functions' defaults are the depth the script runs, cut below the
 protocols' earlier depth to keep the script inside its time limit, never
-narrower: 2 tenancy rounds per arm (was 4), the 10,000 and 30,000
-backlogs (2,500 dropped), 3 fused-quiet sessions per arm (was 4), 2
-fused-storm cycles (was 3), 4 fused-steady rounds (was 6) and 3
-sessions per arm in the session phase (was 4, one cold and two warm;
-cut when the main path's plain version went back on the card).  The
-evict phase keeps its off/on/on/off timed cycles.
+narrower: 2 tenancy rounds per arm (was 4) in two arms, off and on
+(was off/on/on/off), the 10,000 and 30,000 backlogs (2,500 dropped), 2
+fused-quiet sessions per arm (was 4, then 3), 2 fused-storm cycles (was
+3), 4 fused-steady rounds (was 6), 3 sessions per arm in the session
+phase (was 4, one cold and two warm; cut when the main path's plain
+version went back on the card) and 2 timed evict cycles, off and on
+(was off/on/on/off); the last cuts of fused-quiet, the tenancy arms
+and the evict cycles paid for the harness phases.
 From the session phase on, a hold of a large solve (DeferredHolds:
 50,000,000 placement-node cells or more, the north star's 45-55 s on
 the host) runs in one of two worker processes while the script goes on,
@@ -146,7 +163,8 @@ a phase that stage the same session), the outputs are compared byte for
 byte instead; the kernel table counts both.  ``python3 chip_smoke.py
 fused`` runs the build and the five fused phases alone; ``python3
 chip_smoke.py daemon`` runs daemon, daemon-edge, edge-federation, the
-build, a 2-session session phase, warmup and tensorize-limit alone.
+build, a 2-session session phase, warmup and tensorize-limit alone;
+``python3 chip_smoke.py tools`` the build and the three harness phases.
 Each phase line carries ``t_s``, the seconds since the script started.
 The kernel-vs-plain matrix includes the shapes the kernel once refused:
 2,500 queues in float64 (the queue piece in global memory) and 10 and 20
@@ -1365,7 +1383,7 @@ def _stats_ms(runs) -> dict:
                 all=list(runs))
 
 
-def evict_phase(cuda_solver, card, timed=4) -> int:
+def evict_phase(cuda_solver, card, timed=2) -> int:
     """The eviction engine at the north star: the shipped four-action conf
     (reclaim, tpu-allocate, backfill, preempt) on make_churn_cache(50k,
     10k, 2k, 4) — every node full of low-priority Running pods and a
@@ -1373,7 +1391,7 @@ def evict_phase(cuda_solver, card, timed=4) -> int:
     queues (preempt) and a starved queue (reclaim) — float32 on the card.
     The protocol of bench.py measure_action_pipeline: one warm cycle per
     KUBE_BATCH_TPU_BATCH_EVICT arm, then ``timed`` cycles of
-    off/on/on/off, each cycle on a
+    off/on/on/off (the first two: off, on), each cycle on a
     fresh cache.  Both arms must evict, with the same victims in the same
     order and the same binds; each batched session makes exactly one
     batched dispatch, on the card; each session launches the session
@@ -1381,7 +1399,7 @@ def evict_phase(cuda_solver, card, timed=4) -> int:
     arm's warm cycle tpu-allocate's launch is held against the plain
     version on its inputs (allocate_vs_plain), and every timed cycle
     must end as its arm's warm cycle did.  Returns the kernel launches
-    of all six cycles."""
+    of all its cycles."""
     shape = NORTH_STAR
     per_arm = {True: {}, False: {}}
     footprint = {}
@@ -2235,25 +2253,25 @@ def tenancy_arm(cuda_solver, concurrent: bool, device="cuda", *,
 
 
 def tenancy_phase(cuda_solver, card, device="cuda",
-                  shape=TENANCY_SHAPE, rounds=2) -> int:
+                  shape=TENANCY_SHAPE, rounds=2,
+                  arms=(False, True)) -> int:
     """The reference's concurrent-shard A/B through a real Scheduler and
-    TenancyEngine at the north star's cluster size (tenancy_arm), arms
-    CONCURRENT_SHARDS off/on/on/off on fresh caches.  Every round's binds,
-    the event stream and the lineage bind samples must be equal across
-    the four arms; the concurrent arms must have pipelined (stages
+    TenancyEngine at the north star's cluster size (tenancy_arm), one
+    arm per entry of ``arms`` (CONCURRENT_SHARDS off, on; the reference
+    runs off/on/on/off) on fresh caches.  Every round's binds, the event
+    stream and the lineage bind samples must be equal across the arms; the concurrent arms must have pipelined (stages
     overlapped, overlap time above 0, two in flight at once); every
     shard's launches must have gone to its own view's stream, a distinct
     stream per shard.  Prints per arm the round walls (median,
     nearest-rank p90), shard sessions per second, launches per round and
     the begin halves that returned while a predecessor's solve was still
     pending on the card, and every launch's record held against the
-    plain version (tenancy_arm).  Returns the launches of the four
-    arms."""
-    arms = []
-    for concurrent in (False, True, True, False):
+    plain version (tenancy_arm).  Returns the launches of the arms."""
+    runs = []
+    for concurrent in arms:
         out = tenancy_arm(cuda_solver, concurrent, device, rounds=rounds,
                           **shape)
-        arms.append((concurrent, out))
+        runs.append((concurrent, out))
         walls = sorted(out["walls_ms"])
         phase("tenancy-arm", concurrent=concurrent, gangs=out["gangs"],
               walls_ms=out["walls_ms"],
@@ -2273,16 +2291,16 @@ def tenancy_phase(cuda_solver, card, device="cuda",
               binds=sum(len(f) for f in out["fingerprints"]),
               begin_timings=out["begin_timings"],
               vs_plain=held_summary(out["held"]))
-    base = arms[0][1]
+    base = runs[0][1]
     if not base["fingerprints"][-1]:
         raise AssertionError("the tenancy cell bound nothing")
-    for concurrent, out in arms[1:]:
+    for concurrent, out in runs[1:]:
         for key in ("fingerprints", "events", "samples"):
             if out[key] != base[key]:
                 raise AssertionError(f"tenancy arms differ in {key} "
                                      f"(concurrent={concurrent})")
     shards = set(range(shape["n_queues"]))
-    for concurrent, out in arms:
+    for concurrent, out in runs:
         by_shard = out["launches_by_shard"]
         handles = [h for v in by_shard.values() for h, _ in v]
         if device == "cuda" and (
@@ -2298,16 +2316,16 @@ def tenancy_phase(cuda_solver, card, device="cuda",
                                  f"{out['pipeline']}, "
                                  f"{out['overlap_ms_total']} ms, "
                                  f"in flight {out['inflight']}")
-    launches = sum(sum(out["launches"]) for _, out in arms)
+    launches = sum(sum(out["launches"]) for _, out in runs)
     phase("tenancy", nodes=shape["n_nodes"], tenants=shape["n_queues"],
           n_tasks=shape["n_tasks"], gangs=base["gangs"],
           rounds=len(base["walls_ms"]), identical_arms=True,
           binds_per_round=[len(f) for f in base["fingerprints"]],
           events=len(base["events"]), lineage_samples=len(base["samples"]),
           kernel_launches=launches,
-          held_against_plain=sum(len(out["held"]) for _, out in arms),
+          held_against_plain=sum(len(out["held"]) for _, out in runs),
           held_byte_equal=sum(r["held"] == "byte_equal"
-                              for _, out in arms for r in out["held"]),
+                              for _, out in runs for r in out["held"]),
           card=card)
     return launches
 
@@ -2780,11 +2798,11 @@ def echo_binds(cache, binder, pods, seen: int) -> list:
 
 
 def fused_quiet_phase(cuda_solver, card, shape=NORTH_STAR,
-                      sessions=3, device="cuda") -> int:
+                      sessions=2, device="cuda") -> int:
     """The quiet half of the fused program: the shipped four-action conf
     on make_synthetic_cache(*shape) (free capacity: the scan finds no
-    victims), KUBE_BATCH_TPU_FUSED on and off, one cold and two warm
-    sessions per arm taking turns, every bind echoed back unchanged
+    victims), KUBE_BATCH_TPU_FUSED on and off, ``sessions`` sessions
+    (one cold, the rest warm) per arm taking turns, every bind echoed back unchanged
     between sessions (each sees the same backlog), run as the
     KUBE_BATCH_TPU_INCREMENTAL=0 arm so every session solves.  Expects
     per session {"fused": 1} with solve/served 1 against {"evict": 1,
@@ -5082,6 +5100,247 @@ def tensorize_limit_phase(cuda_solver, card, shape=DRILL_SHAPE,
     return 0
 
 
+# ---- the verification harnesses (kube_batch_tpu_torch/tools/) --------------
+
+# scenario_gen's sweep: one seed per kind (kinds cycle; seed = index).
+SCENARIO_SEEDS = 5
+# The scenarios whose batched arm on the card must equal the port's
+# batched arm on the CPU, bind for bind.
+SCENARIOS_VS_CPU = (("frag_pressure", 0), ("churn_storm", 2))
+# chaos_soak's shapes: the reference's chaos-smoke (8 nodes, 10 cycles),
+# in process and over the edge, its seeds swept 1, 2, ... in order until
+# every required site has fired (CHAOS_SEED_CAP at most).  On the card a
+# failed device stage aborts the session, so preempt's commit flush is
+# reached less often while a plan is active, and commit.flush_error
+# needs more seeds than the reference's two (seed 8 under the card's
+# rule on the CPU).  A seed may diverge from its oracle only as the
+# reference's own soak does at this shape (seeds 6 and 8 of 1-8): the
+# fault-free scheduler started on the truth each fault phase left must
+# reach the chaos arm's maps (chaos_soak.fault_free_from).  Then one
+# oracle + chaos pair at 2,000 nodes whose fault budget keeps the
+# chaos-smoke's 60 per 8 nodes, so that the per-node
+# topology.bad_coords site does not spend it in the first cycle and the
+# device sites fire in every fault cycle at the reference's rates.
+CHAOS_SEED_CAP = 16
+CHAOS_LARGE = dict(seed=1, nodes=2_000, budget=15_000)
+# replica_soak at the reference's soak-replicas shape.
+REPLICA_SOAK = dict(replicas=3, shards=3, churn_rounds=12, edge=True)
+
+
+def scenarios_phase(cuda_solver, card, device="cuda",
+                    seeds=SCENARIO_SEEDS) -> int:
+    """scenario_gen's sweep on ``device``: ``seeds`` scenarios (one per
+    kind), each in its batched and its sequential arm, with the replay
+    round trip.  Every scenario must be error-free, its arms identical
+    (compare_arms), the breaker never tripped; the replay bit-identical.
+    Then scenarios-vs-cpu: the batched arm of SCENARIOS_VS_CPU on
+    ``device`` and on the CPU must bind, keep and delete the same pods.
+    Every session-kernel launch is held against the plain version.
+    Returns the launches."""
+    from kube_batch_tpu_torch.tools import scenario_gen as sg
+    began = time.perf_counter()
+    with LaunchLedger(cuda_solver, device) as ledger:
+        sweep = sg.run_sweep(seeds, 4, with_replay=True, device=device)
+        records = ledger.take()
+        vs_cpu = []
+        for kind, seed in SCENARIOS_VS_CPU:
+            spec = sg.gen_scenario(kind, seed)
+            arms = {dev: sg.run_arm(spec, sequential=False, device=dev)
+                    for dev in (device, "cpu")}
+            for key in ("bind_map", "pods", "deletes"):
+                if arms[device][key] != arms["cpu"][key]:
+                    raise AssertionError(f"scenarios-vs-cpu {kind} {seed}: "
+                                         f"the {key} on {device} differs "
+                                         f"from the CPU's")
+            vs_cpu.append(dict(kind=kind, seed=seed,
+                               binds=len(arms["cpu"]["bind_map"]),
+                               deletes=len(arms["cpu"]["deletes"]),
+                               launches=arms[device]["launches"]))
+        records += ledger.take()
+    held = ledger.hold(records, "scenarios")
+    for row in sweep["scenarios"]:
+        phase("scenario", **row)
+    phase("scenario-replay", **sweep.get("replay", {}))
+    phase("scenarios-vs-cpu", device=device, runs=vs_cpu, identical=True)
+    if not sweep["ok"]:
+        failed = [(r["kind"], r["seed"], r["errors"])
+                  for r in sweep["scenarios"] if r["errors"]]
+        raise AssertionError(f"scenarios: {failed}, replay "
+                             f"{sweep.get('replay')}")
+    launches = sum(r["launches"]["batched"] + r["launches"]["sequential"]
+                   for r in sweep["scenarios"])
+    if device == "cuda" and not all(
+            r["launches"]["batched"] and r["launches"]["sequential"]
+            for r in sweep["scenarios"]):
+        raise AssertionError("scenarios: an arm launched no session kernel")
+    phase("scenarios", device=device, seeds=seeds,
+          kinds=[r["kind"] for r in sweep["scenarios"]],
+          breaker_trips=sum(r["breaker_trips"] for r in sweep["scenarios"]),
+          sweep_launches=launches, wall_s=time.perf_counter() - began,
+          **held_fields(held), card=card)
+    return len(records)
+
+
+def held_fields(held: dict) -> dict:
+    """LaunchLedger.hold's summary for a phase line: how many launches
+    were held each way, the plain versions' median and total ms."""
+    ms = held["plain_ms"]
+    return dict(held=held["held"], max_abs_err=held["max_abs_err"],
+                plain_ms_median=float(np.median(ms)) if ms else None,
+                plain_ms_total=float(sum(ms)))
+
+
+def soak_lines(name: str, artifact: dict) -> None:
+    """One chaos-soak-seed line per chaos arm of ``artifact``."""
+    for row in artifact["seeds"]:
+        phase("chaos-soak-seed", run=name, **{
+            k: row[k] for k in (
+                "seed", "injected", "injected_total", "failed_cycles",
+                "drain_cycles", "drain_failed_cycles", "loop_deaths",
+                "double_binds", "lost_evictions", "breaker", "launches",
+                "mirror_wait_s", "wall_s", "errors", "diverged",
+                "path_problems")})
+
+
+def soak_faults(artifact: dict) -> list:
+    """A soak artifact's problems, less each seed's divergence from its
+    oracle where the fault-free scheduler from the faults' state reaches
+    the chaos arm's maps (``path_problems`` empty)."""
+    excused = {f"seed {row['seed']}: {err}" for row in artifact["seeds"]
+               if row["path_problems"] == [] for err in row["diverged"]}
+    return [p for p in artifact["problems"] if p not in excused]
+
+
+def chaos_soak_phase(cuda_solver, card, device="cuda") -> int:
+    """chaos_soak on ``device``: the chaos-smoke shape's seeds 1, 2, ...
+    swept in order until every FAKE_SITES site fired (CHAOS_SEED_CAP at
+    most), the same over the edge until every EDGE_SITES site fired, and CHAOS_LARGE's oracle + chaos pair at
+    2,000 nodes, then run_overhead_ab.  Every chaos arm must survive every
+    cycle, accept no double bind, and converge to its oracle (schedule
+    equivalence over the edge) or diverge only by its path (soak_faults).
+    On the card no failed device stage may run the host path (the host
+    allocate action never runs); each arm's breaker trips, probes and
+    seconds waited are printed.  Afterwards the fault plan is off and the
+    breaker closed.  Every session-kernel launch is held against the
+    plain version.  Returns the launches."""
+    import kube_batch_tpu_torch.chaos.breaker as brk
+    from kube_batch_tpu_torch.actions import allocate
+    from kube_batch_tpu_torch.chaos import plan as chaos_plan
+    from kube_batch_tpu_torch.tools import chaos_soak as soak
+    host_allocate = [0]
+    real_execute = allocate.AllocateAction.execute
+
+    def execute(self, ssn):
+        host_allocate[0] += 1
+        return real_execute(self, ssn)
+
+    allocate.AllocateAction.execute = execute
+    runs, launches, faults = {}, 0, {}
+    try:
+        with LaunchLedger(cuda_solver, device) as ledger:
+            sweep = dict(seeds=range(1, CHAOS_SEED_CAP + 1),
+                         until_all_sites=True)
+            for name, kw in (
+                    ("fake", sweep),
+                    ("edge", dict(edge=True, **sweep)),
+                    ("large", dict(seeds=[CHAOS_LARGE["seed"]],
+                                   nodes=CHAOS_LARGE["nodes"],
+                                   budget=CHAOS_LARGE["budget"],
+                                   require_all_sites=False))):
+                began = time.perf_counter()
+                art = soak.run_soak(**{"nodes": 8, "cycles": 10,
+                                       "device": device, **kw})
+                wall_s = time.perf_counter() - began
+                held = ledger.hold(ledger.take(), f"chaos-soak {name}")
+                launches += sum(held["held"].values())
+                runs[name] = art
+                faults[name] = soak_faults(art)
+                soak_lines(name, art)
+                phase("chaos-soak-run", run=name, seeds=len(art["seeds"]),
+                      nodes=art["nodes"], budget=art["budget"],
+                      oracle=art["oracle"],
+                      breaker_cooldown_s=art["breaker_cooldown_s"],
+                      sites_fired=art["sites_fired"],
+                      diverged=[row["seed"] for row in art["seeds"]
+                                if row["diverged"]],
+                      faults=faults[name], wall_s=wall_s,
+                      **held_fields(held))
+            ab = soak.run_overhead_ab(device=device)
+            held = ledger.hold(ledger.take(), "chaos-soak overhead A/B")
+            launches += sum(held["held"].values())
+    finally:
+        allocate.AllocateAction.execute = real_execute
+    bad = {name: f for name, f in faults.items() if f}
+    if bad:
+        raise AssertionError(f"chaos-soak: {bad}")
+    if not brk.host_path_allowed(device) and host_allocate[0]:
+        raise AssertionError(f"chaos-soak: a failed device stage ran the "
+                             f"host allocate action {host_allocate[0]} "
+                             f"times on the card")
+    state = brk.device_breaker().state()
+    if chaos_plan.PLAN is not None or state != "closed":
+        raise AssertionError(f"chaos-soak: left the plan "
+                             f"{chaos_plan.PLAN} and the breaker {state}")
+    arms = [row for art in runs.values() for row in art["seeds"]]
+    kept = [row for row in arms if not row["diverged"]]
+    phase("chaos-soak", device=device, arms=len(arms),
+          converged=len(kept),
+          diverged_by_path=[(row["seed"], row["lost_evictions"])
+                            for row in arms if row["diverged"]],
+          loop_deaths=sum(r["loop_deaths"] for r in arms),
+          double_binds=sum(r["double_binds"] for r in arms),
+          lost_evictions=sum(r["lost_evictions"] for r in kept),
+          breaker_trips=sum(r["breaker"]["trips"] for r in arms),
+          breaker_probes=sum(r["breaker"]["probes"] for r in arms),
+          breaker_waited_s=sum(r["breaker"]["waited_s"] for r in arms),
+          host_allocate=host_allocate[0], overhead_ab=ab,
+          launches=launches, plan="off", breaker=state, card=card)
+    return launches
+
+
+def replica_soak_phase(cuda_solver, card, device="cuda") -> int:
+    """replica_soak on ``device`` at REPLICA_SOAK (three replicas in this
+    process, the last over the edge, lease faults, a mid-run kill with
+    crash semantics) and its skewed-load check: every invariant must
+    hold, the orphaned shards stolen within the lease duration and its
+    slack, and the adopting replica's sessions key-ledger hits with no
+    new miss.  Every session-kernel launch is held against the plain
+    version.  Returns the launches."""
+    from kube_batch_tpu_torch.tools import replica_soak as rs
+    began = time.perf_counter()
+    with LaunchLedger(cuda_solver, device) as ledger:
+        art = rs.run_soak(device=device, **REPLICA_SOAK)
+        skew = rs.run_skewed_load_check(device=device)
+        records = ledger.take()
+    held = ledger.hold(records, "replica-soak")
+    phase("replica-soak", device=device, ok=art["ok"] and skew["ok"],
+          problems=art["problems"] + skew["problems"],
+          **{k: art[k] for k in (
+              "replicas", "shards", "edge", "churn_rounds", "binds",
+              "rejected_rebinds", "orphaned_shards", "reclaim_s",
+              "lease_duration_s", "compile_cache", "shard_sessions",
+              "shard_binds", "edge_stale_entries", "launches")},
+          skewed_load=skew, wall_s=time.perf_counter() - began,
+          **held_fields(held), card=card)
+    if not (art["ok"] and skew["ok"]):
+        raise AssertionError(f"replica-soak: {art['problems']} "
+                             f"{skew['problems']}")
+    if device == "cuda" and not art["launches"]:
+        raise AssertionError("replica-soak: no session kernel launched")
+    return len(records)
+
+
+def tools_phases(cuda_solver, card, device="cuda") -> int:
+    """The three harness phases in order: scenarios and replica-soak
+    guarded (no fallback counter may move), chaos-soak, which injects
+    device faults, checked on its own (see chaos_soak_phase)."""
+    launches = guarded(scenarios_phase, cuda_solver, card, device=device)
+    launches += chaos_soak_phase(cuda_solver, card, device=device)
+    launches += guarded(replica_soak_phase, cuda_solver, card,
+                        device=device)
+    return launches
+
+
 DRILL_PHASES = (degrade_deadline_phase, profile_phase, degrade_solve_phase,
                 degrade_evict_phase, degrade_topo_phase, degrade_fused_phase,
                 degrade_shard_phase, tensorize_limit_phase)
@@ -5095,6 +5354,8 @@ def main() -> int:
         return fused_only()
     if sys.argv[1:] == ["daemon"]:
         return daemon_only()
+    if sys.argv[1:] == ["tools"]:
+        return tools_only()
     from kube_batch_tpu_torch.models.shipping import resident_shipper
     from kube_batch_tpu_torch.models.synthetic import make_synthetic_inputs
     from kube_batch_tpu_torch.ops import cuda_solver
@@ -5284,6 +5545,8 @@ def main() -> int:
     # The drills inject their own faults and check exactly those; the
     # breaker is closed again after each.
     drill_launches = sum(run(cuda_solver, card) for run in DRILL_PHASES)
+    # The verification harnesses (kube_batch_tpu_torch/tools/).
+    tools_launches = tools_phases(cuda_solver, card)
     DeferredHolds.drain()
 
     print(card, flush=True)
@@ -5295,7 +5558,7 @@ def main() -> int:
                      + steady_launches + evict_launches
                      + topo_launches + streams_launches + tenancy_launches
                      + backlog_launches + loop_launches + fused_launches
-                     + drill_launches),
+                     + drill_launches + tools_launches),
         # K1's launches in the daemons' own processes (their /metrics
         # routes and warmup manifests), held pod for pod by placement.
         "launches_in_daemons": KEPT.get("daemon_launches", 0),
@@ -5351,6 +5614,23 @@ def daemon_only() -> int:
     launches += tensorize_limit_phase(cuda_solver, card)
     DeferredHolds.drain()
     phase("daemon-only", launches=launches, held=LaunchLedger.counts)
+    return 0
+
+
+def tools_only() -> int:
+    """``python3 chip_smoke.py tools``: the build and the three harness
+    phases alone (scenarios, chaos-soak, replica-soak); prints no
+    kernels line and no result line."""
+    from kube_batch_tpu_torch.ops import cuda_solver
+    card = card_line()
+    phase("device", card=card, torch=torch.__version__,
+          cuda=torch.version.cuda, count=torch.cuda.device_count())
+    began = time.perf_counter()
+    cuda_solver.build_kernel()
+    phase("build", seconds=time.perf_counter() - began,
+          built=cuda_solver._Kernel.built)
+    launches = tools_phases(cuda_solver, card)
+    phase("tools-only", launches=launches, held=LaunchLedger.counts)
     return 0
 
 

@@ -124,6 +124,15 @@ class CircuitBreaker:
         with self._lock:
             return self._state == CLOSED
 
+    def cooldown_left(self) -> float:
+        """Seconds until an OPEN breaker admits its half-open probe; 0.0
+        when it is not open (a harness waits this out instead of
+        resetting the breaker)."""
+        with self._lock:
+            if self._state != OPEN:
+                return 0.0
+            return max(0.0, self.cooldown - (self._clock() - self._opened_at))
+
     def allow(self) -> bool:
         """May the caller attempt the protected operation?  CLOSED and
         HALF_OPEN: yes.  OPEN: no, until the cooldown elapses — then the

@@ -12,9 +12,9 @@ Each case runs its body once per package (loop_twin) and both must
 return the same.  The breaker cases are in tests/test_torch_breaker.py.
 
 ``TestWatchFaults`` (the ``watch.*`` sites of edge/client.py) is
-twinned in tests/test_torch_edge_wire.py.  Not twinned here: the
-watch-storm case of ``TestLineageUnderChaos`` and ``TestSoakSmoke``
-need ``tools/chaos_soak``'s twin (ROADMAP queue 1 item 9c).
+twinned in tests/test_torch_edge_wire.py, ``TestSoakSmoke`` in
+tests/test_torch_chaos_soak.py; the watch-storm case of
+``TestLineageUnderChaos`` runs here over each package's edge.
 """
 
 import importlib
@@ -390,3 +390,78 @@ class TestLineageUnderChaos:
 
         assert loop_twin(body) == [2, 2, 2, 0, (True, True, 1),
                                    (True, True, 1)]
+
+    def test_watch_disconnect_relist_keeps_samples_clean(self):
+        """A watch storm forces disconnects and full relists while pods
+        bind over each package's HTTP edge: the relist's redelivered
+        ADDEDs must not restart any pod's arrival clock (no negative
+        samples) and the replayed bound pods must not count twice."""
+        import gc
+        import time
+
+        def body(lp):
+            cp, m, o = lp.chaos_plan, lp.metrics, lp.objects
+            edge = _mod(lp, "edge")
+            lp.lineage.refresh()
+            neg0 = m.slo_samples_dropped.value("negative")
+            _, total0 = _slo_samples(m)
+            cluster = lp.cache.Cluster()
+            server = edge.ApiServer(cluster).start()
+            remote = sched = None
+            n_pods = 4
+            try:
+                cluster.create_node(lp.node("n0", cpu="16", mem="32Gi"))
+                lp.queue(cluster, "default")
+                cluster.create_pod_group(
+                    lp.pod_group("pg1", "ns", 1, "default"))
+                remote = edge.RemoteCluster(server.url).start(timeout=60)
+                cache = lp.cache.new_scheduler_cache(remote)
+                sched = lp.scheduler(cache, scheduler_conf=CONF_TPU,
+                                     schedule_period=0.05)
+                # Storm the pod watch stream while scheduling runs:
+                # every disconnect replays the world as ADDED events.
+                cp.install(cp.FaultPlan(
+                    seed=9, rate=0.2,
+                    sites=("watch.disconnect:pods", "watch.stale:pods"),
+                    budget=12))
+                sched.run()
+                for i in range(n_pods):
+                    remote.create_pod(o.Pod(
+                        metadata=o.ObjectMeta(
+                            name=f"p{i}", namespace="ns",
+                            annotations={
+                                lp.v1alpha1.GroupNameAnnotationKey: "pg1"}),
+                        spec=o.PodSpec(containers=[o.Container(
+                            requests={"cpu": "1", "memory": "1Gi"})]),
+                        status=o.PodStatus(phase="Pending")))
+                deadline = time.time() + 30
+                while time.time() < deadline:
+                    with cluster.lock:
+                        bound = [p for p in cluster.pods.values()
+                                 if p.spec.node_name]
+                    if len(bound) == n_pods:
+                        break
+                    time.sleep(0.1)
+                # Let the relist replays drain before reading.
+                time.sleep(1.0)
+            finally:
+                cp.disable()
+                if sched is not None:
+                    sched.stop()
+                if remote is not None:
+                    remote.stop()
+                server.stop()
+                gc.unfreeze()
+            _, total1 = _slo_samples(m)
+            seen = [len(bound), total1 - total0,
+                    m.slo_samples_dropped.value("negative") - neg0]
+            for i in range(n_pods):
+                lin = lp.lineage.lineage(f"ns/p{i}")
+                seen.append((lin is not None and lin["bound"],
+                             lin["time_to_bind_s"] >= 0,
+                             len([s for s in lin["stages"]
+                                  if s["stage"] == "bound"])))
+            lp.lineage.refresh()
+            return seen
+
+        assert loop_twin(body) == [4, 4, 0] + [(True, True, 1)] * 4

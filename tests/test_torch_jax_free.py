@@ -16,7 +16,9 @@ loaded and the session's apply runs it, runs the topology conf on a 4x4x2
 torus until the slice binds, runs one global ``Scheduler.cycle()`` and one
 tenancy cycle of the concurrent shard pipeline over two dirty shards (both
 must bind), runs one session that degrades to the host path under
-``solve.device_error`` and binds, checks that ``TpuAllocateAction()``
+``solve.device_error`` and binds, runs one batched arm of the scenario
+generator (``tools/scenario_gen.py``) and the chaos soak's single-seed
+smoke (``tools/chaos_soak.py``), checks that ``TpuAllocateAction()``
 without a device raises
 when there is no CUDA, and that no shared object of the reference was
 loaded.  A second script boots the daemon's ``ServerRuntime`` on the CPU
@@ -233,6 +235,18 @@ assert plan.injected().get("solve.device_error", 0) == 1
 assert device_solve_failures.value("solve") == failures + 1
 assert degraded_binder.binds and device_breaker()._failures == 1
 device_breaker().reset()
+
+# The verification harnesses: one scenario arm (churn_storm 2, batched)
+# and the chaos soak's single-seed smoke, on the CPU.
+from kube_batch_tpu_torch.tools import chaos_soak, scenario_gen
+arm = scenario_gen.run_arm(scenario_gen.gen_scenario("churn_storm", 2),
+                           sequential=False, device="cpu")
+assert arm["bind_map"] and arm["deletes"] and arm["quiesced"], arm
+assert not arm["loop_deaths"] and not arm["violations"], arm
+smoke = chaos_soak.run_soak([11], nodes=6, cycles=6, rate=0.3, budget=30,
+                            require_all_sites=False, device="cpu")
+assert smoke["ok"], smoke["problems"]
+assert smoke["seeds"][0]["injected_total"] > 0
 
 if not torch.cuda.is_available():
     try:

@@ -61,6 +61,20 @@ def test_port_is_lint_clean():
         + _shown(findings))
 
 
+def test_the_harnesses_are_linted():
+    """kube_batch_tpu_torch/tools/ is in the linted set (seen at
+    kube_batch_tpu/tools/), clean, and its swallow markers reasoned."""
+    files = {_real(sf.path) for sf in _port_files()}
+    tools = {PORT + f"/tools/{name}.py" for name in (
+        "__init__", "replay", "scenario_gen", "chaos_soak", "replica_soak")}
+    assert tools <= files, sorted(tools - files)
+    findings, markers = _run()
+    assert not [f for f in findings if _real(f.path) in tools]
+    swallows = [m for m in markers if m.kind == "allow-swallow"
+                and _real(m.path) in tools]
+    assert len(swallows) >= 3 and all(m.reason for m in swallows)
+
+
 def test_every_suppression_carries_a_reason():
     _findings, markers = _run()
     missing = [m for m in markers

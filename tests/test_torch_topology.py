@@ -8,10 +8,13 @@ twin of tests/test_topology.py's classes that need only ported modules.
   dims of 1, several pods and invalid rows (``TestBoxScanParity``; the mesh
   case waits for ROADMAP queue 1 item 5);
 * the chaos site ``topology.bad_coords`` (``TestBadCoordsChaos``);
-* in place of the scenario-generator and replay classes (tools/, item 9):
-  the reference's ``bench._run_topo_arm`` protocol on ``make_topo_cache``
+* the reference's ``bench._run_topo_arm`` protocol on ``make_topo_cache``
   at 4x4x2 in its three arms — binds, evictions in order, fragmentation
-  stats and pod-group conditions equal to the JAX package's;
+  stats and pod-group conditions equal to the JAX package's (the
+  scenario-generator and replay classes, ``TestScenarioDeterminism``,
+  ``TestE2ESlicePlacement`` and ``TestReplayRoundTrip``, are twinned
+  over the port's tools in tests/test_torch_scenarios.py and
+  tests/test_torch_replay.py);
 * the tensorizer's coordinate leaf and the folded fragmentation bonus,
   in a full build and in a micro build after a node's labels change.
 """
