@@ -29,7 +29,8 @@ Phases, each printed on its own line:
   3. kernel against plain: the session-solve kernel must equal its plain
      PyTorch version (run on a CPU copy of the inputs, in three worker
      processes while this one launches the kernel and drives the main
-     path; compared after it: HostPlains) exactly
+     path and the phases after it; compared before the kernels line:
+     HostPlains) exactly
      (assignment, kind, order, step and the final
      node, job and queue buffers) on the test matrix and on cases that
      launch it as clusters of every size its plan takes, in float32 and
@@ -39,12 +40,20 @@ Phases, each printed on its own line:
      shipper, each followed by dispatch_solve -> fetch_solve on the cuda
      route with the kernel's launch count reset just before and read just
      after; the result is validated, compared once with the plain version
-     (on the card, on the full ship's inputs), and timed (7 warm dispatch -> fetch rounds, and the
+     (on the card, on the full ship's inputs, in a process of its own
+     that runs beside daemon-edge and edge-federation: north_star_plain),
+     and timed (7 warm dispatch -> fetch rounds, and the
      kernel alone with CUDA events); one more launch with the kernel's
      phase stamps on prints the phase split (`kernel-phases`: cluster
      size, shared memory, microseconds per phase, per placement, per
      pop); the same inputs with the cluster bound forced to 8 must equal
      the plain version too;
+ 4b. mesh: the node-sharded mesh on 4 shards of the card, K1's shard
+     mode (its own library, built in a thread beside daemon-edge, where
+     the host's cores are mostly idle; built beside the main path's
+     plain version on the card in this process, it slowed that
+     host-bound loop) held against single-device K1 and its plain
+     version (see mesh_phase);
   5. session, the slice's main path at the north star, in two arms: the
      C host walk (the default) and the KUBE_BATCH_TPU_NO_NATIVE=1 control
      (native_arm), taking turns.  Per arm, make_synthetic_cache through
@@ -114,7 +123,9 @@ Phases, each printed on its own line:
      KUBE_BATCH_TPU_PROFILE: the torch.profiler trace, K1's device time,
      the device's busy time and idle share), degrade-solve (the breaker
      cycle at DRILL_SHAPE and a poisoned readback), degrade-evict,
-     degrade-topo, degrade-fused, degrade-shard and tensorize-limit (a
+     degrade-topo, degrade-fused, degrade-shard, degrade-mesh (K1's shard
+     mode with a shard launched late, in a session and from two threads
+     at once: mesh_drills) and tensorize-limit (a
      session past the tensorizer's 64 host-port keys: the host path on
      the card as on the CPU, counted; see their functions).  On the card a device failure raises DeviceFailure
      after the breaker is fed and never runs the host path
@@ -122,8 +133,9 @@ Phases, each printed on its own line:
      raised with nothing mutated, and that the next healthy session
      binds as its control; the fused dispatch's failure re-dispatches
      each family on the card;
- 16. the verification harnesses (kube_batch_tpu_torch/tools/), after the
-     drills: scenarios (scenario_gen's sweep, one seed per kind, both
+ 16. the verification harnesses (kube_batch_tpu_torch/tools/), in a
+     process of their own (``python3 chip_smoke.py tools``) that runs
+     beside the phases from warmup to topo-vs-cpu: scenarios (scenario_gen's sweep, one seed per kind, both
      arms on the card and equal, the breaker never tripped, the replay
      round trip bit-identical; scenarios-vs-cpu: the batched arm on the
      card equal to the CPU's), chaos-soak (chaos_soak at chaos-smoke's
@@ -152,10 +164,13 @@ phase (was 4, one cold and two warm; cut when the main path's plain
 version went back on the card) and 2 timed evict cycles, off and on
 (was off/on/on/off); the last cuts of fused-quiet, the tenancy arms
 and the evict cycles paid for the harness phases.
-From the session phase on, a hold of a large solve (DeferredHolds:
-50,000,000 placement-node cells or more, the north star's 45-55 s on
-the host) runs in one of two worker processes while the script goes on,
-and is checked before the kernels line (``deferred-holds``).
+From the mesh phase on, every hold of a solve that placed a task
+(DeferredHolds; the north star's take 45-55 s on the host) runs in one
+of two worker processes while the script goes on, and is checked before
+the kernels line (``deferred-holds``).  The two child processes (Child)
+put the main path's plain version and the harnesses beside phases that
+leave cores idle and gate on no time; a child that fails, or runs over,
+fails the script.
 Every launch held against the plain version goes through LaunchLedger:
 where its inputs are byte-equal to a solve already held in this run
 (tenancy-streams' seed-0 solo and the main path's full ship, the arms of
@@ -164,7 +179,9 @@ byte instead; the kernel table counts both.  ``python3 chip_smoke.py
 fused`` runs the build and the five fused phases alone; ``python3
 chip_smoke.py daemon`` runs daemon, daemon-edge, edge-federation, the
 build, a 2-session session phase, warmup and tensorize-limit alone;
-``python3 chip_smoke.py tools`` the build and the three harness phases.
+``python3 chip_smoke.py tools`` the build and the three harness phases;
+``python3 chip_smoke.py north-star-plain OUT`` the main path's plain
+version alone, saved to OUT.
 Each phase line carries ``t_s``, the seconds since the script started.
 The kernel-vs-plain matrix includes the shapes the kernel once refused:
 2,500 queues in float64 (the queue piece in global memory) and 10 and 20
@@ -236,6 +253,7 @@ def wait_device(what: str, seconds: float = 120.0) -> None:
         if time.monotonic() > deadline:
             print(f"chip_smoke: {what} did not finish in {seconds} s",
                   file=sys.stderr, flush=True)
+            Child.stop_live()
             os._exit(3)
         time.sleep(0.001)
 
@@ -1075,8 +1093,7 @@ def capture_launch(action):
     if last is None or last.reused:
         raise AssertionError("tpu-allocate's finish ran without a launch")
     return last._replace(inputs=type(last.inputs)(*(
-        t.clone() if isinstance(t, torch.Tensor) else t
-        for t in last.inputs)))
+        t.clone() if hasattr(t, "clone") else t for t in last.inputs)))
 
 
 def record_vs_plain(cuda_solver, last, where: str) -> dict:
@@ -1110,10 +1127,10 @@ def solve_vs_plain(cuda_solver, inputs, cfg, got, remap=None,
     values, and there a placement costs a few small operations instead
     of a few kernel launches (``plain_ms`` is the CPU's time).  The
     kernel-vs-plain matrix runs it there too; the main path's north-star
-    check runs it on the card (the kernels line's ``plain_ms``).  A
-    large solve is held in a worker process while this one goes on
-    (DeferredHolds, when started): its result says ``deferred`` and the
-    check happens at DeferredHolds.drain."""
+    check runs it on the card (the kernels line's ``plain_ms``).  Once
+    DeferredHolds is started, a solve that placed a task is held in a
+    worker process while this one goes on: its result says ``deferred``
+    and the check happens at DeferredHolds.drain."""
     placed = int((np.asarray(got[1]) > 0).sum())
     if DeferredHolds.takes(placed, inputs):
         DeferredHolds.submit(cuda_solver, inputs, cfg, got, remap, where)
@@ -1166,15 +1183,15 @@ def plain_timed(job):
 
 
 class DeferredHolds:
-    """Holds of large solves (``DEFER_CELLS`` placements x nodes or
-    more, the north star's tens of seconds each on the host) in
-    ``workers`` spawned processes on the host's CPU, beside the card
-    work of the phases that follow.  Off until ``start``; ``drain``
+    """Holds of solves of ``DEFER_CELLS`` placements x nodes or more
+    (every solve that placed a task; the north star's take tens of
+    seconds each on the host) in ``workers`` spawned processes on the
+    host's CPU, beside the card work of the phases that follow.  Off until ``start``; ``drain``
     waits for every pending hold, checks it (check_vs_plain), prints
     one ``deferred-holds`` line and stops the workers.  A failed hold
     raises there, before any result line."""
 
-    DEFER_CELLS = 50_000_000
+    DEFER_CELLS = 1
     pool = None
     pending = []
 
@@ -4061,6 +4078,7 @@ class Daemon:
             if os.path.exists(stale):
                 os.remove(stale)
         self.log = open(self.log_path, "w")
+        self.signalled = False
         self.began = time.time()
         self.proc = subprocess.Popen(
             [sys.executable, "-c", DAEMON_LAUNCHER, self.placements_path,
@@ -4081,7 +4099,8 @@ class Daemon:
             return json.load(fh)
 
     def tail(self) -> str:
-        self.log.flush()
+        if not self.log.closed:
+            self.log.flush()
         with open(self.log_path) as fh:
             return fh.read()[-3000:]
 
@@ -4128,11 +4147,20 @@ class Daemon:
                                      f"{seconds} s:\n{self.tail()}")
             time.sleep(0.2)
 
-    def stop(self, seconds: float = 60.0) -> float:
-        """SIGTERM, then the seconds to a clean exit (exit code 0)."""
+    def terminate(self) -> None:
+        """Send SIGTERM, once: a second SIGTERM that lands while the
+        daemon's interpreter finalizes (which restores the default
+        handlers) kills it with -15 instead of letting it exit 0."""
         import signal
+        if not self.signalled:
+            self.signalled = True
+            self.proc.send_signal(signal.SIGTERM)
+
+    def stop(self, seconds: float = 60.0) -> float:
+        """SIGTERM (unless ``terminate`` sent it), then the seconds to a
+        clean exit (exit code 0)."""
         t0 = time.perf_counter()
-        self.proc.send_signal(signal.SIGTERM)
+        self.terminate()
         try:
             rc = self.proc.wait(seconds)
         except subprocess.TimeoutExpired:
@@ -4801,12 +4829,13 @@ def federation_cluster(url: str, shape) -> dict:
 
 
 def edge_federation_phase(cuda_solver, card, shape=DRILL_SHAPE,
-                          device="cuda") -> int:
+                          device="cuda",
+                          lease_s: float = FEDERATION_LEASE_S) -> int:
     """Replica federation over the edge: one API server (EdgeServer,
     federation_cluster submitted over REST) and two daemons on the one
     card, each booted with ``--master`` at it, ``--tenancy-shards 4``
-    and ``--replica-federation`` (leases of FEDERATION_LEASE_S; one
-    queue per shard).  Replica A boots first with the chaos plan's
+    and ``--replica-federation`` (shard leases of ``lease_s``,
+    FEDERATION_LEASE_S on the card; one queue per shard).  Replica A boots first with the chaos plan's
     lease.cas_conflict at shards 2 and 3 (FEDERATION_CHAOS_A), B once A
     holds 0 and 1.  Once every schedulable pod is bound in the server's
     store, both are stopped at once.  Held: each shard's lease, in the
@@ -4826,7 +4855,7 @@ def edge_federation_phase(cuda_solver, card, shape=DRILL_SHAPE,
     cache_dir = str(cuda_solver.BUILD_DIR)
     argv = ["--master", None, "--tenancy-shards", "4",
             "--replica-federation", "--lock-object-namespace", "kube-system",
-            "--shard-lease-duration", str(FEDERATION_LEASE_S),
+            "--shard-lease-duration", str(lease_s),
             "--schedule-period", "0.2", "--compile-cache-dir", cache_dir]
     server = EdgeServer("federation-server")
     replicas = {}
@@ -4864,7 +4893,7 @@ def edge_federation_phase(cuda_solver, card, shape=DRILL_SHAPE,
         lease_holders = holders()
         metrics = {name: d.metrics() for name, d in replicas.items()}
         for d in replicas.values():     # both at once: see the docstring
-            d.proc.send_signal(__import__("signal").SIGTERM)
+            d.terminate()
         stop_s = {name: d.stop() for name, d in replicas.items()}
         mirrors = {name: d.placements() for name, d in replicas.items()}
         edges = {name: d.edge_stats() for name, d in replicas.items()}
@@ -4957,6 +4986,10 @@ def edge_federation_phase(cuda_solver, card, shape=DRILL_SHAPE,
           list_sync_s={name: e["list_sync_s"] for name, e in edges.items()},
           scope_dropped={name: metric_total(
               m, "kube_batch_ingest_dropped_total")
+              for name, m in metrics.items()},
+          lease_s=lease_s, lease_transitions={name: {
+              k.split("{", 1)[1].rstrip("}"): v for k, v in m.items()
+              if k.startswith("kube_batch_shard_lease_transitions_total{")}
               for name, m in metrics.items()},
           k1_launches=launches, guards=guards, stop_s=stop_s, card=card)
     return 0
@@ -5341,9 +5374,707 @@ def tools_phases(cuda_solver, card, device="cuda") -> int:
     return launches
 
 
+# The mesh phase: 4 shards of the node axis on the one card.  Its full
+# width crosses the mesh gate's node count (SHARD_NODES, 16,384) with no
+# FORCE_SHARD; the small shape is where the shard mode is held against
+# its plain version, the session and fused shapes where the action and
+# the fused program run on the mesh.
+MESH_SHARDS = 4
+MESH_SHAPE = (50_000, 16_384, 2_000, 4)
+MESH_SMALL = (2_000, 512, 80, 4)
+MESH_SESSION = (2_000, 256, 80, 4)
+MESH_FUSED = (2_000, 256, 80, 4)
+MESH_TOPO = (8, 8, 8)
+# The candidate-row solve's backlog (the reference's cycle-floor case).
+CANDIDATE_TASKS = 20
+# The exchange-deadline drills' spin bound (ms) and the late shard's delay
+# in units of it: twice it must fail, a quarter must solve, and near it
+# either outcome is right as long as every shard stops.
+MESH_DRILL_SPIN_MS = 200
+MESH_DRILL_LATE = (2.0, 0.25, 0.9, 1.0, 1.1)
+
+
+def same_result(a, b, where: str) -> int:
+    """Two (SolveResult, ...) or (assignment, kind, order[, step]) held
+    byte for byte; returns the max abs difference (0) or raises."""
+    def rows(x):
+        r = x[0] if hasattr(x[0], "assignment") else x
+        if hasattr(r, "assignment"):
+            r = (r.assignment, r.kind, r.order, r.step)
+        return [np.asarray(t.cpu() if hasattr(t, "cpu") else t)
+                .astype(np.int64).reshape(-1) for t in r]
+    err = 0
+    for name, x, y in zip(("assignment", "kind", "order", "step"),
+                          rows(a), rows(b)):
+        if x.shape != y.shape:
+            raise AssertionError(f"{where}: {name} shapes {x.shape} != "
+                                 f"{y.shape}")
+        if x.size:
+            err = max(err, int(np.abs(x - y).max()))
+    if err:
+        raise AssertionError(f"{where}: max abs err {err}")
+    return err
+
+
+def mesh_fused_arm(device, mesh_on: bool, shape=MESH_FUSED) -> dict:
+    """One fused shipped-conf session on make_churn_cache(*shape) on
+    ``device``, on the forced mesh (``mesh_on``) or on one device:
+    state, victims in order, binds, and the resident image's layout."""
+    from kube_batch_tpu_torch.models.synthetic import make_churn_cache
+    from kube_batch_tpu_torch.scheduler import load_scheduler_conf
+    _register(device)
+    actions, tiers = load_scheduler_conf(shipped_conf())
+    cache, binder = make_churn_cache(*shape)
+    with fused_arm(True, storm=True), env_arm(
+            {"KUBE_BATCH_TPU_SCAN_MIN_NODES": "0"}):
+        got = stamped_session(cache, actions, tiers)
+    return dict(state=got["state"], evicts=list(cache.evictor.evicts),
+                binds=dict(binder.binds), wall_ms=got["wall_ms"],
+                layout=type(cache._ship_cache._state).__name__)
+
+
+@contextlib.contextmanager
+def late_shard_arm(cuda_solver, spin_ms: int, late: tuple):
+    """Every sharded solve in the block launches shard ``late[0]``
+    ``late[1]`` ms after the others, with the spin bound at ``spin_ms``
+    (a drill; the program has no other switch for this fault).  The
+    wrapper stands in the module for the real function, whose counts it
+    carries and hands back."""
+    real = cuda_solver.solve_allocate_cuda_sharded
+
+    def late_shard(inp, cfg, **kw):
+        kw.setdefault("spin_ms", spin_ms)
+        kw.setdefault("late", late)
+        return real(inp, cfg, **kw)
+
+    late_shard.__dict__.update(real.__dict__)
+    cuda_solver.solve_allocate_cuda_sharded = late_shard
+    try:
+        yield
+    finally:
+        real.__dict__.update(late_shard.__dict__)
+        cuda_solver.solve_allocate_cuda_sharded = real
+
+
+def mesh_drills(cuda_solver, mesh, sharded_small, scfg, want,
+                session) -> dict:
+    """K1's shard mode under faults, on the card, after the mesh phase's
+    counted path.  (1) A late shard, with the spin bound at
+    MESH_DRILL_SPIN_MS: launched MESH_DRILL_LATE bounds after the others,
+    each solve ends (waited for at most 30 s, else the process leaves);
+    at twice the bound the fetch's check raises DeviceFailure, at a
+    quarter it solves, near it either; a solve that ends equals ``want``.
+    (2) A forced-mesh tpu-allocate session at ``session`` with the last
+    shard launched after twice the bound: it raises DeviceFailure, feeds
+    the breaker once and drops the per-shard resident image; the next
+    session ships in full, solves on the mesh, feeds a success and binds.
+    (3) Two threads that dispatch sharded solves at once (the boot
+    warmup beside the scheduler): every solve equals ``want``."""
+    from kube_batch_tpu_torch.actions.tpu_allocate import TpuAllocateAction
+    from kube_batch_tpu_torch.chaos.breaker import DeviceFailure
+    from kube_batch_tpu_torch.models.synthetic import make_synthetic_cache
+    from kube_batch_tpu_torch.ops import solver as solver_mod
+    from kube_batch_tpu_torch.parallel import use_mesh
+    shard_fn = cuda_solver.solve_allocate_cuda_sharded
+    spin = MESH_DRILL_SPIN_MS
+    late_runs = []
+    for frac in MESH_DRILL_LATE:
+        t0 = time.perf_counter()
+        res, _ = shard_fn(sharded_small, scfg, spin_ms=spin,
+                          late=(MESH_SHARDS - 1, frac * spin))
+        wait_device(f"the shard mode with a shard {frac} bounds late", 30.0)
+        ms = (time.perf_counter() - t0) * 1e3
+        try:
+            solver_mod._check_not_aborted(res.kind.cpu().numpy())
+            same_result((res,), (want,), f"a shard {frac} bounds late")
+            outcome = "solved"
+        except DeviceFailure:
+            outcome = "gave_up"
+        late_runs.append((frac, outcome, ms))
+    if late_runs[0][1] != "gave_up" or late_runs[1][1] != "solved":
+        raise AssertionError(f"late shards: {late_runs}")
+
+    tiers = _register("cuda")
+    action = TpuAllocateAction(device="cuda", dtype=torch.float32)
+    cache, binder = make_synthetic_cache(*session)
+    with use_mesh(mesh), env_arm({solver_mod.FORCE_SHARD_ENV: "1"}), \
+            drill_breaker(10 ** 6) as br:
+        solver_mod.refresh_shard_knobs()
+        before = failures_by_stage()
+        t0 = time.perf_counter()
+        with late_shard_arm(cuda_solver, spin, (MESH_SHARDS - 1, 2 * spin)):
+            try:
+                mesh_session(cache, tiers, action)
+                raised = None
+            except DeviceFailure as exc:
+                raised = str(exc)
+        wait_device("the late-shard session", 30.0)
+        fail_ms = (time.perf_counter() - t0) * 1e3
+        state = cache._ship_cache._state
+        fed, calls = stage_delta(before), list(br.calls)
+        binds = len(binder.binds)
+        mesh_session(cache, tiers, action)
+        after = (cache._ship_cache.last_mode,
+                 type(cache._ship_cache._state).__name__,
+                 list(br.calls[len(calls):]), len(binder.binds) > binds)
+    solver_mod.refresh_shard_knobs()
+    if raised is None or fed != {"solve": 1} or calls != ["failure"] \
+            or state is not None or binds \
+            or after != ("full", "_ShardShipState", ["success"], True):
+        raise AssertionError(
+            f"the late-shard session: raised={raised!r} fed={fed} "
+            f"calls={calls} image={type(state).__name__} binds={binds}, "
+            f"then {after}")
+
+    got, errors = [], []
+    start = threading.Barrier(2)
+
+    def dispatch():
+        try:
+            start.wait()
+            for _ in range(3):
+                got.append(shard_fn(sharded_small, scfg)[0])
+        except BaseException as exc:  # noqa: BLE001 - raised below
+            errors.append(exc)
+
+    threads = [threading.Thread(target=dispatch) for _ in range(2)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wait_device("two threads' sharded solves", 30.0)
+    both_ms = (time.perf_counter() - t0) * 1e3
+    if errors:
+        raise errors[0]
+    for i, res in enumerate(got):
+        solver_mod._check_not_aborted(res.kind.cpu().numpy())
+        same_result((res,), (want,), f"concurrent sharded solve {i}")
+    return dict(drill_spin_ms=spin, late_shard=late_runs,
+                late_session_ms=fail_ms, late_session_raised=raised,
+                concurrent_solves=len(got), concurrent_ms=both_ms)
+
+
+def degrade_mesh_phase(cuda_solver, card) -> int:
+    """The mesh's drills (mesh_drills) on MESH_SHARDS shards of the card,
+    held against single-device K1 at MESH_SMALL (seed 3, the shape the
+    mesh phase holds the shard mode against its plain version at).
+    Returns 0: K1's one launch here is the reference the drills compare
+    with, and the shard mode's launches are the mesh phase's to count."""
+    from kube_batch_tpu_torch.models.synthetic import make_synthetic_inputs
+    from kube_batch_tpu_torch.parallel import make_mesh
+    from kube_batch_tpu_torch.parallel.mesh import shard_solver_inputs
+    mesh = make_mesh(MESH_SHARDS, ["cuda"])
+    sinp, scfg = make_synthetic_inputs(*MESH_SMALL, seed=3,
+                                       dtype=torch.float32, device="cuda")
+    want = cuda_solver.solve_allocate_cuda(sinp, scfg)[0]
+    wait_device("single-device K1 for the mesh drills")
+    t0 = time.perf_counter()
+    drills = mesh_drills(cuda_solver, mesh, shard_solver_inputs(sinp, mesh),
+                         scfg, want, MESH_SESSION)
+    phase("degrade-mesh", shards=MESH_SHARDS, small_shape=list(MESH_SMALL),
+          session_shape=list(MESH_SESSION), **drills,
+          seconds=time.perf_counter() - t0, card=card)
+    return 0
+
+
+def mesh_phase(cuda_solver, card, device="cuda", shape=MESH_SHAPE,
+               small=MESH_SMALL, session=MESH_SESSION, fused=MESH_FUSED,
+               topo_dims=MESH_TOPO, candidate_tasks=CANDIDATE_TASKS) -> int:
+    """The node-sharded mesh (parallel/) on MESH_SHARDS shards installed
+    on one card (``parallel.mesh.use_mesh``).  The driven path, with K1's
+    and its shard mode's counts set to 0 just before and read just
+    after: the gate at ``shape`` (no FORCE_SHARD) routes the ship and
+    the solve to the mesh, the shipper keeps the sharded layout and K1's
+    shard mode solves; then, under FORCE_SHARD, tpu-allocate sessions at
+    ``session`` through the per-shard shipper (a full ship, a clean ship
+    that keeps the generation and reuses the solve, a delta ship), a
+    candidate-row solve gathered per shard, and one fused shipped-conf
+    session whose legs take their sharded routes.  No single-device K1
+    launch may happen on that path.  Then every launch is held: the
+    shard mode at ``shape`` byte for byte against single-device K1 on
+    the same inputs (result and every shard's final node slice), every
+    shard's replicated outputs equal, the sessions' and the candidate
+    solve's launches against single-device K1, the shard mode at
+    ``small`` against its plain version (solve_allocate_sharded_plain,
+    on the host's CPU); the sharded eviction scan, the candidate
+    gather, the origin-sharded box scan at ``topo_dims`` and the fused
+    mesh session each equal their single-device results.  Prints the
+    per-solve times (shard mode, single device, CUDA events), the
+    exchange's µs per placement (the kernel's stamps), its host-memory
+    bytes, and the launches.  Returns the shard mode's launches on the
+    driven path; KEPT["mesh"] holds the kernels line's numbers.  On the
+    CPU (``device="cpu"``) the same phase rehearses with the plain
+    versions in place of both kernels."""
+    from kube_batch_tpu_torch.models.shipping import DeviceResidentShipper
+    from kube_batch_tpu_torch.models.synthetic import (SteadyChurn,
+                                                       make_synthetic_cache,
+                                                       make_synthetic_inputs)
+    from kube_batch_tpu_torch.ops import evict_solver, prefilter
+    from kube_batch_tpu_torch.ops import solver as solver_mod
+    from kube_batch_tpu_torch.ops import topo_solver as ts
+    from kube_batch_tpu_torch.ops.scan import ScanStatics
+    from kube_batch_tpu_torch.parallel import make_mesh, use_mesh
+    from kube_batch_tpu_torch.parallel.mesh import (gathered,
+                                                    shard_solver_inputs)
+    from kube_batch_tpu_torch.parallel.sharded_solver import \
+        solve_allocate_sharded_plain
+    cuda = device == "cuda"
+    shard_fn = cuda_solver.solve_allocate_cuda_sharded
+    single = (cuda_solver.solve_allocate_cuda if cuda
+              else cuda_solver.solve_allocate_plain)
+
+    def sync():
+        if cuda:
+            wait_device("the mesh phase's work")
+
+    mesh = make_mesh(MESH_SHARDS, [device])
+    # The gate decides on its own (SHARD_NODES, SHARD_BYTES as set; the
+    # CPU rehearsal lowers SHARD_NODES to its small shape).
+    os.environ.pop(solver_mod.FORCE_SHARD_ENV, None)
+    solver_mod.refresh_shard_knobs()
+    staging, cfg = make_synthetic_inputs(*shape, seed=0,
+                                         dtype=torch.float32, device="cpu")
+    # The fused session's single-device arm launches single-device K1:
+    # before the counted window.
+    chip_fused = mesh_fused_arm(device, False, fused)
+
+    # ---- the driven path --------------------------------------------------
+    shard_fn.launches = 0
+    cuda_solver.solve_allocate_cuda.launches = 0
+    times = {}
+    with use_mesh(mesh):
+        route, gate_mesh = solver_mod.choose_solver_mesh(staging)
+        if (route, gate_mesh) != ("sharded", mesh):
+            raise AssertionError(f"the mesh gate routed {shape} to {route}")
+        shipper = DeviceResidentShipper(device)
+        t0 = time.perf_counter()
+        resident = shipper.ship(staging, cfg, torch.float32)
+        sync()
+        times["ship_ms"] = (time.perf_counter() - t0) * 1e3
+        if type(shipper._state).__name__ != "_ShardShipState":
+            raise AssertionError("the shipper did not keep the sharded "
+                                 "layout")
+        t0 = time.perf_counter()
+        fetched = solver_mod.fetch_solve(solver_mod.dispatch_solve(resident,
+                                                                   cfg))
+        times["dispatch_fetch_ms"] = (time.perf_counter() - t0) * 1e3
+        north_shards = tuple(shard_fn.last_shards)
+        held_inputs = type(resident)(*(t.clone() for t in resident))
+
+        # tpu-allocate on the forced mesh: full, clean, delta.
+        with env_arm({solver_mod.FORCE_SHARD_ENV: "1"}):
+            solver_mod.refresh_shard_knobs()
+            tiers = _register(device)
+            from kube_batch_tpu_torch.actions.tpu_allocate import \
+                TpuAllocateAction
+            action = TpuAllocateAction(device=device, dtype=torch.float32)
+            cache, binder = make_synthetic_cache(*session)
+            # A pending gang no node fits keeps a backlog, so a session
+            # with nothing changed ships clean (the reference's reuse
+            # protocol, tests/test_shard_ship.py).
+            add_gang(cache, "mesh-hog", 1, cpu="4000")
+            churn = SteadyChurn(cache, binder, session[0], session[3])
+            records, modes = [], []
+            for step in ("full", "echoed", "clean", "delta"):
+                if step == "delta":
+                    add_gang(cache, "mesh-delta", 4)
+                mesh_session(cache, tiers, action)
+                sh = cache._ship_cache
+                modes.append((sh.last_mode, sh.generation,
+                              bool(action.last.reused)))
+                if not action.last.reused:
+                    records.append(capture_launch(action))
+                if step in ("full", "echoed"):
+                    churn.echo()
+            if (modes[0][0], modes[2], modes[3][0], modes[3][2]) != (
+                    "full", ("clean", modes[1][1], True), "delta", False):
+                raise AssertionError(f"the per-shard shipper went {modes}")
+            # A candidate-row solve gathered per shard, on a small
+            # backlog's sharded resident image at the full node width
+            # (the prefilter's case: a micro session's few pending pods).
+            cinp, ccfg = make_synthetic_inputs(
+                candidate_tasks, shape[1], 4, 2, seed=3, dtype=torch.float32,
+                device="cpu")
+            snap = type("Snap", (), {})()
+            snap.inputs, snap.config = cinp, ccfg
+            snap.tasks = [None] * int(cinp.job_count.sum())
+            cand = prefilter.derive_candidates(snap, "sharded", mesh)
+            if cand is None or not cand.sharded:
+                raise AssertionError(f"no sharded candidate set at "
+                                     f"{candidate_tasks} x {shape[1]}")
+            cres = DeviceResidentShipper(device).ship(cinp, ccfg,
+                                                      torch.float32)
+            cand_got = solver_mod.fetch_solve(solver_mod.dispatch_solve(
+                cres, ccfg, candidates=cand))
+            cand_inputs = type(cres)(*(t.clone() for t in cres))
+            mesh_fused = mesh_fused_arm(device, True, fused)
+        solver_mod.refresh_shard_knobs()
+    launches = shard_fn.launches
+    singles = cuda_solver.solve_allocate_cuda.launches
+    if cuda and (launches == 0 or singles != 0):
+        raise AssertionError(f"the mesh path launched the shard mode "
+                             f"{launches} times and single-device K1 "
+                             f"{singles} times")
+
+    # ---- holds ------------------------------------------------------------
+    whole = gathered(held_inputs)
+    t0 = time.perf_counter()
+    want = single(whole, cfg)
+    sync()
+    err = same_result(fetched[:3], (want[0].assignment, want[0].kind,
+                                    want[0].order), "mesh fetch vs K1")
+    if cuda:
+        n_local = shape[1] // MESH_SHARDS
+        first = north_shards[0][0]
+        for s, (res, final) in enumerate(north_shards):
+            same_result((res,), (first,), f"shard {s}'s replicated outputs")
+            lo, hi = s * n_local, (s + 1) * n_local
+            if not torch.equal(final.node_int, want[1].node_int[:, lo:hi]):
+                raise AssertionError(f"shard {s}'s final node slice != K1's")
+    for i, rec in enumerate(records):
+        got = (rec.assignment, rec.kind, rec.order)
+        ref = single(gathered(rec.inputs), rec.snap.config)[0]
+        same_result(got, (ref.assignment, ref.kind, ref.order),
+                    f"mesh session {i} vs K1")
+    # The prefilter is exact: the gathered solve places as the full one.
+    ref_full = single(gathered(cand_inputs), ccfg)[0]
+    same_result(cand_got[:3], (ref_full.assignment, ref_full.kind,
+                               ref_full.order), "mesh candidate solve vs K1")
+    if (mesh_fused["layout"], chip_fused["layout"]) != (
+            "_ShardShipState", "_ShipState"):
+        raise AssertionError(f"fused layouts {mesh_fused['layout']} / "
+                             f"{chip_fused['layout']}")
+    for key in ("state", "evicts", "binds"):
+        if mesh_fused[key] != chip_fused[key]:
+            raise AssertionError(f"the fused mesh session's {key} != the "
+                                 f"single-device session's")
+    if not mesh_fused["evicts"]:
+        raise AssertionError("the fused mesh session evicted nothing")
+
+    # The sharded eviction scan against the single-device scan.
+    r = staging.task_req.shape[1]
+    np_pad, ns_pad = staging.task_ports.shape[1], staging.task_aff_req.shape[1]
+    trows = np.zeros((8, 1 + r + np_pad + 4 * ns_pad), np.int32)
+    for i in range(8):
+        trows[i, 0] = int(staging.task_sig[i])
+        trows[i, 1:1 + r] = staging.task_res[i].numpy()
+    rng = np.random.RandomState(0)
+    vic_node = rng.randint(0, shape[1], 64).astype(np.int32)
+    vic_rank = rng.permutation(64).astype(np.int32)
+    dev_t = [torch.as_tensor(a, device=device) for a in (trows, vic_node,
+                                                        vic_rank)]
+    statics = ScanStatics(*(getattr(held_inputs, f).clone()
+                            for f in ScanStatics._fields))
+    ev_sh = evict_solver.dispatch_evict_batch_solve(
+        cfg, r, np_pad, ns_pad, statics, None, *dev_t, resident=held_inputs)
+    dyn = torch.cat([whole.node_used, whole.node_count[:, None],
+                     whole.node_ports.to(torch.int32), whole.node_selcnt],
+                    dim=1).to(torch.int32)
+    ev_1 = evict_solver.evict_batch_solve(
+        cfg, r, np_pad, ns_pad, ScanStatics(*(getattr(whole, f)
+                                              for f in ScanStatics._fields)),
+        dyn, *dev_t)
+    for a, b, what in ((ev_sh[0], ev_1[0], "scores"),
+                       (ev_sh[1], ev_1[1], "victim order")):
+        if not torch.equal(a.cpu(), b.cpu()):
+            raise AssertionError(f"the sharded eviction {what} != one "
+                                 f"device's")
+
+    # The origin-sharded box scan against the single-device scan.
+    from kube_batch_tpu_torch.models.synthetic import make_topo_cache
+    from kube_batch_tpu_torch.models import topology
+    tcache, _ = make_topo_cache(dims=topo_dims, slice_shape="2x2x2")
+    view = topology.build_view(tcache.nodes)
+    n = len(view.node_names)
+    n_pad = -(-n // MESH_SHARDS) * MESH_SHARDS
+    coords = np.full((n_pad, topology.COORD_WIDTH), -1, np.int32)
+    coords[:n] = view.coords[:n]
+    free = np.zeros(n_pad, bool)
+    free[:n] = rng.random_sample(n) < 0.6
+    evictable = ~free & (rng.random_sample(n_pad) < 0.5)
+    vc = rng.randint(0, 4, n_pad).astype(np.int32)
+    box = ts.BoxInputs(coords, free, evictable, vc, vc * 11)
+    box_sh = ts.box_scan_sharded(box, 2, 2, 2, mesh).cpu()
+    box_1 = ts.box_scan(ts.stage_box_inputs(box, device), 2, 2, 2).cpu()
+    if not torch.equal(box_sh, box_1):
+        raise AssertionError("the origin-sharded box scan != one device's")
+
+    # The shard mode at the small shape against its plain version.
+    sinp, scfg = make_synthetic_inputs(*small, seed=3, dtype=torch.float32,
+                                       device=device)
+    sharded_small = shard_solver_inputs(sinp, mesh)
+    t0 = time.perf_counter()
+    kout = (shard_fn(sharded_small, scfg) if cuda
+            else solve_allocate_sharded_plain(sharded_small, scfg, mesh))
+    sync()
+    small_ms = (time.perf_counter() - t0) * 1e3
+    host = shard_solver_inputs(type(sinp)(*(t.cpu() for t in sinp)),
+                               make_mesh(MESH_SHARDS, ["cpu"]))
+    t0 = time.perf_counter()
+    pout = solve_allocate_sharded_plain(host, scfg)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    small_err = same_result(kout, pout, "shard mode vs its plain version")
+
+    # ---- times --------------------------------------------------------------
+    timing = dict(single_ms=None, shard_ms=None,
+                  exchange_us_per_placement=None)
+    if cuda:
+        from kube_batch_tpu_torch.parallel.mesh import shard_mesh
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        runs = {"single": [], "shard": []}
+        # One untimed launch of each first: the card has sat idle through
+        # the plain version on the host, and its first launch after that
+        # ran 40% slow in a trial.
+        shard_fn(held_inputs, cfg)
+        cuda_solver.solve_allocate_cuda(whole, cfg)
+        for _ in range(2):
+            for name in ("shard", "single"):
+                start.record()
+                if name == "shard":
+                    shard_fn(held_inputs, cfg)
+                else:
+                    cuda_solver.solve_allocate_cuda(whole, cfg)
+                stop.record()
+                torch.cuda.synchronize()
+                runs[name].append(start.elapsed_time(stop))
+        stamps = [torch.zeros(len(cuda_solver.PHASES), dtype=torch.int64,
+                              device=d) for d in shard_mesh(
+                                  held_inputs).devices]
+        start.record()
+        shard_fn(held_inputs, cfg, stamps=stamps)
+        stop.record()
+        torch.cuda.synchronize()
+        got = dict(zip(cuda_solver.PHASES, stamps[0].tolist()))
+        per_us = got["total"] / (start.elapsed_time(stop) * 1e3)
+        timing = dict(
+            single_ms=float(np.median(runs["single"])),
+            shard_ms=float(np.median(runs["shard"])),
+            single_ms_all=runs["single"], shard_ms_all=runs["shard"],
+            stamped_placements=got["placements"],
+            exchange_us_per_placement=got["shard_exchange"] / per_us
+            / max(got["placements"], 1),
+            cluster_exchange_us_per_placement=got["cluster_exchange"]
+            / per_us / max(got["placements"], 1),
+            node_scan_us_per_placement=got["node_scan"] / per_us
+            / max(got["placements"], 1))
+    steps = int(want[0].step)
+    bound = bound_of(cuda_solver, whole, want) if cuda else {}
+    if cuda:
+        # The shards share one card: the single-device bound, plus the
+        # exchange's bytes (per placement each shard writes its 16-byte
+        # slot and its CTA 0 reads all K slots), at the HBM rate.
+        xbytes = steps * MESH_SHARDS * 16 * (1 + MESH_SHARDS)
+        bound["bytes_moved"] += xbytes
+        bound["bytes_bound_ms"] = bound["bytes_moved"] / HBM_BYTES_PER_S * 1e3
+        bound["bound_ms"], bound["bound_by"] = max(
+            (bound["bytes_bound_ms"], "bytes"),
+            (bound["ops_bound_ms"], "operations"))
+    KEPT["mesh"] = dict(launches=launches, ms=timing["shard_ms"],
+                        max_abs_err=max(err, small_err), plain_ms=plain_ms,
+                        small_ms=small_ms, **{k: bound.get(k) for k in (
+                            "bound_ms", "bound_by")})
+    phase("mesh", shape=list(shape), shards=MESH_SHARDS,
+          devices=[str(d) for d in mesh.devices], steps=steps,
+          launches=launches, single_launches_on_path=singles,
+          exchange_bytes=shard_fn.last_exchange_bytes if cuda else 0,
+          ship_modes=modes, max_abs_err=err, small_shape=list(small),
+          small_ms=small_ms, plain_ms=plain_ms, small_max_abs_err=small_err,
+          candidate_rows=cand.count, fused_wall_ms=dict(
+              chip=chip_fused["wall_ms"], mesh=mesh_fused["wall_ms"]),
+          fused_evictions=len(mesh_fused["evicts"]), **times, **timing,
+          shard_build_s=cuda_solver._ShardKernel.build_seconds,
+          shard_built=cuda_solver._ShardKernel.built, **bound, card=card)
+    return launches
+
+
+def mesh_kernel_entry(launches: int) -> dict:
+    """The kernels line's entry of K1's shard mode (mesh_phase's
+    numbers): its launches on the mesh path, its time per solve at
+    MESH_SHAPE, the plain version's at MESH_SMALL, the bound."""
+    got = KEPT["mesh"]
+    return {
+        "name": "solve_session_shard_mode", "route": "cuda",
+        "source": "kube_batch_tpu_torch/csrc/solve_session.cu",
+        "replaces": "kube_batch_tpu/ops/pallas_solver.py:60",
+        "mode_of": "solve_session (K1) on the node-sharded mesh, in place of "
+                   "kube_batch_tpu/parallel/sharded_solver.py:113",
+        "launches": launches, "max_abs_err": got["max_abs_err"],
+        "ms": got["ms"], "ms_shape": list(MESH_SHAPE),
+        "plain_ms": got["plain_ms"], "plain_shape": list(MESH_SMALL),
+        "small_ms": got["small_ms"], "bound_ms": got["bound_ms"],
+        "bound_by": got["bound_by"], "library_ms": None}
+
+
+def add_gang(cache, name: str, size: int, cpu: str = "250m") -> None:
+    """One pending gang of ``size`` pods of ``cpu`` in queue q0 of a
+    make_synthetic_cache cluster."""
+    from kube_batch_tpu_torch.api.objects import (Container, ObjectMeta, Pod,
+                                                  PodSpec, PodStatus)
+    from kube_batch_tpu_torch.apis.scheduling import v1alpha1
+    cache.add_pod_group(v1alpha1.PodGroup(
+        metadata=ObjectMeta(name=name, namespace="bench"),
+        spec=v1alpha1.PodGroupSpec(min_member=1, queue="q0")))
+    for i in range(size):
+        cache.add_pod(Pod(
+            metadata=ObjectMeta(
+                name=f"{name}-{i}", namespace="bench", uid=f"{name}-{i}",
+                annotations={v1alpha1.GroupNameAnnotationKey: name},
+                creation_timestamp=1e6 + i),
+            spec=PodSpec(containers=[Container(
+                requests={"cpu": cpu, "memory": "512Mi"})]),
+            status=PodStatus(phase="Pending")))
+
+
+def mesh_session(cache, tiers, action) -> None:
+    """open_session -> tpu-allocate -> close_session; raises unless the
+    action solved on the device (a launch or a reused solve)."""
+    from kube_batch_tpu_torch.framework import close_session, open_session
+    action.last = None
+    ssn = open_session(cache, tiers)
+    try:
+        action.execute(ssn)
+    finally:
+        close_session(ssn)
+    if action.last is None:
+        raise AssertionError("the mesh session solved nothing on the "
+                             "device")
+
+
+class Child:
+    """``python3 chip_smoke.py <argv>`` (``program`` in place of this
+    script, where given) in a process (and session) of its own beside
+    this one's phases, its output in build/daemon/<name>.out and .err.
+    ``join`` waits for it, relays its standard output and fails unless
+    it exited 0; every child still running is stopped at exit, whatever
+    failed (stop_live)."""
+
+    LIVE = set()
+
+    def __init__(self, name: str, argv: list, program=None):
+        os.makedirs(DAEMON_DIR, exist_ok=True)
+        self.name = name
+        self.out_path = os.path.join(DAEMON_DIR, f"{name}.out")
+        self.err_path = os.path.join(DAEMON_DIR, f"{name}.err")
+        self.began = time.perf_counter()
+        with open(self.out_path, "w") as out, open(self.err_path, "w") as err:
+            self.proc = subprocess.Popen(
+                [sys.executable, program or os.path.abspath(__file__),
+                 *argv],
+                stdout=out, stderr=err, cwd=REPO, start_new_session=True)
+        self.ended = None
+        threading.Thread(target=self._stamp_exit, daemon=True,
+                         name=f"{name}-exit").start()
+        Child.LIVE.add(self)
+
+    def _stamp_exit(self) -> None:
+        self.proc.wait()
+        self.ended = time.perf_counter()
+
+    def join(self, seconds: float) -> list:
+        """Wait at most ``seconds``; relay the child's output lines and
+        return its phase lines (parsed).  Raises if it ran over or exited
+        with another code than 0."""
+        joined = time.perf_counter()
+        try:
+            rc = self.proc.wait(seconds)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise AssertionError(f"{self.name}: still running after "
+                                 f"{seconds} s")
+        Child.LIVE.discard(self)
+        with open(self.out_path) as f:
+            lines = f.read().splitlines()
+        for line in lines:
+            print(line, flush=True)
+        if rc:
+            with open(self.err_path) as f:
+                tail = f.read()[-4000:]
+            raise AssertionError(f"{self.name} exited with {rc}:\n{tail}")
+        phases = []
+        for line in lines:
+            with contextlib.suppress(ValueError):
+                doc = json.loads(line)
+                if isinstance(doc, dict) and "phase" in doc:
+                    phases.append(doc)
+        now = time.perf_counter()
+        ended = self.ended or now
+        # wall_s: from the start to the child's exit; waited_s: how long
+        # this process waited for it at the join.
+        phase("child", child=self.name, wall_s=ended - self.began,
+              waited_s=max(0.0, ended - joined), joined_s=now - self.began)
+        return phases
+
+    def stop(self) -> None:
+        """SIGKILL to the child's whole process group (its own daemons
+        and servers too)."""
+        Child.LIVE.discard(self)
+        if self.proc.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(self.proc.pid, 9)
+            self.proc.wait(30)
+
+    @classmethod
+    def stop_live(cls) -> None:
+        for child in list(cls.LIVE):
+            child.stop()
+
+
+def north_star_plain(out_path: str, shape=NORTH_STAR, device="cuda") -> None:
+    """The main path's plain version, run in a process of its own
+    (``python3 chip_smoke.py north-star-plain OUT``) so that it runs
+    beside the edge phases: make_synthetic_inputs(*shape, seed=0) in
+    float32, a full ship through a resident shipper onto ``device`` (as
+    the main path's first ship), then solve_allocate_plain there, timed.
+    Saves the shipped inputs' digest (LaunchLedger.digest), the result
+    and final buffers on the CPU and ``plain_ms`` to ``out_path``: the
+    main path holds its launch against them once the digests agree
+    (load_north_star_plain)."""
+    from kube_batch_tpu_torch.models.shipping import resident_shipper
+    from kube_batch_tpu_torch.models.synthetic import make_synthetic_inputs
+    from kube_batch_tpu_torch.ops import cuda_solver
+
+    class Owner:
+        pass
+
+    inp, cfg = make_synthetic_inputs(*shape, seed=0, dtype=torch.float32,
+                                     device=device)
+    shipped = resident_shipper(Owner(), device).ship(inp, cfg)
+    card = shipped.node_idle.device.type == "cuda"
+    if card:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res, final = cuda_solver.solve_allocate_plain(shipped, cfg)
+    if card:
+        torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    torch.save(dict(digest=LaunchLedger.digest(shipped, cfg),
+                    res=[t.cpu() for t in res], final=[t.cpu() for t in final],
+                    plain_ms=plain_ms, device=str(shipped.node_idle.device)),
+               out_path)
+    phase("north-star-plain", shape=list(shape),
+          device=str(shipped.node_idle.device), plain_ms=plain_ms)
+
+
+def load_north_star_plain(out_path: str, shipped, cfg):
+    """north_star_plain's result as (SolveResult, FinalState) of CPU
+    tensors and its ``plain_ms``; raises unless it ran on inputs
+    byte-equal to ``shipped``."""
+    from kube_batch_tpu_torch.ops.cuda_solver import FinalState
+    from kube_batch_tpu_torch.ops.solver import SolveResult
+    saved = torch.load(out_path)
+    if saved["digest"] != LaunchLedger.digest(shipped, cfg):
+        raise AssertionError("north-star-plain: its inputs differ from the "
+                             "main path's full ship")
+    return ((SolveResult(*saved["res"]), FinalState(*saved["final"])),
+            saved["plain_ms"])
+
+
 DRILL_PHASES = (degrade_deadline_phase, profile_phase, degrade_solve_phase,
                 degrade_evict_phase, degrade_topo_phase, degrade_fused_phase,
-                degrade_shard_phase, tensorize_limit_phase)
+                degrade_shard_phase, degrade_mesh_phase,
+                tensorize_limit_phase)
 
 
 def main() -> int:
@@ -5356,6 +6087,11 @@ def main() -> int:
         return daemon_only()
     if sys.argv[1:] == ["tools"]:
         return tools_only()
+    if sys.argv[1:] == ["mesh"]:
+        return mesh_only()
+    if sys.argv[1:2] == ["north-star-plain"] and len(sys.argv) == 3:
+        north_star_plain(sys.argv[2])
+        return 0
     from kube_batch_tpu_torch.models.shipping import resident_shipper
     from kube_batch_tpu_torch.models.synthetic import make_synthetic_inputs
     from kube_batch_tpu_torch.ops import cuda_solver
@@ -5372,6 +6108,17 @@ def main() -> int:
     # federation over the edge.
     daemon_launches = guarded(daemon_phase, cuda_solver, card,
                               edge_server=True)
+    # The main path's plain version on the card runs in a process of its
+    # own beside the two edge phases (north_star_plain), which leave the
+    # host's cores mostly idle; the main path holds its launch against it.
+    plain_path = os.path.join(DAEMON_DIR, "north-star-plain.pt")
+    plain_child = Child("north-star-plain", ["north-star-plain", plain_path])
+    # K1's shard mode is a library of its own: its nvcc runs there too, in
+    # a thread (at exit the interpreter waits for it); the mesh phase
+    # waits for it, and builds it itself if this build failed.
+    shard_build = threading.Thread(target=cuda_solver.build_shard_kernel,
+                                   name="shard-build")
+    shard_build.start()
     guarded(daemon_edge_phase, cuda_solver, card)
     guarded(edge_federation_phase, cuda_solver, card)
     main_before = fused_counters()
@@ -5393,7 +6140,8 @@ def main() -> int:
     # The matrix's plain versions run on the host's CPU, as the holds run
     # them (the same code on the same values, faster there), in worker
     # processes while this process launches the kernel on each case and
-    # drives the main path; they are compared once the main path is done.
+    # drives the main path and the phases after it; they are compared
+    # before the kernels line.
     cases = [(dtype, name, inp, cfg)
              for dtype in (torch.float32, torch.float64)
              for name, (inp, cfg) in matrix(dtype)]
@@ -5453,15 +6201,14 @@ def main() -> int:
         raise AssertionError("a clean ship changed the solve's result")
 
     # Once against the plain version on the card, on the full ship's
-    # inputs (cloned above: the delta ship rewrote the resident leaves):
-    # plain_ms is the card's time for the plain version.
+    # inputs (cloned above: the delta ship rewrote the resident leaves;
+    # the plain child's are byte-equal to them): plain_ms is the card's
+    # time for the plain version.
     shipped, fetched = full, results[0][1]
     kout = cuda_solver.solve_allocate_cuda(shipped, cfg)
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    pout = cuda_solver.solve_allocate_plain(shipped, cfg)
-    torch.cuda.synchronize()
-    plain_ms = (time.perf_counter() - t0) * 1e3
+    plain_child.join(600)
+    pout, plain_ms = load_north_star_plain(plain_path, shipped, cfg)
     max_err = compare(kout, pout)
     if max_err:
         raise AssertionError(f"kernel != plain at the north-star shape: "
@@ -5512,6 +6259,40 @@ def main() -> int:
           dispatch_fetch_ms_all=rounds, kernel_ms=kernel_ms,
           plain_ms=plain_ms, **bound, card=card)
 
+    no_fallback_since(main_before, "main-path")
+
+    # From here the large holds of the plain version run in worker
+    # processes beside the card work, checked before the kernels line.
+    DeferredHolds.start()
+    # The node-sharded mesh on 4 shards of the card: K1's shard mode.
+    shard_build.join()
+    mesh_launches = guarded(mesh_phase, cuda_solver, card)
+    session_launches = guarded(session_phase, cuda_solver, card)
+    # The verification harnesses (kube_batch_tpu_torch/tools/) run in a
+    # process of their own (``python3 chip_smoke.py tools``) beside the
+    # phases up to topo-vs-cpu, none of which gates on a time; their K1
+    # launches and holds join this run's counts.
+    tools_child = Child("tools", ["tools"])
+    warmup_launches = guarded(warmup_phase, cuda_solver, card)
+    guarded(session_vs_cpu_phase, cuda_solver)
+    steady_launches = guarded(steady_phase, cuda_solver, card)
+    evict_launches = guarded(evict_phase, cuda_solver, card)
+    guarded(evict_vs_cpu_phase, cuda_solver)
+    topo_launches = guarded(topo_phase, cuda_solver, card)
+    guarded(topo_vs_cpu_phase, cuda_solver)
+    tools_launches = tools_child_counts(tools_child.join(900))
+    streams_launches = guarded(tenancy_streams_phase, cuda_solver, card)
+    tenancy_launches = guarded(tenancy_phase, cuda_solver, card)
+    backlog_launches = guarded(tenancy_backlog_phase, cuda_solver, card)
+    loop_launches = guarded(scheduler_loop_phase, cuda_solver, card)
+    fused_launches = sum(guarded(run, cuda_solver, card)
+                         for run in FUSED_PHASES)
+    # The drills inject their own faults and check exactly those; the
+    # breaker is closed again after each.
+    drill_launches = sum(run(cuda_solver, card) for run in DRILL_PHASES)
+    DeferredHolds.drain()
+    # The matrix's plain versions ran in their workers beside the phases
+    # since the main path.
     for (dtype, name, inp, cfg), kout, pout in zip(
             cases, kouts, host_plains.results()):
         err = compare(kout, pout)
@@ -5522,32 +6303,6 @@ def main() -> int:
               steps=int(kout[0].step), max_abs_err=err,
               **plan_fields(cuda_solver, inp, cfg))
     del cases, kouts
-
-    no_fallback_since(main_before, "main-path")
-
-    # From here the large holds of the plain version run in worker
-    # processes beside the card work, checked before the kernels line.
-    DeferredHolds.start()
-    session_launches = guarded(session_phase, cuda_solver, card)
-    warmup_launches = guarded(warmup_phase, cuda_solver, card)
-    guarded(session_vs_cpu_phase, cuda_solver)
-    steady_launches = guarded(steady_phase, cuda_solver, card)
-    evict_launches = guarded(evict_phase, cuda_solver, card)
-    guarded(evict_vs_cpu_phase, cuda_solver)
-    topo_launches = guarded(topo_phase, cuda_solver, card)
-    guarded(topo_vs_cpu_phase, cuda_solver)
-    streams_launches = guarded(tenancy_streams_phase, cuda_solver, card)
-    tenancy_launches = guarded(tenancy_phase, cuda_solver, card)
-    backlog_launches = guarded(tenancy_backlog_phase, cuda_solver, card)
-    loop_launches = guarded(scheduler_loop_phase, cuda_solver, card)
-    fused_launches = sum(guarded(run, cuda_solver, card)
-                         for run in FUSED_PHASES)
-    # The drills inject their own faults and check exactly those; the
-    # breaker is closed again after each.
-    drill_launches = sum(run(cuda_solver, card) for run in DRILL_PHASES)
-    # The verification harnesses (kube_batch_tpu_torch/tools/).
-    tools_launches = tools_phases(cuda_solver, card)
-    DeferredHolds.drain()
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -5567,7 +6322,8 @@ def main() -> int:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": None}]}), flush=True)
+        "library_ms": None}, mesh_kernel_entry(mesh_launches)]}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind_name,
         "count": torch.cuda.device_count()}}), flush=True)
@@ -5617,6 +6373,25 @@ def daemon_only() -> int:
     return 0
 
 
+def mesh_only() -> int:
+    """``python3 chip_smoke.py mesh``: the build, the mesh phase and its
+    drills alone (K1's shard mode on 4 shards of the card); prints the
+    shard mode's kernels entry and no result line."""
+    from kube_batch_tpu_torch.ops import cuda_solver
+    card = card_line()
+    phase("device", card=card, torch=torch.__version__,
+          cuda=torch.version.cuda, count=torch.cuda.device_count())
+    began = time.perf_counter()
+    cuda_solver.build_kernel()
+    phase("build", seconds=time.perf_counter() - began,
+          built=cuda_solver._Kernel.built,
+          ptxas=cuda_solver._Kernel.build_log.strip().splitlines()[-6:])
+    launches = guarded(mesh_phase, cuda_solver, card)
+    degrade_mesh_phase(cuda_solver, card)
+    print(json.dumps({"kernels": [mesh_kernel_entry(launches)]}), flush=True)
+    return 0
+
+
 def tools_only() -> int:
     """``python3 chip_smoke.py tools``: the build and the three harness
     phases alone (scenarios, chaos-soak, replica-soak); prints no
@@ -5634,7 +6409,17 @@ def tools_only() -> int:
     return 0
 
 
+def tools_child_counts(phases: list) -> int:
+    """The K1 launches of a ``tools`` child (its ``tools-only`` line);
+    its holds join LaunchLedger.counts."""
+    (done,) = [p for p in phases if p["phase"] == "tools-only"]
+    for way, n in done["held"].items():
+        LaunchLedger.counts[way] += n
+    return done["launches"]
+
+
 if __name__ == "__main__":
     import atexit
     atexit.register(EdgeServer.stop_live)
+    atexit.register(Child.stop_live)
     sys.exit(main())

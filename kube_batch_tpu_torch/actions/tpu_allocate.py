@@ -344,13 +344,18 @@ class TpuAllocateAction(Action):
                 # current one for the global engine): never the device.
                 # A clean ship enqueued nothing, and the stream may hold
                 # a fused solve still running, which this would wait for.
-                torch.cuda.current_stream(inputs.node_idle.device) \
-                    .synchronize()
+                # On the mesh, the current stream of each shard's device.
+                from ..parallel.mesh import shard_mesh
+                mesh = shard_mesh(inputs)
+                for dev in (set(mesh.devices) if mesh is not None
+                            else {inputs.node_idle.device}):
+                    torch.cuda.current_stream(dev).synchronize()
             stages["ship"] = time.perf_counter() - t0
             metrics.observe_tpu_transfer_latency(time.time() - ship_start)
 
-            route, _mesh = choose_solver_mesh(inputs)
-            trace.set_meta(solver_route=route, mesh_devices=1)
+            route, mesh = choose_solver_mesh(inputs)
+            trace.set_meta(solver_route=route,
+                           mesh_devices=mesh.size if mesh else 1)
 
             # Generation-keyed solve reuse (models/incremental.py,
             # doc/INCREMENTAL.md): a CLEAN ship at an unchanged shipper
@@ -385,7 +390,7 @@ class TpuAllocateAction(Action):
                     and inc_state.last_kind == "micro"):
                 from ..ops.prefilter import derive_candidates
                 with trace.span("prefilter"):
-                    candidates = derive_candidates(snap, route)
+                    candidates = derive_candidates(snap, route, mesh)
                 if candidates is not None:
                     trace.set_meta(candidate_rows=candidates.count)
             stages["prefilter"] = time.perf_counter() - t0

@@ -57,9 +57,41 @@
 //  (d) an empty pop mask gives index `dim`, which retires the queue;
 //  (e) the kernel writes only the buffers the wrapper has just built;
 //  (f) the conf's key orders, flags and weights are launch arguments.
+//
+// Shard mode (shards > 1; ops/cuda_solver.py solve_allocate_cuda_sharded,
+// the mesh route of parallel/sharded_solver.py).  It replaces the
+// reference's node-sharded solve (kube_batch_tpu/parallel/sharded_solver.py
+// `solve_allocate_sharded`, an XLA while_loop with a pmax and a pmin per
+// placement), not a Pallas kernel.  One launch per shard, each its own
+// cluster, on its own stream: shard s holds the node slice [node_off,
+// node_off + n) and the replicated task, job and queue state, so every
+// shard runs the same pops.  Keys carry the GLOBAL node index.  After the
+// cluster's exchange, CTA 0's thread 0 of each shard publishes the
+// shard's key to its slot of the exchange buffer (host memory mapped into
+// every device: slot (parity, shard) holds the key, then a tag, the
+// solve's epoch and the exchange's sequence number, stored with a
+// system-scope release), and warp 0 of CTA 0 alone acquires all K slots
+// and takes their max: the max score, then the first global index, which
+// is the reference's pmax of the score and pmin of (index << 2 | fit
+// bits), since shards are contiguous.  CTA 0 then sends (max, ok) into
+// every CTA's shared memory (st.async on a second pair of mbarriers), so
+// the CTAs of a cluster go on or stop as one: a CTA that decided alone
+// could stop while another waits for its key.  Every shard then records
+// the placement; only the owner updates its node.  A slot cannot be
+// refilled before CTA 0 has read it: a shard publishes exchange e + 2 only
+// after its CTA 0 passed exchange e + 1, which needs every shard's key of
+// e + 1, published after that shard's CTA 0 passed exchange e.
+// The spin is bounded by %globaltimer (spin_ms; the SM clock that clock64
+// counts varies with the power limit): past it, or once another shard
+// raised the buffer's abort word, the shard raises the word, stops, and
+// writes kind -1 for every task and steps -1, which the wrapper makes the
+// solve's result (any shard's -1 poisons it) and the fetch turns into
+// DeviceFailure.  What bounds it: the same serial chain, plus one round
+// trip to host memory per placement.
 
 #include <climits>
 #include <cstdint>
+#include <cstring>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -87,6 +119,7 @@ struct SolveArgs {
   int32_t* steps;
   long long* stamps;  // phase cycles and counts (kPhaseSlots); null: off
   int32_t* scratch;   // what does not fit on chip (ClusterPlan.scratch_ints)
+  long long* xchg;    // shard mode: the exchange buffer (mapped host memory)
   // shapes
   int32_t n, p, jdim, qdim, r, np_pad, ns_pad, n_sig;
   // the cluster plan (ops/cuda_solver.py ClusterPlan)
@@ -97,6 +130,8 @@ struct SolveArgs {
   int32_t has_gang, has_proportion, has_ports, has_pod_affinity;
   int32_t has_pod_affinity_score;
   int32_t job_key0, job_key1, job_key2, queue_key0;
+  // shard mode (shards 1: the single-device solve)
+  int32_t shard, shards, node_off, epoch, spin_ms;
   // layout: row and column offsets (ops/cuda_solver.py Layout)
   int32_t idle, rel, used, cnt, cap, exists, ni_rows;
   int32_t req, res, ports, aff, anti, match, paffw, pantiw, task_width;
@@ -125,7 +160,7 @@ enum { kKeyNone = 0, kKeyPriority = 1, kKeyGang = 2, kKeyDrf = 3 };
 // phase, then counts.  Slot order must match PHASES in ops/cuda_solver.py.
 enum {
   kQueuePop, kJobPop, kNodeScan, kCtaReduce, kClusterExchange, kOwnerUpdate,
-  kWriteBack, kPlacements, kPops, kTotal, kPhaseSlots
+  kWriteBack, kPlacements, kPops, kTotal, kShardExchange, kPhaseSlots
 };
 
 template <bool kOn>
@@ -296,6 +331,68 @@ __device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
                  : "=r"(done) : "r"(bar), "r"(parity) : "memory");
 }
 
+// The exchange buffer of shard mode: word 0 is the abort word; slot
+// (parity p, shard s) is the 64-byte line 1 + p * shards + s: key, tag.
+constexpr int kSlotWords = 8;
+__device__ __forceinline__ long long* xslot(const SolveArgs& a, int par, int s) {
+  return a.xchg + (size_t)kSlotWords * (1 + par * a.shards + s);
+}
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ long long ld_acquire_sys(const long long* p) {
+  long long v;
+  asm volatile("ld.acquire.sys.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ long long ld_relaxed_sys(const long long* p) {
+  long long v;
+  asm volatile("ld.relaxed.sys.b64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+  return v;
+}
+__device__ __forceinline__ void st_relaxed_sys(long long* p, long long v) {
+  asm volatile("st.relaxed.sys.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+__device__ __forceinline__ void st_release_sys(long long* p, long long v) {
+  asm volatile("st.release.sys.b64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+// Warp 0 of CTA 0: publish this shard's key of exchange `seq` (lane 0),
+// then acquire every shard's key (lane s polls shard s) and return their
+// max to every lane; false when the spin ran past the deadline or another
+// shard raised the abort word (then it is raised).
+__device__ bool shard_exchange(const SolveArgs& a, int lane, int seq, long long* best) {
+  const int par = seq & 1;
+  const long long tag = ((long long)a.epoch << 32) | (unsigned)seq;
+  if (lane == 0) {
+    long long* mine = xslot(a, par, a.shard);
+    st_relaxed_sys(mine, *best);
+    st_release_sys(mine + 1, tag);
+  }
+  bool ok = true;
+  long long got = LLONG_MIN;
+  if (lane < a.shards) {
+    const long long* slot = xslot(a, par, lane);
+    const unsigned long long deadline = global_ns() + 1000000ull * (unsigned)a.spin_ms;
+    for (;;) {
+      if (ld_acquire_sys(slot + 1) == tag) {
+        got = ld_relaxed_sys(slot);
+        break;
+      }
+      if (ld_relaxed_sys(a.xchg) != 0 || global_ns() > deadline) {
+        ok = false;
+        break;
+      }
+    }
+  }
+  ok = __all_sync(kFull, ok);
+  if (!ok && lane == 0) st_release_sys(a.xchg, 1);
+  *best = warp_max(got);
+  return ok;
+}
+
 template <typename T>
 __device__ __forceinline__ T job_key(const SolveArgs& a, const T* jsta,
                                      const int32_t* jw, const float* jshare, int code,
@@ -397,8 +494,9 @@ struct Rows {
 // kAnyR for any r: the scan reads the task from global memory (one
 // broadcast load per dim, L1-resident) and the write-back sums the drain
 // from the job's tasks.  kOnChip: every node row and the queue piece are
-// in shared memory.
-template <typename T, bool kStamp, int kR, bool kOnChip>
+// in shared memory.  kShard: shard mode (shards > 1), compiled apart so
+// the single-device instantiations carry none of its code or registers.
+template <typename T, bool kStamp, int kR, bool kOnChip, bool kShard>
 __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -409,6 +507,8 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
   const int S = a.slice;
   const int base = rank * S;
   const int mine_n = max(0, min(S, n - base));
+  constexpr bool sharded = kShard;
+  const int gbase = (kShard ? a.node_off : 0) + base;  // first global node
   const RowIx rx = row_ix(a);
   const int jw_rows = a.jact + 1, qw_rows = a.qact + 1;
   const T* sig_mask = static_cast<const T*>(a.sig_mask);
@@ -423,7 +523,9 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
   // One mbarrier per parity: a phase completes when all C x kWarps keys of
   // that placement have landed and warp 0 has published the next task.
   unsigned long long* xbar = reinterpret_cast<unsigned long long*>(xslots + 2 * C * kWarps);
-  int32_t* tbuf = reinterpret_cast<int32_t*>(xbar + 2);  // [2][32]
+  // [2][32]: words 0 .. 2r the next task; in shard mode 24 .. 27 the
+  // cross-shard (max, ok) that CTA 0 sends, 28 .. 29 its mbarrier.
+  int32_t* tbuf = reinterpret_cast<int32_t*>(xbar + 2);
   int32_t* pop_sm = tbuf + 64;  // the pop's result, published by warp 0
   // The static job rows the pops read (start .. uid rank).
   const int js_rows = a.juid + 1;
@@ -495,12 +597,17 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
   if (tid == 0) {
     for (int i = 0; i < 2; ++i)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(xbar + i)));
+    if (kShard)
+      for (int i = 0; i < 2; ++i)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                     ::"r"(smem_u32(tbuf + 32 * i + 28)));
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
   // Every CTA of the cluster has started (its slots and mbarriers may be
   // used) and every copy above is visible.
   cluster.sync();
   uint32_t xphase = 0;  // bit p: the phase parity mbarrier p completes next
+  uint32_t gphase = 0;  // the same for the cross-shard broadcast's mbarriers
   for (int q = tid; q < Q; q += kThreads) qshare[q] = queue_share(a, qsta, qw, q);
   for (int q = 0; q < Q; ++q) {
     const int best = warp_best_job(a, jsta, jw, jshare, job_keys, q).idx;
@@ -511,6 +618,8 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
   for (int q = tid; q < Q; q += kThreads) act |= qw[a.qact * Q + q] > 0;
   bool any_active = __syncthreads_or(act);
   int step = 0, par = 0, cur_sig = -1;
+  int xseq = 0;          // shard mode: exchanges so far
+  bool aborted = false;  // shard mode: the cross-shard exchange failed
 
   while (any_active) {
     // ---- pops, in warp 0 alone: the other warps wait at the barrier,
@@ -692,7 +801,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
         }
         score = wadd(score, row(rx.bonus)[li]);
         score = feas ? score : kNegScore;
-        const long long key = pack_key(score, base + li, fit_idle, fit_rel);
+        const long long key = pack_key(score, gbase + li, fit_idle, fit_rel);
         best = key > best ? key : best;
       }
       st.mark(kNodeScan);
@@ -704,7 +813,7 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
       int32_t* tb = tbuf + 32 * par;
       const uint32_t bar = smem_u32(xbar + par);
       if (warp == 0) {
-        if (lane <= 2 * r) tb[lane] = next;
+        if (kR > 0 && lane <= 2 * r) tb[lane] = next;
         __syncwarp();
         if (lane == 0) arrive_expect(bar, C * kWarps * sizeof(long long));
       }
@@ -719,6 +828,34 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
       for (int m = lane; m < C * kWarps; m += 32) best = xs[m] > best ? xs[m] : best;
       best = warp_max(best);
       st.mark(kClusterExchange);
+      if (sharded) {  // every shard's key: the mesh's pmax / pmin
+        // CTA 0 polls the shards and sends (max, ok) to every CTA of the
+        // cluster, itself included: one decision for the whole cluster.
+        int32_t* gb = tbuf + 32 * (xseq & 1);
+        long long* gx = reinterpret_cast<long long*>(gb + 24);
+        const uint32_t gbar = smem_u32(gb + 28);
+        if (warp == 0) {
+          if (lane == 0) arrive_expect(gbar, 2 * sizeof(long long));
+          if (rank == 0) {
+            const bool ok = shard_exchange(a, lane, xseq, &best);
+            if (lane < C) {
+              store_async(map_rank(smem_u32(gx), lane), best, map_rank(gbar, lane));
+              store_async(map_rank(smem_u32(gx + 1), lane), ok ? 1 : 0,
+                          map_rank(gbar, lane));
+            }
+          }
+        }
+        wait_parity(gbar, (gphase >> (xseq & 1)) & 1u);
+        gphase ^= 1u << (xseq & 1);
+        best = gx[0];
+        const bool ok = gx[1] != 0;
+        xseq += 1;
+        if (!ok) {
+          aborted = true;
+          break;
+        }
+        st.mark(kShardExchange);
+      }
 
       const int best_score = (int)(unsigned)((unsigned long long)best >> 32);
       const unsigned lo = (unsigned)((unsigned long long)best & 0xffffffffull);
@@ -728,7 +865,14 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
       const bool pipe_ok = feasible_any && !(lo & 2u) && (lo & 1u);
       const bool placed = alloc_ok || pipe_ok;
 
-      const int li = pick - base;
+      const int li = pick - gbase;
+      if (sharded && placed && rank == 0 && tid == 0) {
+        // Every shard records the placement (the outputs are replicated).
+        a.out[4 * t + 0] = pick;
+        a.out[4 * t + 1] = alloc_ok ? 1 : 2;
+        a.out[4 * t + 2] = dstep;
+        a.out[4 * t + 3] = 0;
+      }
       if (placed && li >= 0 && li < mine_n && li % kThreads == tid) {
         // The owner of the chosen node: rank-1 update of its column.
         for (int d = 0; d < r; ++d) {
@@ -741,10 +885,12 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
           *used = wadd(*used, rs);
         }
         row(rx.cnt)[li] = wadd(row(rx.cnt)[li], 1);
-        a.out[4 * t + 0] = pick;
-        a.out[4 * t + 1] = alloc_ok ? 1 : 2;
-        a.out[4 * t + 2] = dstep;
-        a.out[4 * t + 3] = 0;
+        if (!sharded) {
+          a.out[4 * t + 0] = pick;
+          a.out[4 * t + 1] = alloc_ok ? 1 : 2;
+          a.out[4 * t + 2] = dstep;
+          a.out[4 * t + 3] = 0;
+        }
         for (int k = 0; k < rx.np_use; ++k) row(rx.port + k)[li] |= task[a.ports + k];
         for (int s = 0; s < rx.ns_use; ++s)
           row(rx.sel + s)[li] = wadd(row(rx.sel + s)[li], task[a.match + s]);
@@ -779,6 +925,8 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
         sig = a.task_sig[tn];
       }
     }
+
+    if (aborted) break;  // uniform: every CTA of the cluster got CTA 0's ok
 
     // ---- write-back and rotation, on every CTA's own copy ---------------
     step = dstep;
@@ -832,8 +980,10 @@ __global__ void __launch_bounds__(kThreads, 1) solve_session(const SolveArgs a) 
   if (rank == 0) {
     for (int i = tid; i < jw_rows * J; i += kThreads) a.jdyn[i] = jw[i];
     for (int i = tid; i < qw_rows * Q; i += kThreads) a.qdyn[i] = qw[i];
-    if (tid == 0) *a.steps = step;
+    if (tid == 0) *a.steps = aborted ? -1 : step;
   }
+  if (aborted)  // a poisoned result: the fetch raises DeviceFailure
+    for (int t = rank * kThreads + tid; t < a.p; t += C * kThreads) a.out[4 * t + 1] = -1;
   st.write(a.stamps, rank == 0 && tid == 0);
   // No CTA leaves while another may still address its shared memory.
   cluster.sync();
@@ -855,13 +1005,16 @@ size_t smem_bytes(const SolveArgs& a) {
 
 // One instantiation's launch, or with `clusters` set only the number of
 // its clusters the card can run at once (cudaOccupancyMaxActiveClusters).
-template <typename T, bool kStamp, int kR, bool kOnChip>
+template <typename T, bool kStamp, int kR, bool kOnChip, bool kShard>
 int launch(const SolveArgs& a, cudaStream_t s, int* clusters) {
-  auto kernel = solve_session<T, kStamp, kR, kOnChip>;
+  auto kernel = solve_session<T, kStamp, kR, kOnChip, kShard>;
   const int rows = 3 * a.r + 6 + (a.has_ports ? a.np_pad : 0) +
                    (a.has_pod_affinity || a.has_pod_affinity_score ? a.ns_pad : 0);
   if ((size_t)a.smem_bytes != smem_bytes<T>(a) || a.rows != rows || a.cluster < 1 ||
       a.cluster > 16 || (size_t)a.slice * a.cluster < (size_t)a.n ||
+      a.shards < 1 || a.shard < 0 || a.shard >= a.shards || a.shards > 32 ||
+      (a.shards > 1) != kShard ||
+      (kShard && clusters == nullptr && (a.xchg == nullptr || a.spin_ms < 1)) ||
       (kR > 0 && (a.r > kR || 2 * a.r + 1 > 32)))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = cudaFuncSetAttribute(
@@ -908,47 +1061,57 @@ int launch(const SolveArgs& a, cudaStream_t s, int* clusters) {
 // Each instantiation behind one function of external linkage, so that a
 // build compiles them in separate units in parallel and links the units
 // (ops/cuda_solver.build_kernel): a unit, built with KBT_UNIT_T,
-// KBT_UNIT_STAMP and KBT_UNIT_CHIP, defines the three kR instantiations
-// of one (T, kStamp, kOnChip); the entry unit, built without them,
-// dispatches to all 24 and carries the C interface.
-template <typename T, bool kStamp, int kR, bool kOnChip>
+// KBT_UNIT_STAMP, KBT_UNIT_CHIP and KBT_UNIT_SHARD, defines the three kR
+// instantiations of one (T, kStamp, kOnChip, kShard); the entry unit,
+// built without them, dispatches to the 24 of its library and carries
+// the C interface.  Shard mode is a library of its own, its entry built
+// with KBT_ENTRY_SHARD and built only at the first sharded solve
+// (ops/cuda_solver.build_shard_kernel): a host that never shards never
+// compiles it.
+template <typename T, bool kStamp, int kR, bool kOnChip, bool kShard>
 int launch_instance(const SolveArgs& a, cudaStream_t s, int* clusters);
 
 #ifdef KBT_UNIT_T
 
-template <typename T, bool kStamp, int kR, bool kOnChip>
+template <typename T, bool kStamp, int kR, bool kOnChip, bool kShard>
 int launch_instance(const SolveArgs& a, cudaStream_t s, int* clusters) {
-  return launch<T, kStamp, kR, kOnChip>(a, s, clusters);
+  return launch<T, kStamp, kR, kOnChip, kShard>(a, s, clusters);
 }
 
-template int launch_instance<KBT_UNIT_T, KBT_UNIT_STAMP, 2, KBT_UNIT_CHIP>(
-    const SolveArgs&, cudaStream_t, int*);
-template int launch_instance<KBT_UNIT_T, KBT_UNIT_STAMP, kMaxR, KBT_UNIT_CHIP>(
-    const SolveArgs&, cudaStream_t, int*);
-template int launch_instance<KBT_UNIT_T, KBT_UNIT_STAMP, kAnyR, KBT_UNIT_CHIP>(
-    const SolveArgs&, cudaStream_t, int*);
+template int launch_instance<KBT_UNIT_T, KBT_UNIT_STAMP, 2, KBT_UNIT_CHIP,
+                             KBT_UNIT_SHARD>(const SolveArgs&, cudaStream_t, int*);
+template int launch_instance<KBT_UNIT_T, KBT_UNIT_STAMP, kMaxR, KBT_UNIT_CHIP,
+                             KBT_UNIT_SHARD>(const SolveArgs&, cudaStream_t, int*);
+template int launch_instance<KBT_UNIT_T, KBT_UNIT_STAMP, kAnyR, KBT_UNIT_CHIP,
+                             KBT_UNIT_SHARD>(const SolveArgs&, cudaStream_t, int*);
 
 #else
 
+#ifdef KBT_ENTRY_SHARD
+constexpr bool kEntryShard = true;
+#else
+constexpr bool kEntryShard = false;
+#endif
+
 namespace {
 
-template <typename T, bool kStamp>
-int launch_for(const SolveArgs& a, cudaStream_t s, int* clusters) {
+template <typename T, bool kStamp, bool kShard>
+int launch_for_mode(const SolveArgs& a, cudaStream_t s, int* clusters) {
   const bool on_chip = a.smem_rows == a.rows && a.queue_smem;
   if (a.r <= 2)
-    return on_chip ? launch_instance<T, kStamp, 2, true>(a, s, clusters)
-                   : launch_instance<T, kStamp, 2, false>(a, s, clusters);
+    return on_chip ? launch_instance<T, kStamp, 2, true, kShard>(a, s, clusters)
+                   : launch_instance<T, kStamp, 2, false, kShard>(a, s, clusters);
   if (a.r <= kMaxR)
-    return on_chip ? launch_instance<T, kStamp, kMaxR, true>(a, s, clusters)
-                   : launch_instance<T, kStamp, kMaxR, false>(a, s, clusters);
-  return on_chip ? launch_instance<T, kStamp, kAnyR, true>(a, s, clusters)
-                 : launch_instance<T, kStamp, kAnyR, false>(a, s, clusters);
+    return on_chip ? launch_instance<T, kStamp, kMaxR, true, kShard>(a, s, clusters)
+                   : launch_instance<T, kStamp, kMaxR, false, kShard>(a, s, clusters);
+  return on_chip ? launch_instance<T, kStamp, kAnyR, true, kShard>(a, s, clusters)
+                 : launch_instance<T, kStamp, kAnyR, false, kShard>(a, s, clusters);
 }
 
 template <bool kStamp>
 int dispatch(const SolveArgs& a, int use_f64, cudaStream_t s, int* clusters) {
-  return use_f64 ? launch_for<double, kStamp>(a, s, clusters)
-                 : launch_for<float, kStamp>(a, s, clusters);
+  return use_f64 ? launch_for_mode<double, kStamp, kEntryShard>(a, s, clusters)
+                 : launch_for_mode<float, kStamp, kEntryShard>(a, s, clusters);
 }
 
 }  // namespace
@@ -961,11 +1124,38 @@ extern "C" int kbt_solve_session(const SolveArgs* args, int use_f64, void* strea
 
 // How many clusters of this plan the card can run at once (0: it cannot
 // host the plan's cluster at the plan's shared memory), asked of the
-// unstamped instantiation.  `args` needs its shapes, plan, conf and
-// layout; its pointers are not read.
+// library's unstamped instantiation.  `args` needs its shapes, plan,
+// conf, layout and shard count; its pointers are not read.
 extern "C" int kbt_cluster_capacity(const SolveArgs* args, int use_f64, int* clusters) {
   return dispatch<false>(*args, use_f64, nullptr, clusters);
 }
+
+#ifdef KBT_ENTRY_SHARD
+// Shard mode's exchange buffer: pinned host memory mapped into every
+// device (with unified addressing its device pointer serves them all),
+// zeroed.
+extern "C" int kbt_xchg_alloc(size_t bytes, void** host, void** dev) {
+  cudaError_t e = cudaHostAlloc(host, bytes, cudaHostAllocMapped | cudaHostAllocPortable);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  memset(*host, 0, bytes);
+  return static_cast<int>(cudaHostGetDevicePointer(dev, *host, 0));
+}
+
+// A stream of its own for one shard of the mesh on `device`, which no
+// other work shares: the shards of one solve must run at once.
+extern "C" int kbt_stream_create(int device, void** out) {
+  int prev = 0;
+  cudaError_t e = cudaGetDevice(&prev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaSetDevice(device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = nullptr;
+  e = cudaStreamCreateWithFlags(&s, cudaStreamNonBlocking);
+  cudaSetDevice(prev);
+  *out = s;
+  return static_cast<int>(e);
+}
+#endif
 
 extern "C" const char* kbt_error_string(int code) {
   if (code == kNoCluster)

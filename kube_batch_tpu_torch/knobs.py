@@ -268,18 +268,15 @@ PIPELINE = _knob(
     "KUBE_BATCH_TPU_PIPELINE", "flag-on", True, "doc/PIPELINE.md",
     "Async dispatch window overlapping host commit with device solve",
     parity=True, owner="kube_batch_tpu_torch.actions.tpu_allocate")
-# lint: disable=knob-registry (the mesh route reads it, ROADMAP queue 1 item 5)
 SHARD_NODES = _knob(
     "KUBE_BATCH_TPU_SHARD_NODES", "int", 16384, "doc/SHARDING.md",
     "Node-count threshold that routes a session to the sharded solver",
     owner="kube_batch_tpu_torch.ops.solver")
-# lint: disable=knob-registry (the mesh route reads it, ROADMAP queue 1 item 5)
 SHARD_BYTES = _knob(
     "KUBE_BATCH_TPU_SHARD_BYTES", "int", 256 * 1024 * 1024,
     "doc/SHARDING.md",
     "Session tensor-footprint threshold for the sharded solver, bytes",
     owner="kube_batch_tpu_torch.ops.solver")
-# lint: disable=knob-registry (the mesh route reads it, ROADMAP queue 1 item 5)
 FORCE_SHARD = _knob(
     "KUBE_BATCH_TPU_FORCE_SHARD", "flag-opt-in", False, "doc/SHARDING.md",
     "Force the sharded solver regardless of thresholds (1 forces)",

@@ -81,14 +81,18 @@ def batch_evict_enabled() -> bool:
     return knobs.BATCH_EVICT.enabled()
 
 
-def _shipper_wanted(device: torch.device) -> bool:
+def _shipper_wanted(device: torch.device, route: str = "torch") -> bool:
     """The reference tests ``jax.default_backend() != "cpu"``; the port
-    tests the scanner's device.  Its sharded branch (the mesh-routed
-    engine reads sharded resident leaves) waits for ROADMAP queue 1
-    item 5."""
+    tests the scanner's device."""
     forced = knobs.EVICT_SHIP.tristate()
     if forced is not None:
         return forced
+    if route == "sharded" and knobs.DELTA_SHIP.enabled():
+        # The mesh-routed eviction engine reads the shipper's resident
+        # sharded node leaves in place: without the shipper the batched
+        # dispatch would run on one device and bypass the mesh.  With
+        # DELTA_SHIP=0 there is no resident image to read: fall through.
+        return True
     return device.type != "cpu"
 
 
@@ -128,8 +132,13 @@ def _build_scanner(ssn, use_shipper: bool = False, device=None,
         return None
     if not (snap.tasks or snap.tasks_extra):
         return None
+    # The shipper's own routing gate decides the resident layout: probe
+    # it here so the engine attaches the shipper whenever the layout will
+    # be sharded (choose_evict_route then follows the leaves).
+    from ..ops.solver import choose_solver_mesh
+    route = choose_solver_mesh(snap.inputs)[0]
     device_inputs = None
-    if use_shipper and _shipper_wanted(device):
+    if use_shipper and _shipper_wanted(device, route):
         # Ship the snapshot through the DeviceResidentShipper (a delta
         # against the previous cycle's image on steady clusters): the
         # batched dispatch's statics then come from the already-resident
@@ -464,6 +473,7 @@ class DeviceNodeScanner:
         node_p[:m] = vic_node
         rank_p[:m] = vic_rank
         self.last_batch = (self.dyn.copy(), trows, node_p, rank_p)
+        route, _mesh = evict_solver.choose_evict_route(self._resident)
         # One-dispatch sessions (ops/fused_solver.py): the fused program
         # serves this eviction staging — plus the allocate solve and any
         # staged topo scan — from ONE enqueue sequence; the readback
@@ -488,12 +498,17 @@ class DeviceNodeScanner:
                 self.stats["seeded_profiles"] += len(keys)
                 return
             try:
+                # Sharded route: the dispatch reads the resident sharded
+                # node leaves in place, and dyn ships nothing.
+                dyn_dev = (None if route == "sharded"
+                           else torch.as_tensor(self.dyn, device=dev))
                 scores, perm = evict_solver.dispatch_evict_batch_solve(
                     self.cfg, self.r, self.np_pad, self.ns_pad,
-                    self.statics, torch.as_tensor(self.dyn, device=dev),
+                    self.statics, dyn_dev,
                     torch.as_tensor(trows, device=dev),
                     torch.as_tensor(node_p, device=dev),
-                    torch.as_tensor(rank_p, device=dev))
+                    torch.as_tensor(rank_p, device=dev),
+                    resident=self._resident)
                 mat = _readback(scores).astype(np.int64)
                 perm = _readback(perm)
             except Exception as exc:
@@ -522,7 +537,7 @@ class DeviceNodeScanner:
         from ..ops.compile_cache import note_solve_key
         note_solve_key(evict_solver.evict_solve_key(
             self.cfg, self.r, self.np_pad, self.ns_pad, self.dyn.shape[0],
-            kb, mb, int(self.statics.sig_mask.shape[0]), route="torch"))
+            kb, mb, int(self.statics.sig_mask.shape[0]), route=route))
         pos = len(self._edit_log)
         for i, key in enumerate(keys):
             self._score_cache[key] = [mat[i], pos]

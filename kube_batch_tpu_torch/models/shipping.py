@@ -1,6 +1,6 @@
 """Host->device shipping of SolverInputs against a device-resident buffer.
 
-Counterpart of the single-device half of kube_batch_tpu/models/shipping.py.
+Counterpart of kube_batch_tpu/models/shipping.py.
 ``_pack_host`` flattens every leaf into one host byte image, in the leaf
 order of SolverInputs and with the final device dtypes applied.  The
 ``DeviceResidentShipper`` keeps that image resident on the device as one
@@ -25,6 +25,21 @@ kernels and readbacks never queue behind each other.  Tensors a
 discarded dispatch still reads are freed to the caching allocator under
 their allocation stream, which reuses them only for later work on that
 same stream: no ``record_stream`` is needed.
+
+When ``ops.solver.choose_solver_mesh`` routes the solve to the
+node-sharded mesh (parallel/), the shipper keeps the sharded resident
+layout instead: each shard's own flat buffer, on its shard's device,
+holds its contiguous node rows of every node-major leaf, each leaf padded
+to a 512-byte block boundary, with the [S, N] signature leaves stored
+node-major ([n_local, S]) so one dirty node touches O(1) blocks; the
+replicated leaves (tasks, jobs, queues, cluster) live in one more buffer
+on the mesh's first device.  Dirty blocks are found and written per
+shard: a churn cycle ships bytes only to the shards whose node rows
+changed, and a clean shard's buffer is not touched.  The returned node
+leaves are ``parallel.mesh.ShardedTensor``s whose blocks are views of the
+shards' buffers, in the layout the sharded solve reads, so the solve
+never moves a node row between shards.  The generation contract (a
+clean ship keeps it) is the same in both layouts.
 """
 
 from __future__ import annotations
@@ -36,6 +51,7 @@ from .. import knobs
 from ..device import check_float_dtype, resolve_device
 from ..metrics import memledger, metrics
 from ..ops.solver import SolverInputs
+from ..parallel.mesh import NODE_FIELDS, SIG_FIELDS, ShardedTensor
 from ..trace import spans as trace
 
 # Dirty-detection granularity: 64 int64 words per block.
@@ -109,22 +125,122 @@ def _pack_host(inp, float_dtype, pad_to: int = 1, out=None):
     return tuple(spec), np.concatenate(bufs)
 
 
-def _unpack(spec, float_dtype: torch.dtype, flat: torch.Tensor) -> SolverInputs:
+def _leaf_view(flat: torch.Tensor, kind: str, off: int, size: int, shape,
+               float_dtype: torch.dtype) -> torch.Tensor:
+    """One leaf as a dtype view of its byte range of the 1-D ``flat`` (a
+    copy when the range is not aligned to the leaf's element width)."""
+    if kind == "b":
+        return flat[off:off + size].view(torch.bool).view(shape)
+    dtype = torch.int32 if kind == "i" else float_dtype
+    width = dtype.itemsize
+    seg = flat[off:off + size * width]
+    if (seg.data_ptr() % width) != 0:
+        seg = seg.clone()
+    return seg.view(dtype).view(shape)
+
+
+def _unpack_leaves(spec, float_dtype: torch.dtype, flat: torch.Tensor):
+    flat = flat.reshape(-1)
+    return [_leaf_view(flat, kind, off, size, shape, float_dtype)
+            for kind, off, size, shape in spec]
+
+
+def _unpack(spec, float_dtype: torch.dtype,
+            flat: torch.Tensor) -> SolverInputs:
     """Each leaf as a dtype view of its byte range of ``flat`` (a copy
     when the range is not aligned to the leaf's element width)."""
-    flat = flat.reshape(-1)
-    leaves = []
-    for kind, off, size, shape in spec:
-        if kind == "b":
-            leaves.append(flat[off:off + size].view(torch.bool).view(shape))
-            continue
-        dtype = torch.int32 if kind == "i" else float_dtype
-        width = dtype.itemsize
-        seg = flat[off:off + size * width]
-        if (seg.data_ptr() % width) != 0:
-            seg = seg.clone()
-        leaves.append(seg.view(dtype).view(shape))
+    return SolverInputs(*_unpack_leaves(spec, float_dtype, flat))
+
+
+def _typed(leaf, np_float):
+    """(host array in its device dtype, kind, element width)."""
+    arr = _host(leaf)
+    kind = _kind_of(arr.dtype)
+    if kind == "f":
+        return arr.astype(np_float, copy=False), kind, np.dtype(
+            np_float).itemsize
+    if kind == "i":
+        return arr.astype(np.int32, copy=False), kind, 4
+    return arr.astype(np.uint8, copy=False), kind, 1
+
+
+def _pack_host_sharded(inp, np_float, n_dev: int):
+    """Stage ``inp`` for the sharded resident layout.  Returns (spec_rep,
+    spec_shard, rep_pos, node_pos, rep_flat, shard_flat): ``rep_flat`` is
+    the replicated leaves' bytes, packed as ``_pack_host`` packs them and
+    block-padded; ``shard_flat`` is [n_dev, shard_bytes], row s shard s's
+    node rows of every node-major leaf, each leaf zero-padded to a block
+    boundary so the offsets are the same in every shard.  ``spec_shard``
+    rows are (kind, local byte offset, local size, local packed shape,
+    is_sig); ``rep_pos`` / ``node_pos`` are each region's leaves' places
+    in SolverInputs."""
+    n_total = int(_host(inp.node_idle).shape[0])
+    n_local = n_total // n_dev
+    rep_spec, rep_bufs, rep_off = [], [], 0
+    shard_spec = []
+    shard_parts = [[] for _ in range(n_dev)]
+    local_off = 0
+    rep_pos, node_pos = [], []
+    for i, (name, leaf) in enumerate(zip(SolverInputs._fields, inp)):
+        arr, kind, width = _typed(leaf, np_float)
+        if name in NODE_FIELDS or name in SIG_FIELDS:
+            node_pos.append(i)
+            sig = name in SIG_FIELDS
+            lshape = ((n_local, arr.shape[0]) if sig
+                      else (n_local,) + arr.shape[1:])
+            lsize = int(np.prod(lshape, dtype=np.int64))
+            shard_spec.append((kind, local_off, lsize, tuple(lshape), sig))
+            seg = lsize * width
+            pad = (-seg) % _BLOCK
+            for sh in range(n_dev):
+                rows = slice(sh * n_local, (sh + 1) * n_local)
+                piece = arr[:, rows].T if sig else arr[rows]
+                flat = np.ascontiguousarray(piece).reshape(-1).view(np.uint8)
+                if pad:
+                    flat = np.concatenate([flat, np.zeros(pad, np.uint8)])
+                shard_parts[sh].append(flat)
+            local_off += seg + pad
+        else:
+            rep_pos.append(i)
+            flat = np.ravel(arr)
+            rep_spec.append((kind, rep_off, flat.size, arr.shape))
+            rep_bufs.append(flat.view(np.uint8))
+            rep_off += flat.size * width
+    if rep_off % _BLOCK:
+        rep_bufs.append(np.zeros(_BLOCK - rep_off % _BLOCK, np.uint8))
+    rep_flat = np.concatenate(rep_bufs)
+    shard_flat = np.stack([np.concatenate(parts) for parts in shard_parts])
+    return (tuple(rep_spec), tuple(shard_spec), tuple(rep_pos),
+            tuple(node_pos), rep_flat, shard_flat)
+
+
+def _unpack_sharded(st: "_ShardShipState") -> SolverInputs:
+    """SolverInputs over the two resident regions, no byte moved: the
+    replicated leaves are views of the replicated buffer, and each node
+    leaf is a ShardedTensor of views of the shards' own buffers (the
+    [S, N] leaves transposed back from their node-major packing)."""
+    leaves = [None] * len(SolverInputs._fields)
+    for pos, leaf in zip(st.rep_pos, _unpack_leaves(
+            st.spec_rep, st.float_dtype, st.rep_flat)):
+        leaves[pos] = leaf
+    flats = [buf.reshape(-1) for buf in st.shard_arrays]
+    for pos, (kind, off, size, lshape, sig) in zip(st.node_pos,
+                                                   st.spec_shard):
+        parts = []
+        for flat in flats:
+            part = _leaf_view(flat, kind, off, size, lshape, st.float_dtype)
+            parts.append(part.T if sig else part)
+        leaves[pos] = ShardedTensor(parts, 1 if sig else 0, st.mesh)
     return SolverInputs(*leaves)
+
+
+def _scatter_shard(shard_blk: torch.Tensor, idx: torch.Tensor,
+                   blocks: torch.Tensor) -> torch.Tensor:
+    """Overwrite the dirty blocks of ONE shard's resident buffer in place
+    (the reference's donated scatter), ordered on the current stream
+    after earlier readers.  Runs for dirty shards only: a clean shard's
+    buffer is never touched."""
+    return shard_blk.index_copy_(0, idx, blocks)
 
 
 def _float_dtype_of(inp) -> torch.dtype:
@@ -142,6 +258,16 @@ class _ShipState:
                  "inputs")
 
 
+class _ShardShipState:
+    """The sharded resident image: each shard's own node buffer on its
+    device (written one by one, so clean shards are never touched), the
+    replicated buffer on the mesh's first device, and the exact host
+    bytes last shipped of each region."""
+    __slots__ = ("layout", "spec_rep", "spec_shard", "rep_pos", "node_pos",
+                 "float_dtype", "mesh", "host_rep", "host_shard", "rep_flat",
+                 "shard_arrays", "inputs")
+
+
 def _buf_nbytes(buf) -> int:
     if buf is None:
         return 0
@@ -155,8 +281,12 @@ def _resident_nbytes(sh: "DeviceResidentShipper") -> int:
     recycled host pack scratch.  Reads sizes only: no device call."""
     n = _buf_nbytes(sh._scratch)
     st = sh._state
-    if st is not None:
+    if isinstance(st, _ShipState):
         n += _buf_nbytes(st.host_flat) + _buf_nbytes(st.device_flat)
+    elif isinstance(st, _ShardShipState):
+        n += (_buf_nbytes(st.host_rep) + _buf_nbytes(st.host_shard)
+              + _buf_nbytes(st.rep_flat)
+              + sum(_buf_nbytes(b) for b in st.shard_arrays))
     return n
 
 
@@ -164,7 +294,8 @@ class DeviceResidentShipper:
     """Delta shipping against a device-resident SolverInputs buffer.
 
     Full re-ship triggers: first session, any layout change (padded
-    bucket, leaf spec, float dtype), any solver-config change, a dirty
+    bucket, leaf spec, float dtype, a flip between the single-device and
+    the sharded layout or a new mesh), any solver-config change, a dirty
     fraction above _DELTA_MAX_FRACTION, or KUBE_BATCH_TPU_DELTA_SHIP=0.
     The returned leaves are bit-identical to a full ship of the same
     staging in every mode.
@@ -238,6 +369,14 @@ class DeviceResidentShipper:
             self.last_bytes = flat.nbytes
             return _unpack(spec, float_dtype, self._to_device(flat))
 
+        # One routing chokepoint (ops/solver.py): when the solve will run
+        # sharded over the mesh, the resident image is kept in the mesh
+        # layout, by the same gate.
+        from ..ops.solver import choose_solver_mesh
+        route, mesh = choose_solver_mesh(inp)
+        if route == "sharded":
+            return self._ship_sharded(inp, cfg, float_dtype, np_float, mesh)
+
         recycle = knobs.WIRE_FAST.enabled()
         scratch = None
         if recycle:
@@ -245,7 +384,7 @@ class DeviceResidentShipper:
         spec, flat = _pack_host(inp, np_float, pad_to=_BLOCK, out=scratch)
         layout = (spec, np.dtype(np_float).str, cfg)
         st = self._state
-        if st is not None and st.layout == layout:
+        if isinstance(st, _ShipState) and st.layout == layout:
             idx = self._dirty_blocks(st.host_flat, flat)
             if idx.size == 0:
                 self.last_mode = "clean"
@@ -261,6 +400,94 @@ class DeviceResidentShipper:
     def _dirty_blocks(old: np.ndarray, new: np.ndarray) -> np.ndarray:
         diff = (old.view(np.int64) != new.view(np.int64))
         return np.nonzero(diff.reshape(-1, _BLOCK // 8).any(axis=1))[0]
+
+    @staticmethod
+    def _dirty_shard_blocks(old: np.ndarray, new: np.ndarray):
+        """Per-shard dirty block indices of the [n_dev, shard_bytes]
+        images."""
+        diff = (old.view(np.int64) != new.view(np.int64)).reshape(
+            old.shape[0], -1, _BLOCK // 8).any(axis=2)
+        return [np.nonzero(diff[s])[0] for s in range(old.shape[0])]
+
+    # -- the sharded resident layout ---------------------------------------
+
+    def _ship_sharded(self, inp, cfg, float_dtype, np_float,
+                      mesh) -> SolverInputs:
+        (spec_rep, spec_shard, rep_pos, node_pos, rep_flat,
+         shard_flat) = _pack_host_sharded(inp, np_float, mesh.size)
+        layout = ("sharded", spec_rep, spec_shard, np.dtype(np_float).str,
+                  cfg, mesh)
+        st = self._state
+        if isinstance(st, _ShardShipState) and st.layout == layout:
+            rep_idx = self._dirty_blocks(st.host_rep, rep_flat)
+            shard_idx = self._dirty_shard_blocks(st.host_shard, shard_flat)
+            dirty = int(rep_idx.size) + sum(int(ix.size) for ix in shard_idx)
+            if dirty == 0:
+                self.last_mode = "clean"
+                self.last_bytes = 0
+                return st.inputs
+            total = rep_flat.nbytes + shard_flat.nbytes
+            if dirty * _BLOCK <= _DELTA_MAX_FRACTION * total:
+                return self._ship_sharded_delta(st, rep_flat, shard_flat,
+                                                rep_idx, shard_idx)
+        st = _ShardShipState()
+        st.layout = layout
+        st.spec_rep = spec_rep
+        st.spec_shard = spec_shard
+        st.rep_pos = rep_pos
+        st.node_pos = node_pos
+        st.float_dtype = float_dtype
+        st.mesh = mesh
+        # The shipped images, never written after the ship (the delta
+        # baselines).
+        st.host_rep = rep_flat       # frozen-after: ship
+        st.host_shard = shard_flat   # frozen-after: ship
+        st.rep_flat = torch.from_numpy(rep_flat.reshape(-1, _BLOCK)).to(
+            mesh.devices[0], copy=True)
+        blocks = shard_flat.reshape(mesh.size, -1, _BLOCK)
+        st.shard_arrays = [torch.from_numpy(blocks[s]).to(dev, copy=True)
+                           for s, dev in enumerate(mesh.devices)]
+        for s in range(mesh.size):
+            metrics.note_ship_shard(s, blocks.shape[1] * _BLOCK)
+        st.inputs = _unpack_sharded(st)
+        self._state = st
+        self.generation += 1
+        self.last_mode = "full"
+        self.last_bytes = rep_flat.nbytes + shard_flat.nbytes
+        return st.inputs
+
+    @staticmethod
+    def _update(new2d: np.ndarray, idx: np.ndarray, device):
+        """One region's dirty blocks and their indices on ``device``."""
+        upd = torch.from_numpy(new2d[idx]).to(device)
+        index = torch.from_numpy(idx.astype(np.int64)).to(device)
+        return index, upd
+
+    def _ship_sharded_delta(self, st: _ShardShipState, rep_flat: np.ndarray,
+                            shard_flat: np.ndarray, rep_idx: np.ndarray,
+                            shard_idx) -> SolverInputs:
+        nbytes = 0
+        if rep_idx.size:
+            index, upd = self._update(rep_flat.reshape(-1, _BLOCK), rep_idx,
+                                      st.mesh.devices[0])
+            st.rep_flat.index_copy_(0, index, upd)
+            nbytes += upd.nbytes + index.nbytes
+        blocks = shard_flat.reshape(st.mesh.size, -1, _BLOCK)
+        for s, dev in enumerate(st.mesh.devices):
+            if shard_idx[s].size == 0:
+                continue  # a clean shard: untouched, nothing shipped
+            index, upd = self._update(blocks[s], shard_idx[s], dev)
+            _scatter_shard(st.shard_arrays[s], index, upd)
+            metrics.note_ship_shard(s, upd.nbytes + index.nbytes)
+            nbytes += upd.nbytes + index.nbytes
+        st.host_rep = rep_flat
+        st.host_shard = shard_flat
+        # Re-unpack: refreshes the copies of unaligned replicated leaves.
+        st.inputs = _unpack_sharded(st)
+        self.generation += 1
+        self.last_mode = "delta"
+        self.last_bytes = nbytes
+        return st.inputs
 
     def _ship_full(self, layout, spec, float_dtype,
                    flat: np.ndarray) -> SolverInputs:
@@ -294,6 +521,38 @@ class DeviceResidentShipper:
         self.last_mode = "delta"
         self.last_bytes = upd.nbytes + index.nbytes
         return st.inputs
+
+
+def dirty_shard_probe(inp: SolverInputs, cfg=None, device=None) -> dict:
+    """The per-shard O(dirty blocks) proof: full-ship ``inp`` through a
+    throwaway resident shipper, dirty ONE node row (row 0, shard 0's),
+    delta-ship, and report the bytes each shard received.  On the
+    sharded route shard 0 receives one update and every other shard
+    none."""
+    from ..metrics.metrics import ship_shard_counts
+    from ..ops.solver import choose_solver_mesh
+    staged = SolverInputs(*(_host(leaf) for leaf in inp))
+    route, mesh = choose_solver_mesh(staged)
+    probe = {"route": route, "mesh_devices": mesh.size if mesh else 1}
+    if route != "sharded":
+        return probe
+    if not knobs.DELTA_SHIP.enabled():
+        # Residency disabled: there is no resident image to delta against.
+        probe["mode"] = "disabled"
+        return probe
+    shipper = DeviceResidentShipper(device or mesh.devices[0])
+    shipper.ship(staged, cfg)
+    probe["full_bytes"] = int(shipper._state.host_rep.nbytes
+                              + shipper._state.host_shard.nbytes)
+    dirty = staged._replace(node_used=staged.node_used.copy())
+    dirty.node_used[0, 0] += 1  # one row, owned by shard 0
+    before = ship_shard_counts()
+    shipper.ship(dirty, cfg)
+    after = ship_shard_counts()
+    probe["mode"] = shipper.last_mode
+    probe["per_shard_delta_bytes"] = {
+        k: after.get(k, 0) - before.get(k, 0) for k in after}
+    return probe
 
 
 def resident_shipper(owner, device=None) -> DeviceResidentShipper:

@@ -388,23 +388,32 @@ class WarmupRecord(NamedTuple):
     error: Optional[str] = None
 
 
-def _resolve_family(family: Sequence[str], device) -> List[str]:
+def _resolve_family(family: Sequence[str], device, inp=None) -> List[str]:
     """Expand ``family`` names to the allocate solvers to warm on
-    ``device``.  ``auto`` = the route best_solve_allocate takes there
-    (``cuda`` on the card, ``torch`` on the CPU); ``cuda`` only on the
-    card; ``torch`` is the plain version; ``sharded`` warms nothing until
-    the mesh is ported (ROADMAP queue 1 item 5)."""
+    ``device``.  ``auto`` = the route best_solve_allocate takes for
+    ``inp`` there (``sharded`` where the mesh gate shards it, else
+    ``cuda`` on the card and ``torch`` on the CPU); ``cuda`` only on the
+    card; ``torch`` is the plain version; ``sharded`` only with a mesh
+    (parallel.mesh.default_mesh) the node bucket divides into."""
+    from ..parallel.mesh import default_mesh
+    from .solver import choose_solver_mesh
     out: List[str] = []
     for name in family:
         if name == "auto":
-            out.append("cuda" if device.type == "cuda" else "torch")
+            if inp is not None and choose_solver_mesh(inp)[0] == "sharded":
+                out.append("sharded")
+            else:
+                out.append("cuda" if device.type == "cuda" else "torch")
         elif name == "cuda":
             if device.type == "cuda":
                 out.append("cuda")
         elif name == "torch":
             out.append("torch")
         elif name == "sharded":
-            continue
+            mesh = default_mesh()
+            if mesh is not None and inp is not None \
+                    and inp.node_idle.shape[0] % mesh.size == 0:
+                out.append("sharded")
         else:
             raise ValueError(f"unknown warmup solver {name!r}")
     deduped: List[str] = []
@@ -453,19 +462,35 @@ def warm_bucket(spec: BucketSpec, cfg=None, family: Sequence[str] = ("auto",),
     if cfg is None:
         cfg = SolverConfig()
     inp_np = make_bucket_inputs(spec, r=r, dtype=dtype)
-    names = _resolve_family(family, device)
+    names = _resolve_family(family, device, inp_np)
     records: List[WarmupRecord] = []
     scope = (torch.cuda.device(device) if device.type == "cuda"
              else contextlib.nullcontext())
     with scope:
-        inp = DeviceResidentShipper(device).ship(inp_np, cfg, dtype)
+        shipper = DeviceResidentShipper(device)
+        inp = shipper.ship(inp_np, cfg, dtype)
+        if _is_sharded(inp):
+            # Live sessions reach the sharded solve through the shipper's
+            # sharded resident layout: delta-ship one dirtied row too, so
+            # the per-shard scatter has run before the first session.
+            dirty = inp_np._replace(node_count=inp_np.node_count.copy())
+            dirty.node_count[0] += 1
+            shipper.ship(dirty, cfg, dtype)
+            inp = shipper.ship(inp_np, cfg, dtype)
         for name in names:
             key = solve_key(name, inp_np, cfg)
             start = time.perf_counter()
             try:
-                solve = (solve_allocate_cuda if name == "cuda"
-                         else solve_allocate_plain)
-                result = solve(inp, cfg)[0]
+                if name == "sharded":
+                    from ..parallel.mesh import default_mesh
+                    from ..parallel.sharded_solver import \
+                        solve_allocate_sharded
+                    result = solve_allocate_sharded(inp, cfg, default_mesh())
+                else:
+                    from ..parallel.mesh import gathered
+                    solve = (solve_allocate_cuda if name == "cuda"
+                             else solve_allocate_plain)
+                    result = solve(gathered(inp), cfg)[0]
                 _readback(result.assignment, result.kind, result.order)
             except Exception as exc:  # lint: allow-swallow(warmup must never take down boot; failure is recorded in WarmupRecord.error and logged)
                 records.append(_record(spec, name, key, start, exc))
@@ -480,6 +505,11 @@ def warm_bucket(spec: BucketSpec, cfg=None, family: Sequence[str] = ("auto",),
         if fused_enabled():
             records.append(_warm_fused(spec, cfg, inp_np, inp))
     return records
+
+
+def _is_sharded(inp) -> bool:
+    from ..parallel.mesh import shard_mesh
+    return shard_mesh(inp) is not None
 
 
 def _scan_statics(inp):
@@ -543,10 +573,15 @@ def _warm_fused(spec: BucketSpec, cfg, inp_np, inp) -> WarmupRecord:
     if topology_enabled():
         legs.append("topo")
     legs = tuple(legs)
-    aroute = choose_solver_mesh(inp)[0]
+    from .evict_solver import choose_evict_route
+    from .topo_solver import choose_topo_route
+    aroute, amesh = choose_solver_mesh(inp)
+    eroute = choose_evict_route(inp)[0]
+    troute, tmesh = (choose_topo_route(n_pad) if "topo" in legs
+                     else ("torch", None))
     sx, sy, sz = (2, 2, 2) if "topo" in legs else (0, 0, 0)
-    key = fused_solve_key(legs, aroute, False, 0, (n_pad, cfg), "torch",
-                          (cfg, r, np_pad, ns_pad, kb, mb), "torch",
+    key = fused_solve_key(legs, aroute, False, 0, (n_pad, cfg), eroute,
+                          (cfg, r, np_pad, ns_pad, kb, mb), troute,
                           (sx, sy, sz))
     start = time.perf_counter()
     try:
@@ -569,10 +604,12 @@ def _warm_fused(spec: BucketSpec, cfg, inp_np, inp) -> WarmupRecord:
                 evictable=np.zeros((n_pad,), bool),
                 vic_cnt=np.zeros((n_pad,), np.int32),
                 vic_cost=np.zeros((n_pad,), np.int32)), device)
+        sharded = eroute == "sharded"
         out = _fused_program(
-            legs, cfg, False, inp, None, None, None, cfg, r, np_pad,
-            ns_pad, _scan_statics(inp), dyn, trows, vic_node, vic_rank,
-            box, sx, sy, sz, pe_res, pe_queue, pe_job)
+            legs, cfg, False, inp, None, None, None, None, amesh, cfg, r,
+            np_pad, ns_pad, _scan_statics(inp), None if sharded else dyn,
+            inp if sharded else None, trows, vic_node, vic_rank, box, sx,
+            sy, sz, tmesh, pe_res, pe_queue, pe_job)
         pending = out["alloc"]
         try:
             if pending.ready is not None:
@@ -632,6 +669,22 @@ def _warm_candidate(spec: BucketSpec, cfg, inp) -> WarmupRecord:
     key: tuple = ("candidate", spec, cb)
     start = time.perf_counter()
     try:
+        if _is_sharded(inp):
+            # The per-shard gather and the sharded solve at the candidate
+            # bucket, through the live dispatch's entry points.
+            import numpy as np
+
+            from ..parallel.mesh import shard_mesh
+            from ..parallel.sharded_solver import (gather_candidate_sharded,
+                                                   solve_allocate_sharded)
+            mesh = shard_mesh(inp)
+            sub = gather_candidate_sharded(
+                inp, np.zeros((mesh.size, cb), np.int32),
+                np.zeros((mesh.size, cb), bool), mesh)
+            key = solve_key("sharded", sub, cfg)
+            result = solve_allocate_sharded(sub, cfg, mesh)
+            _readback(result.assignment, result.kind, result.order)
+            return _record(spec, "candidate", key, start)
         dev = inp.node_idle.device
         idx = torch.zeros((cb,), dtype=torch.long, device=dev)
         valid = torch.zeros((cb,), dtype=torch.bool, device=dev)
@@ -654,18 +707,27 @@ def _warm_evict_batch(spec: BucketSpec, cfg, inp_np, inp) -> WarmupRecord:
     implies.  A direct call, not the dispatch chokepoint: warmup is
     setup, not traffic — it must not count routes or hit a chaos
     site."""
-    from .evict_solver import evict_batch_solve, evict_solve_key
+    from .evict_solver import (choose_evict_route, evict_batch_solve,
+                               evict_solve_key)
 
     device = inp.node_idle.device
     (r, np_pad, ns_pad, n_pad, kb, mb), (dyn, trows, vic_node, vic_rank) = \
         _evict_staging(inp_np, spec, device)
+    route, mesh = choose_evict_route(inp)
     key = evict_solve_key(cfg, r, np_pad, ns_pad, n_pad, kb, mb,
-                          int(inp_np.sig_mask.shape[0]), route="torch")
+                          int(inp_np.sig_mask.shape[0]), route=route)
     start = time.perf_counter()
     try:
-        scores, perm = evict_batch_solve(
-            cfg, r, np_pad, ns_pad, _scan_statics(inp), dyn, trows,
-            vic_node, vic_rank)
+        if route == "sharded":
+            from ..parallel.sharded_scan import evict_batch_solve_sharded
+            scores, perm = evict_batch_solve_sharded(
+                cfg, r, np_pad, ns_pad, _scan_statics(inp), inp.node_used,
+                inp.node_count, inp.node_ports, inp.node_selcnt, trows,
+                vic_node, vic_rank, mesh)
+        else:
+            scores, perm = evict_batch_solve(
+                cfg, r, np_pad, ns_pad, _scan_statics(inp), dyn, trows,
+                vic_node, vic_rank)
         _readback(scores, perm)
     except Exception as exc:  # lint: allow-swallow(warmup must never take down boot; failure is recorded in WarmupRecord.error and logged)
         return _record(spec, "evict_batch", key, start, exc)

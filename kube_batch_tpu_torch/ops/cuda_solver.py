@@ -6,7 +6,11 @@ Counterpart of kube_batch_tpu/ops/pallas_solver.py: ``build_buffers`` is
 ``solve_allocate_plain`` is a plain PyTorch transcription of that kernel
 over the same buffers.  The plain version is what the CPU route runs and
 what the tests and chip_smoke.py hold the kernel against; nothing on the
-main path calls it for CUDA tensors.
+main path calls it for CUDA tensors.  ``solve_allocate_cuda_sharded``
+launches the same kernel in its shard mode, one launch per shard of a
+node-sharded mesh (parallel/); its plain version is
+``parallel.sharded_solver.solve_allocate_sharded_plain``, the plain
+solve over one node block per shard (``_solve_blocks``).
 
 Buffer layout (rows padded to multiples of 8, as in the reference):
 
@@ -74,11 +78,15 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared",
               "-Xcompiler", "-fPIC")
 # The build's units, compiled at once and linked into one library: each
 # defines the three kR instantiations of one (float type, phase stamps,
-# on-chip) combination (csrc/solve_session.cu ``launch_instance``); the
-# entry unit, with none of these macros, dispatches and carries the C
-# interface.
-UNITS = tuple((t, s, c) for t in ("float", "double")
+# on-chip, shard mode) combination (csrc/solve_session.cu
+# ``launch_instance``); the entry unit, with none of these macros,
+# dispatches and carries the C interface.  Shard mode's units are a
+# library of their own (SHARD_UNITS, its entry built with
+# -DKBT_ENTRY_SHARD), built at the first sharded solve: the daemon's
+# boot on a host that never shards compiles only UNITS.
+UNITS = tuple((t, s, c, "false") for t in ("float", "double")
               for s in ("false", "true") for c in ("true", "false"))
+SHARD_UNITS = tuple(u[:3] + ("true",) for u in UNITS)
 
 
 def _pad8(x: int) -> int:
@@ -427,21 +435,36 @@ def solve_allocate_plain(inp: SolverInputs, cfg: SolverConfig):
     """The kernel's plain PyTorch version: the same session solve over the
     same buffers, one torch op at a time, with the control state in
     Python ints.  Returns (SolveResult, FinalState)."""
-    ops = _operands(inp)
-    lay, (nint, ncs, jsta, jdyn, qdes, qsta, qdyn) = ops.lay, ops.bufs
-    nport, nsel_rows = ops.nport, ops.nsel
-    r = inp.task_req.shape[1]
+    return _solve_blocks([_operands(inp)], cfg)
+
+
+def _solve_blocks(blocks, cfg: SolverConfig):
+    """The plain session solve over the node blocks ``blocks`` (Operands,
+    each holding a contiguous node slice, in node order; the first one's
+    task, job and queue buffers carry the session).  One block is the
+    single-device solve.  With several (the sharded plain version,
+    parallel/sharded_solver.py), each placement takes every block's local
+    first max and reduces them as the reference's mesh does: the max of
+    the scores (pmax), then the min of the word ``(global index << 2) |
+    (fit_idle << 1) | fit_rel`` among the blocks at that max (pmin), so
+    ties break on the global first index; only the owning block's node
+    state is updated.  The FinalState's node rows are the blocks'
+    concatenated on the first block's device."""
+    ops = blocks[0]
+    lay, (_, _, jsta, jdyn, qdes, qsta, qdyn) = ops.lay, ops.bufs
+    r = ops.total.shape[0]
     np_pad = lay.aff - lay.ports
     ns_pad = lay.anti - lay.aff
-    n = nint.shape[1]
+    sizes = [b.bufs.node_int.shape[1] for b in blocks]
+    offsets = [sum(sizes[:k]) for k in range(len(blocks))]
+    n_total = sum(sizes)
     jdim = jsta.shape[1]
     qdim = qsta.shape[1]
     p = ops.task_data.shape[0]
     n_sig = ops.sig_mask.shape[0]
-    dev = nint.device
+    dev = jsta.device
     fdt = jsta.dtype
     inf = torch.tensor(float("inf"), dtype=fdt, device=dev)
-    col_n = torch.arange(n, device=dev)
     col_j = torch.arange(jdim, device=dev)
     col_q = torch.arange(qdim, device=dev)
     w_least5, w_most5, w_bal = _weight_args(cfg)
@@ -473,6 +496,80 @@ def solve_allocate_plain(inp: SolverInputs, cfg: SolverConfig):
             share = torch.maximum(share, safe_share(
                 jdyn[lay.jalloc + i], ops.total[i]))
         return share.to(fdt)
+
+    def scan(block, row, req, res, sig):
+        """The block's local first max: (best score, local index, the
+        node's fit-idle and fit-releasing bits) as Python ints."""
+        nint, ncs = block.bufs.node_int, block.bufs.node_cs
+        nport, nsel_rows = block.nport, block.nsel
+        n = nint.shape[1]
+        bdev = nint.device
+        fit_idle = fit_rel = None
+        for i in range(r):
+            mi = nint[lay.idle + i]
+            mr = nint[lay.rel + i]
+            oki = (req[i] < mi) | (torch.abs(req[i] - mi) < EPS_QUANTA)
+            okr = (req[i] < mr) | (torch.abs(req[i] - mr) < EPS_QUANTA)
+            if i >= 2 and req[i] <= EPS_QUANTA:
+                oki = okr = torch.ones_like(oki)
+            fit_idle = oki if fit_idle is None else fit_idle & oki
+            fit_rel = okr if fit_rel is None else fit_rel & okr
+
+        feasible = ((block.sig_mask[sig] > 0.5) & (nint[lay.exists] > 0)
+                    & (nint[lay.cnt] < nint[lay.cap])
+                    & (fit_idle | fit_rel))
+        if cfg.has_ports:
+            for i in range(np_pad):
+                if row[lay.ports + i] > 0:
+                    feasible = feasible & ~(nport[i] > 0)
+        if cfg.has_pod_affinity:
+            for s in range(ns_pad):
+                have = nsel_rows[s] > 0
+                if row[lay.aff + s] > 0:
+                    feasible = feasible & have
+                if row[lay.anti + s] > 0:
+                    feasible = feasible & ~have
+
+        g = []
+        for d in range(2):
+            cs = ncs[d]
+            xs = torch.minimum(
+                _lshr(nint[lay.used + d] + res[d], shifts[d]), cs)
+            qv = ((xs * SCORE_GRID_K).to(fdt)
+                  / torch.clamp(cs, min=1).to(fdt)).to(torch.int32)
+            g.append(torch.where(cs == 0, SCORE_GRID_K, qv))
+        gc, gm = g
+        score = torch.zeros(n, dtype=torch.int32, device=bdev)
+        if w_least5:
+            score = score + w_least5 * (2 * SCORE_GRID_K - gc - gm)
+        if w_most5:
+            score = score + w_most5 * (gc + gm)
+        if w_bal:
+            score = score + w_bal * (10 * SCORE_GRID_K
+                                     - 10 * torch.abs(gc - gm))
+        if cfg.has_pod_affinity_score:
+            for s in range(ns_pad):
+                wd = _i32(int(row[lay.paffw + s])
+                          - int(row[lay.pantiw + s]))
+                score = score + _i32(SCORE_GRID_K * wd) * nsel_rows[s]
+        score = score + block.sig_bonus[sig]
+        score = torch.where(feasible, score, SCORE_NEG_INF)
+
+        best = torch.max(score)
+        pick = torch.min(torch.where(
+            score == best, torch.arange(n, device=bdev), n))
+        return torch.stack([best.long(), pick, fit_idle[pick].long(),
+                            fit_rel[pick].long()]).tolist()
+
+    def first_max(row, req, res, sig):
+        """(best, global index, fit_idle, fit_rel) over every block: the
+        reference's pmax of the scores, then pmin of the packed word."""
+        local = [scan(b, row, req, res, sig) for b in blocks]
+        best = max(v[0] for v in local)
+        word = min(((off + v[1]) << 2) | (v[2] << 1) | v[3]
+                   if v[0] == best else (n_total << 2) | 3
+                   for off, v in zip(offsets, local))
+        return best, word >> 2, (word >> 1) & 1, word & 1
 
     step = 0
     while bool(torch.any(qdyn[lay.qact] > 0)):
@@ -531,62 +628,7 @@ def solve_allocate_plain(inp: SolverInputs, cfg: SolverConfig):
             res = [int(v) for v in row[lay.res:lay.res + r]]
             sig = min(max(int(sig_host[t]), 0), n_sig - 1)
 
-            fit_idle = fit_rel = None
-            for i in range(r):
-                mi = nint[lay.idle + i]
-                mr = nint[lay.rel + i]
-                oki = (req[i] < mi) | (torch.abs(req[i] - mi) < EPS_QUANTA)
-                okr = (req[i] < mr) | (torch.abs(req[i] - mr) < EPS_QUANTA)
-                if i >= 2 and req[i] <= EPS_QUANTA:
-                    oki = okr = torch.ones_like(oki)
-                fit_idle = oki if fit_idle is None else fit_idle & oki
-                fit_rel = okr if fit_rel is None else fit_rel & okr
-
-            feasible = ((ops.sig_mask[sig] > 0.5) & (nint[lay.exists] > 0)
-                        & (nint[lay.cnt] < nint[lay.cap])
-                        & (fit_idle | fit_rel))
-            if cfg.has_ports:
-                for i in range(np_pad):
-                    if row[lay.ports + i] > 0:
-                        feasible = feasible & ~(nport[i] > 0)
-            if cfg.has_pod_affinity:
-                for s in range(ns_pad):
-                    have = nsel_rows[s] > 0
-                    if row[lay.aff + s] > 0:
-                        feasible = feasible & have
-                    if row[lay.anti + s] > 0:
-                        feasible = feasible & ~have
-
-            g = []
-            for d in range(2):
-                cs = ncs[d]
-                xs = torch.minimum(
-                    _lshr(nint[lay.used + d] + res[d], shifts[d]), cs)
-                qv = ((xs * SCORE_GRID_K).to(fdt)
-                      / torch.clamp(cs, min=1).to(fdt)).to(torch.int32)
-                g.append(torch.where(cs == 0, SCORE_GRID_K, qv))
-            gc, gm = g
-            score = torch.zeros(n, dtype=torch.int32, device=dev)
-            if w_least5:
-                score = score + w_least5 * (2 * SCORE_GRID_K - gc - gm)
-            if w_most5:
-                score = score + w_most5 * (gc + gm)
-            if w_bal:
-                score = score + w_bal * (10 * SCORE_GRID_K
-                                         - 10 * torch.abs(gc - gm))
-            if cfg.has_pod_affinity_score:
-                for s in range(ns_pad):
-                    wd = _i32(int(row[lay.paffw + s])
-                              - int(row[lay.pantiw + s]))
-                    score = score + _i32(SCORE_GRID_K * wd) * nsel_rows[s]
-            score = score + ops.sig_bonus[sig]
-            score = torch.where(feasible, score, SCORE_NEG_INF)
-
-            best = torch.max(score)
-            pick = torch.min(torch.where(score == best, col_n, n))
-            best, pick, fi, fr = torch.stack(
-                [best.long(), pick, fit_idle[pick].long(),
-                 fit_rel[pick].long()]).tolist()
+            best, pick, fi, fr = first_max(row, req, res, sig)
             feasible_any = best > SCORE_NEG_INF
 
             placing = not exhausted and feasible_any
@@ -594,18 +636,22 @@ def solve_allocate_plain(inp: SolverInputs, cfg: SolverConfig):
             pipe_ok = placing and not fi and bool(fr)
             placed = alloc_ok or pipe_ok
             if placed:
+                k = max(i for i, off in enumerate(offsets) if off <= pick)
+                owner, local = blocks[k], pick - offsets[k]
+                bdev = owner.bufs.node_int.device
                 delta = ([-res[i] if alloc_ok else 0 for i in range(r)]
                          + [-res[i] if pipe_ok else 0 for i in range(r)]
                          + res + [1])
-                nint[:ndyn, pick] += torch.tensor(
-                    [_i32(v) for v in delta], dtype=torch.int32, device=dev)
+                owner.bufs.node_int[:ndyn, local] += torch.tensor(
+                    [_i32(v) for v in delta], dtype=torch.int32,
+                    device=bdev)
                 out[t] = (pick, 1 if alloc_ok else 2, dstep, 0)
                 if cfg.has_ports:
-                    nport[:, pick] |= torch.as_tensor(
-                        row[lay.ports:lay.ports + np_pad], device=dev)
+                    owner.nport[:, local] |= torch.as_tensor(
+                        row[lay.ports:lay.ports + np_pad], device=bdev)
                 if cfg.has_pod_affinity or cfg.has_pod_affinity_score:
-                    nsel_rows[:, pick] += torch.as_tensor(
-                        row[lay.match:lay.match + ns_pad], device=dev)
+                    owner.nsel[:, local] += torch.as_tensor(
+                        row[lay.match:lay.match + ns_pad], device=bdev)
                 ptr += 1
                 dstep += 1
                 dres = [_i32(dres[i] + res[i]) for i in range(r)]
@@ -636,7 +682,14 @@ def solve_allocate_plain(inp: SolverInputs, cfg: SolverConfig):
                          order=out_t[:, 2],
                          step=torch.tensor(step, dtype=torch.int32,
                                            device=dev))
-    return result, FinalState(nint, jdyn, qdyn, nport, nsel_rows)
+
+    def joined(rows):
+        return torch.cat([x.to(dev) for x in rows], dim=1) \
+            if len(rows) > 1 else rows[0]
+
+    return result, FinalState(joined([b.bufs.node_int for b in blocks]),
+                              jdyn, qdyn, joined([b.nport for b in blocks]),
+                              joined([b.nsel for b in blocks]))
 
 
 # ---------------------------------------------------------------------------
@@ -646,21 +699,26 @@ def solve_allocate_plain(inp: SolverInputs, cfg: SolverConfig):
 _POINTER_FIELDS = ("node_int", "node_cs", "task_data", "task_sig",
                    "sig_mask", "sig_bonus", "jsta", "jdyn", "qsta", "qdes",
                    "qdyn", "nport", "nsel", "total", "score_shift", "out",
-                   "steps", "stamps", "scratch")
+                   "steps", "stamps", "scratch", "xchg")
 _SHAPE_FIELDS = ("n", "p", "jdim", "qdim", "r", "np_pad", "ns_pad", "n_sig")
 _PLAN_FIELDS = ClusterPlan._fields[:ClusterPlan._fields.index("smem_bytes") + 1]
 _CONFIG_FIELDS = ("w_least5", "w_most5", "w_bal", "has_gang",
                   "has_proportion", "has_ports", "has_pod_affinity",
                   "has_pod_affinity_score", "job_key0", "job_key1",
                   "job_key2", "queue_key0")
+# Shard mode's launch arguments (solve_allocate_cuda_sharded): the
+# shard's index, the shard count, its first global node, the solve's
+# epoch (tags its exchange slots) and the spin's bound in milliseconds.
+_SHARD_FIELDS = ("shard", "shards", "node_off", "epoch", "spin_ms")
 
 
 # The kernel's phase stamps, in slot order: cycles of thread 0 in each
 # phase, then the counts of placements (node scans) and pops, then the
-# cycles of the whole launch.
+# cycles of the whole launch, then (shard mode only) the cycles of the
+# cross-shard exchange.
 PHASES = ("queue_pop", "job_pop", "node_scan", "cta_reduce",
           "cluster_exchange", "owner_update", "write_back", "placements",
-          "pops", "total")
+          "pops", "total", "shard_exchange")
 
 
 class SolveArgs(ctypes.Structure):
@@ -670,7 +728,7 @@ class SolveArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in _POINTER_FIELDS]
                 + [(f, ctypes.c_int32) for f in
                    _SHAPE_FIELDS + _PLAN_FIELDS + _CONFIG_FIELDS
-                   + Layout._fields])
+                   + _SHARD_FIELDS + Layout._fields])
 
 
 class _Kernel:
@@ -685,36 +743,53 @@ class _Kernel:
     # an earlier build left in the build directory; None before either.
     built = None
     path = None
-    # Where the library is looked for and built; None is BUILD_DIR
+    # Where the libraries are looked for and built; None is BUILD_DIR
     # (``set_build_dir``, the compile cache's directory).
     build_dir = None
     lock = threading.Lock()
+    stem, units, entry = "libsolve_session", UNITS, ()
 
 
-def kernel_tag() -> str:
-    """The library's key: a hash of the kernel's source, its flags and
-    its units."""
+class _ShardKernel:
+    """The same for shard mode's library (``build_shard_kernel``); it is
+    looked for and built in ``_Kernel.build_dir``."""
+    lib = None
+    build_seconds = None
+    build_log = ""
+    built = None
+    path = None
+    lock = threading.Lock()
+    stem, units, entry = ("libsolve_session_shard", SHARD_UNITS,
+                          ("-DKBT_ENTRY_SHARD",))
+
+
+def kernel_tag(which=_Kernel) -> str:
+    """A library's key: a hash of the kernel's source, its flags and its
+    units."""
     src = _SRC.read_bytes()
-    how = repr((NVCC_FLAGS, LINK_FLAGS, UNITS)).encode()
+    how = repr((NVCC_FLAGS, LINK_FLAGS, which.units) + (
+        (which.entry,) if which.entry else ())).encode()
     return hashlib.sha256(src + how).hexdigest()[:16]
 
 
 def _unit_flags(unit) -> list:
-    t, stamp, chip = unit
+    t, stamp, chip, shard = unit
     return [f"-DKBT_UNIT_T={t}", f"-DKBT_UNIT_STAMP={stamp}",
-            f"-DKBT_UNIT_CHIP={chip}"]
+            f"-DKBT_UNIT_CHIP={chip}", f"-DKBT_UNIT_SHARD={shard}"]
 
 
-def _compile(nvcc: str, so: Path, tmp: Path) -> str:
-    """nvcc's units of csrc/solve_session.cu, all at once (one thread
-    each), then one link into ``tmp``; returns their ptxas reports.
-    Raises on the first failed step."""
+def _compile(nvcc: str, so: Path, tmp: Path, which=_Kernel) -> str:
+    """nvcc's units of csrc/solve_session.cu for ``which`` library, all
+    at once (one thread each), then one link into ``tmp``; returns their
+    ptxas reports.  Raises on the first failed step."""
     from concurrent.futures import ThreadPoolExecutor
+    units = which.units
     objs = [tmp.with_name(f"{tmp.name}.{i}.o")
-            for i in range(len(UNITS) + 1)]
+            for i in range(len(units) + 1)]
     argvs = [[nvcc, *NVCC_FLAGS, *_unit_flags(unit), "-c", "-o", str(obj),
-              str(_SRC)] for unit, obj in zip(UNITS, objs)]
-    argvs.append([nvcc, *NVCC_FLAGS, "-c", "-o", str(objs[-1]), str(_SRC)])
+              str(_SRC)] for unit, obj in zip(units, objs)]
+    argvs.append([nvcc, *NVCC_FLAGS, *which.entry, "-c", "-o",
+                  str(objs[-1]), str(_SRC)])
     try:
         with ThreadPoolExecutor(len(argvs)) as pool:
             procs = list(pool.map(lambda argv: subprocess.run(
@@ -738,11 +813,11 @@ def _compile(nvcc: str, so: Path, tmp: Path) -> str:
     return "".join(proc.stderr for proc in procs)
 
 
-def library_path(build_dir=None) -> Path:
-    """Where the library of this source and these flags lives (ptxas'
-    report of its build beside it, ``.ptxas.txt``)."""
+def library_path(build_dir=None, which=_Kernel) -> Path:
+    """Where ``which`` library of this source and these flags lives
+    (ptxas' report of its build beside it, ``.ptxas.txt``)."""
     root = Path(build_dir or _Kernel.build_dir or BUILD_DIR)
-    return root / f"libsolve_session_{kernel_tag()}.so"
+    return root / f"{which.stem}_{kernel_tag(which)}.so"
 
 
 def _log_path(so: Path) -> Path:
@@ -770,11 +845,13 @@ def set_build_dir(path) -> Path:
     the next process that points there loads it without nvcc."""
     root = Path(path).resolve()
     root.mkdir(parents=True, exist_ok=True)
-    with _Kernel.lock:
+    with _Kernel.lock, _ShardKernel.lock:
         _Kernel.build_dir = root
-        loaded = _Kernel.path
-        dest = library_path(root)
-        if loaded is not None and Path(loaded) != dest and not dest.exists():
+        for which in (_Kernel, _ShardKernel):
+            loaded = which.path
+            dest = library_path(root, which)
+            if loaded is None or Path(loaded) == dest or dest.exists():
+                continue
             if _log_path(Path(loaded)).exists():
                 _publish(_log_path(Path(loaded)), _log_path(dest))
             _publish(Path(loaded), dest)
@@ -789,13 +866,23 @@ def build_kernel() -> ctypes.CDLL:
     (once per source content; its UNITS in parallel, then a link) and
     load it.  Raises when nvcc or the build fails.  Thread-safe:
     concurrent first callers share one build."""
-    lib = _Kernel.lib
+    return _build(_Kernel)
+
+
+def build_shard_kernel() -> ctypes.CDLL:
+    """``build_kernel`` for shard mode's library (SHARD_UNITS), which
+    only a sharded solve loads."""
+    return _build(_ShardKernel)
+
+
+def _build(which) -> ctypes.CDLL:
+    lib = which.lib
     if lib is not None:
         return lib
-    with _Kernel.lock:
-        if _Kernel.lib is not None:
-            return _Kernel.lib
-        so = library_path()
+    with which.lock:
+        if which.lib is not None:
+            return which.lib
+        so = library_path(which=which)
         began = time.perf_counter()
         built = False
         if not so.exists():
@@ -809,8 +896,8 @@ def build_kernel() -> ctypes.CDLL:
             tmp = so.with_name(
                 f"{so.name}.{os.getpid()}.{threading.get_ident()}.tmp")
             try:
-                _Kernel.build_log = _compile(nvcc, so, tmp)
-                _log_path(tmp).write_text(_Kernel.build_log)
+                which.build_log = _compile(nvcc, so, tmp, which)
+                _log_path(tmp).write_text(which.build_log)
                 os.replace(_log_path(tmp), _log_path(so))
                 os.replace(tmp, so)
             finally:
@@ -819,7 +906,7 @@ def build_kernel() -> ctypes.CDLL:
                         left.unlink()
             built = True
         elif _log_path(so).exists():
-            _Kernel.build_log = _log_path(so).read_text()
+            which.build_log = _log_path(so).read_text()
         lib = ctypes.CDLL(str(so))
         lib.kbt_solve_session.argtypes = [ctypes.POINTER(SolveArgs),
                                           ctypes.c_int, ctypes.c_void_p]
@@ -830,10 +917,18 @@ def build_kernel() -> ctypes.CDLL:
         lib.kbt_cluster_capacity.restype = ctypes.c_int
         lib.kbt_error_string.argtypes = [ctypes.c_int]
         lib.kbt_error_string.restype = ctypes.c_char_p
-        _Kernel.build_seconds = time.perf_counter() - began
-        _Kernel.built = built
-        _Kernel.path = so
-        _Kernel.lib = lib
+        if which is _ShardKernel:
+            lib.kbt_xchg_alloc.argtypes = [ctypes.c_size_t,
+                                           ctypes.POINTER(ctypes.c_void_p),
+                                           ctypes.POINTER(ctypes.c_void_p)]
+            lib.kbt_xchg_alloc.restype = ctypes.c_int
+            lib.kbt_stream_create.argtypes = [
+                ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)]
+            lib.kbt_stream_create.restype = ctypes.c_int
+        which.build_seconds = time.perf_counter() - began
+        which.built = built
+        which.path = so
+        which.lib = lib
     return lib
 
 
@@ -886,7 +981,9 @@ _CAPACITY: dict = {}
 
 
 def _launch_args(ops: Operands, cfg: SolverConfig, plan: ClusterPlan,
-                 tensors: dict) -> SolveArgs:
+                 tensors: dict, shard: tuple = (0, 1, 0, 0, 0)) -> SolveArgs:
+    """The launch arguments; ``shard`` is (shard, shards, node_off,
+    epoch, spin_ms), the single-device solve's by default."""
     lay, bufs = ops.lay, ops.bufs
     w_least5, w_most5, w_bal = _weight_args(cfg)
     job_keys = _key_codes(cfg.job_key_order, _JOB_KEYS, 3)
@@ -906,25 +1003,31 @@ def _launch_args(ops: Operands, cfg: SolverConfig, plan: ClusterPlan,
         has_pod_affinity=bool(cfg.has_pod_affinity),
         has_pod_affinity_score=bool(cfg.has_pod_affinity_score),
         job_key0=job_keys[0], job_key1=job_keys[1], job_key2=job_keys[2],
-        queue_key0=queue_key, **lay._asdict())
+        queue_key0=queue_key, **dict(zip(_SHARD_FIELDS, shard)),
+        **lay._asdict())
 
 
 def hostable_plan(inp: SolverInputs, cfg: SolverConfig, ops: Operands,
-                  max_cluster: int = CLUSTER_SIZES[-1]) -> ClusterPlan:
+                  max_cluster: int = CLUSTER_SIZES[-1],
+                  need: int = 1, shards: int = 1) -> ClusterPlan:
     """The plan of ``plan_of`` under the largest cluster bound, at most
-    ``max_cluster``, whose cluster the card can host at that plan's shared
-    memory (``cudaOccupancyMaxActiveClusters`` in the bound library,
-    asked once per plan).  A card or partition that cannot host 16 CTAs
-    gets the 8-CTA plan, with more rows in global memory.  Raises when
-    not even one CTA fits."""
-    lib = build_kernel()
+    ``max_cluster``, of which the card can host ``need`` clusters at once
+    at that plan's shared memory (``cudaOccupancyMaxActiveClusters`` in
+    the bound library, asked once per plan).  A card or partition that
+    cannot host 16 CTAs gets the 8-CTA plan, with more rows in global
+    memory.  Shard mode (``shards`` > 1, asked of its own library) asks
+    for one cluster per shard on the card: its shards spin on each other,
+    so they must all be resident at once.  Raises when not even ``need``
+    clusters of one CTA fit."""
+    lib = build_shard_kernel() if shards > 1 else build_kernel()
     f64 = int(ops.bufs.jsta.dtype == torch.float64)
     bound = max_cluster
     while True:
         plan = plan_of(inp, cfg, bound)
-        key = (plan, f64, ops.total.shape[0])
+        key = (plan, f64, ops.total.shape[0], shards > 1)
         if key not in _CAPACITY:
-            args = _launch_args(ops, cfg, plan, {})
+            args = _launch_args(ops, cfg, plan, {},
+                                shard=(0, shards, 0, 0, 0))
             got = ctypes.c_int(0)
             rc = lib.kbt_cluster_capacity(ctypes.byref(args), f64,
                                           ctypes.byref(got))
@@ -932,12 +1035,13 @@ def hostable_plan(inp: SolverInputs, cfg: SolverConfig, ops: Operands,
                 raise RuntimeError("cluster capacity query failed: "
                                    + lib.kbt_error_string(rc).decode())
             _CAPACITY[key] = got.value
-        if _CAPACITY[key] >= 1:
+        if _CAPACITY[key] >= need:
             return plan
         if plan.cluster == 1:
             raise RuntimeError(
-                f"the card cannot host even one CTA of {plan.smem_bytes} B "
-                f"of shared memory")
+                f"the card cannot host {need} cluster(s) of one CTA of "
+                f"{plan.smem_bytes} B of shared memory at once (it hosts "
+                f"{_CAPACITY[key]})")
         bound = plan.cluster // 2
 
 
@@ -1005,3 +1109,250 @@ def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig, *,
 # own view's stream.
 solve_allocate_cuda.launches = 0
 solve_allocate_cuda.stream_launches = {}
+
+
+# ---------------------------------------------------------------------------
+# Shard mode: one launch per shard of the mesh, the exchange in host memory
+# ---------------------------------------------------------------------------
+
+# How long a shard spins on the exchange before it gives up (the kernel's
+# %globaltimer bound): far above any exchange's wait (microseconds), and
+# short enough that a shard that never started fails the solve quickly.
+SPIN_MS = 5000
+# int64 words per exchange slot (kSlotWords in the kernel): one 64-byte
+# line each, word 0 of the buffer the abort word.
+_SLOT_WORDS = 8
+
+
+class _Exchange:
+    """One exchange buffer of shard mode: pinned host memory mapped into
+    every device (``kbt_xchg_alloc``), 2 parities x K slots.  Reused by a
+    later solve once the events of the launches that read it completed
+    (the pool holds as many as solves ever ran at once, for the life of
+    the process); the epoch in each slot's tag keeps solves apart, so
+    only the abort word is cleared."""
+
+    def __init__(self, lib, shards: int):
+        self.shards = shards
+        self.words = _SLOT_WORDS * (1 + 2 * shards)
+        host, dev = ctypes.c_void_p(), ctypes.c_void_p()
+        rc = lib.kbt_xchg_alloc(8 * self.words, ctypes.byref(host),
+                                ctypes.byref(dev))
+        if rc != 0:
+            raise RuntimeError("exchange buffer allocation failed: "
+                               + lib.kbt_error_string(rc).decode())
+        self.host, self.dev = host.value, dev.value
+        self.view = np.ctypeslib.as_array(
+            (ctypes.c_int64 * self.words).from_address(self.host))
+        self.events = ()
+
+    @property
+    def nbytes(self) -> int:
+        return 8 * self.words
+
+    def busy(self) -> bool:
+        return any(not e.query() for e in self.events)
+
+    def abort(self) -> None:
+        """Raise the abort word from the host: every shard still spinning
+        stops at its next poll."""
+        self.view[0] = 1
+
+    def aborted(self) -> bool:
+        return bool(self.view[0])
+
+
+_XCHG_POOL: list = []
+_XCHG_LOCK = threading.Lock()
+# Each solve's epoch, the high word of its exchange tags (never 0, so a
+# zeroed slot matches no tag).
+_EPOCH = [0]
+# The shards' own streams, by (device index, shard): created once, shared
+# with no other work (kbt_stream_create).
+_SHARD_STREAMS: dict = {}
+# One sharded solve launches at a time, and only once the last one's
+# shards have all ended (``_LAST_SHARDS``, their events): two solves'
+# shards interleaved on the shared streams (A0, B0 on stream 0, B1, A1
+# on stream 1) would each wait for a shard queued behind the other's, and
+# their residency was checked for one solve's clusters alone.
+_LAUNCH_LOCK = threading.Lock()
+_LAST_SHARDS: list = []   # guarded-by: _LAUNCH_LOCK
+
+
+def _exchange_for(lib, shards: int) -> _Exchange:
+    """A free exchange buffer of ``shards`` slots per parity, with a new
+    epoch: (buffer, epoch)."""
+    with _XCHG_LOCK:
+        _EPOCH[0] = _EPOCH[0] % (2 ** 31 - 1) + 1
+        epoch = _EPOCH[0]
+        for x in _XCHG_POOL:
+            if x.shards == shards and not x.busy():
+                x.view[0] = 0
+                x.events = ()
+                return x, epoch
+        x = _Exchange(lib, shards)
+        _XCHG_POOL.append(x)
+        return x, epoch
+
+
+def _shard_stream(lib, device: torch.device, shard: int):
+    key = (device.index, shard)
+    stream = _SHARD_STREAMS.get(key)
+    if stream is None:
+        raw = ctypes.c_void_p()
+        rc = lib.kbt_stream_create(device.index, ctypes.byref(raw))
+        if rc != 0:
+            raise RuntimeError("shard stream creation failed: "
+                               + lib.kbt_error_string(rc).decode())
+        stream = torch.cuda.ExternalStream(raw.value, device=device)
+        _SHARD_STREAMS[key] = stream
+    return stream
+
+
+def solve_allocate_cuda_sharded(inp: SolverInputs, cfg: SolverConfig, *,
+                                spin_ms: int | None = None,
+                                max_cluster: int = CLUSTER_SIZES[-1],
+                                stamps=None, late: tuple | None = None):
+    """K1's shard mode over the mesh of ``inp``'s sharded leaves
+    (parallel/mesh.py): one launch of the kernel per shard, each on the
+    shard's device and its own stream, over the shard's node slice and
+    the replicated task, job and queue state, the shards' per-placement
+    keys meeting in one exchange buffer of mapped host memory (see the
+    kernel's header).  Returns (SolveResult, FinalState) of shard 0 (every
+    shard records the same outputs; the FinalState's node rows are shard
+    0's slice) without waiting for the device; the caller's current
+    streams wait for every shard.  Everything a launch needs is allocated
+    before the first launch: a shard spins on the others, so no
+    allocation (which may synchronize the device) may come between the
+    launches.  A shard that gives up poisons the result, and the fetch
+    raises ``DeviceFailure``.  Raises on CPU tensors, on anything the
+    kernel does not take, and when a card cannot host its shards at
+    once.  Sharded solves launch one at a time, each after the previous
+    one's shards have ended (``_LAUNCH_LOCK``).  ``spin_ms`` bounds each
+    wait on the exchange (default SPIN_MS).  ``stamps``: one int64
+    [len(PHASES)] tensor per shard, on its device, turns on the phase
+    stamps (see PHASES).  ``late`` (shard, ms), a drill of the exchange's
+    deadline (chip_smoke.py), launches that shard ms after the others.
+    The result is shard 0's, with ``kind`` and ``step`` -1 throughout
+    when any shard gave up.  Every shard's (SolveResult, FinalState) is
+    kept in ``.last_shards``."""
+    from ..parallel.mesh import shard_mesh, shard_view
+    mesh = shard_mesh(inp)
+    if mesh is None:
+        raise ValueError("solve_allocate_cuda_sharded takes inputs in the "
+                         "mesh layout (parallel.mesh.shard_solver_inputs)")
+    if any(d.type != "cuda" for d in mesh.devices):
+        raise ValueError("solve_allocate_cuda_sharded takes CUDA shards; "
+                         "use parallel.sharded_solver."
+                         "solve_allocate_sharded_plain on the CPU")
+    _weight_args(cfg)
+    lib = build_shard_kernel()
+    spin_ms = int(SPIN_MS if spin_ms is None else spin_ms)
+    k = mesh.size
+    per_device = {d: mesh.devices.count(d) for d in mesh.devices}
+    f64 = int(inp.job_ts.dtype == torch.float64)
+    launches = []
+    offset = 0
+    for s, dev in enumerate(mesh.devices):
+        view = shard_view(inp, s)
+        with torch.cuda.device(dev):
+            ops = _operands(view)
+            _check_operands(ops, dev)
+            n_local = ops.bufs.node_int.shape[1]
+            p = ops.task_data.shape[0]
+            out = torch.empty((p, 4), dtype=torch.int32, device=dev)
+            steps = torch.empty(1, dtype=torch.int32, device=dev)
+            plan = hostable_plan(view, cfg, ops, max_cluster,
+                                 need=per_device[dev], shards=k)
+            tensors = dict(zip(Buffers._fields, ops.bufs))
+            stamp = None if stamps is None else stamps[s]
+            if stamp is not None and (
+                    stamp.device != dev or stamp.dtype != torch.int64
+                    or tuple(stamp.shape) != (len(PHASES),)):
+                raise ValueError(f"stamps[{s}]: the kernel takes an int64 "
+                                 f"[{len(PHASES)}] tensor on {dev}")
+            tensors.update(task_data=ops.task_data, task_sig=ops.task_sig,
+                           sig_mask=ops.sig_mask, sig_bonus=ops.sig_bonus,
+                           nport=ops.nport, nsel=ops.nsel, total=ops.total,
+                           score_shift=ops.score_shift, out=out,
+                           steps=steps, stamps=stamp,
+                           scratch=torch.empty(plan.scratch_ints,
+                                               dtype=torch.int32,
+                                               device=dev))
+        launches.append((dev, ops, plan, tensors, offset))
+        offset += n_local
+    with _LAUNCH_LOCK:
+        xchg, epoch = _exchange_for(lib, k)
+        streams = [_shard_stream(lib, dev, s)
+                   for s, dev in enumerate(mesh.devices)]
+        args = []
+        for s, (dev, ops, plan, tensors, off) in enumerate(launches):
+            tensors["xchg"] = None
+            a = _launch_args(ops, cfg, plan, tensors,
+                             shard=(s, k, off, epoch, spin_ms))
+            a.xchg = xchg.dev
+            args.append(a)
+            streams[s].wait_stream(torch.cuda.current_stream(dev))
+            for ev in _LAST_SHARDS:
+                streams[s].wait_event(ev)
+        order = list(range(k))
+        if late is not None:
+            order.remove(late[0])
+            order.append(late[0])
+        launched = []
+        try:
+            for s in order:
+                if late is not None and s == late[0]:
+                    time.sleep(late[1] / 1e3)
+                rc = lib.kbt_solve_session(ctypes.byref(args[s]), f64,
+                                           streams[s].cuda_stream)
+                if rc != 0:
+                    raise RuntimeError(
+                        f"solve_session shard {s} of {k}: kernel launch "
+                        f"failed: " + lib.kbt_error_string(rc).decode())
+                launched.append(s)
+                solve_allocate_cuda_sharded.launches += 1
+        except BaseException:
+            xchg.abort()  # the shards already running stop spinning
+            raise
+        finally:
+            events = []
+            for s in launched:
+                dev = mesh.devices[s]
+                torch.cuda.current_stream(dev).wait_stream(streams[s])
+                ev = torch.cuda.Event()
+                ev.record(streams[s])
+                events.append(ev)
+            xchg.events = tuple(events)
+            _LAST_SHARDS[:] = events
+    solve_allocate_cuda_sharded.last_exchange_bytes = xchg.nbytes
+    shards = []
+    for _dev, ops, _plan, tensors, _off in launches:
+        out = tensors["out"]
+        shards.append((SolveResult(assignment=out[:, 0], kind=out[:, 1],
+                                   order=out[:, 2], step=tensors["steps"][0]),
+                       FinalState(ops.bufs.node_int, ops.bufs.jdyn,
+                                  ops.bufs.qdyn, ops.nport, ops.nsel)))
+    solve_allocate_cuda_sharded.last_shards = tuple(shards)
+    with torch.cuda.device(mesh.devices[0]):
+        return poisoned_by_any_shard(shards), shards[0][1]
+
+
+def poisoned_by_any_shard(shards) -> SolveResult:
+    """Shard 0's SolveResult of a sharded solve's (SolveResult,
+    FinalState) per shard, with ``kind`` and ``step`` -1 throughout when
+    any shard's step is -1 (it gave up on the exchange): a shard that gave
+    up at the last exchange, after the others had its key, leaves shard
+    0's outputs whole while its own node slice missed the update."""
+    res0 = shards[0][0]
+    dev = res0.kind.device
+    bad = torch.stack([res.step.to(dev) for res, _ in shards]).lt(0).any()
+    return res0._replace(kind=torch.where(bad, -1, res0.kind),
+                         step=torch.where(bad, -1, res0.step))
+
+
+# Shard launches since the count was last set to 0 (one per shard of each
+# shard-mode solve), and the exchange buffer's bytes of the last solve.
+solve_allocate_cuda_sharded.launches = 0
+solve_allocate_cuda_sharded.last_exchange_bytes = 0
+solve_allocate_cuda_sharded.last_shards = ()

@@ -18,7 +18,8 @@ per-preemptor scan runs, and the numpy mirror
 batched row equals the sequential engines exactly.
 
 PyTorch tensor code on the statics' device (the reference runs it as a
-``jax.jit`` XLA program); its plain version is the same code on CPU
+``jax.jit`` XLA program), or over the mesh's shards
+(parallel/sharded_scan.py); its plain version is the same code on CPU
 tensors, and chip_smoke.py holds the card's answer against it.
 """
 
@@ -71,31 +72,55 @@ def evict_batch_solve(cfg, r: int, np_pad: int, ns_pad: int,
     return scores, perm
 
 
+def choose_evict_route(resident=None):
+    """('sharded'|'torch', mesh): the eviction engine's mesh gate,
+    derived from the resident image's own layout, not re-gated: the
+    shipper routed its layout through ``choose_solver_mesh``
+    (models/shipping.py) and the sharded dispatch reads those leaves in
+    place, so following the leaves is consistent by construction (a
+    shard by the bytes gate alone still routes the eviction solve to the
+    mesh).  Without a resident image there is nothing sharded to read."""
+    from ..parallel.mesh import shard_mesh
+    mesh = shard_mesh(resident) if resident is not None else None
+    if mesh is not None:
+        return "sharded", mesh
+    return "torch", None
+
+
 def dispatch_evict_batch_solve(cfg, r: int, np_pad: int, ns_pad: int,
                                statics: ScanStatics, dyn: torch.Tensor,
                                trows: torch.Tensor, vic_node: torch.Tensor,
-                               vic_rank: torch.Tensor):
+                               vic_rank: torch.Tensor, resident=None):
     """Host-side dispatch chokepoint of the batched eviction solve — the
     seam the chaos engine injects device faults into (doc/CHAOS.md site
-    ``evict_solve.device_error``).  A no-op single branch when the chaos
-    engine is off.  The port has one route, PyTorch on the statics'
-    device: the reference's mesh gate, which follows the resident
-    buffer's sharding, comes with the node-sharded layout (ROADMAP queue
-    1 item 5).  A failure here feeds the breaker through
-    ``chaos/breaker.feed_failure`` (models/scanner.py batch_seed); then
-    on the card the eviction action raises ``DeviceFailure`` with nothing
-    mutated, and only on the CPU does the scanner degrade to per-profile
-    host scoring (``chaos.breaker.host_path_allowed``)."""
+    ``evict_solve.device_error``; one no-op branch when the chaos engine
+    is off) and the eviction engine's mesh routing point: with
+    ``resident`` (the shipper's resident SolverInputs) in the mesh
+    layout, the solve runs node-sharded over the mesh reading the
+    resident node leaves in place, and ``dyn`` (then None) ships
+    nothing.  Else PyTorch on the statics' device.  A failure here feeds
+    the breaker through ``chaos/breaker.feed_failure`` (models/scanner.py
+    batch_seed); then on the card the eviction action raises
+    ``DeviceFailure`` with nothing mutated, and only on the CPU does the
+    scanner degrade to per-profile host scoring
+    (``chaos.breaker.host_path_allowed``)."""
     from ..chaos import plan as chaos_plan
     from ..metrics import metrics
     plan = chaos_plan.PLAN
     if plan is not None and plan.fire("evict_solve.device_error"):
         raise RuntimeError(
             "chaos: batched eviction solve failed (injected)")
-    metrics.note_route("evict", "torch")
+    choice, mesh = choose_evict_route(resident)
+    metrics.note_route("evict", choice)
     metrics.note_session_dispatch("evict")
     from ..trace import spans as trace
-    trace.annotate(route="torch", mesh_devices=1)
+    trace.annotate(route=choice, mesh_devices=mesh.size if mesh else 1)
+    if choice == "sharded":
+        from ..parallel.sharded_scan import evict_batch_solve_sharded
+        return evict_batch_solve_sharded(
+            cfg, r, np_pad, ns_pad, statics, resident.node_used,
+            resident.node_count, resident.node_ports, resident.node_selcnt,
+            trows, vic_node, vic_rank, mesh)
     return evict_batch_solve(cfg, r, np_pad, ns_pad, statics, dyn, trows,
                              vic_node, vic_rank)
 

@@ -42,8 +42,11 @@ re-dispatches on the card.  ``KUBE_BATCH_TPU_FUSED=0`` is the control.
 A fused dispatch or readback failure feeds the device breaker, counts,
 invalidates the resident image and re-dispatches per family on the card,
 as in the reference; a family whose own dispatch then fails raises
-``DeviceFailure`` on the card (chaos/breaker.py).  The sharded legs raise: the mesh comes
-with ROADMAP queue 1 item 5.
+``DeviceFailure`` on the card (chaos/breaker.py).  On the mesh each leg
+takes its sharded route (parallel/): the allocate leg K1's shard mode (its
+plain version on CPU shards), the evict leg the sharded batch solve
+reading the resident node leaves in place, the topo leg the
+origin-sharded box scan.
 """
 
 from __future__ import annotations
@@ -79,19 +82,13 @@ def storm_enabled() -> bool:
     return knobs.FUSED.enabled() and knobs.FUSED_STORM.enabled()
 
 
-def _mesh_leg(leg: str):
-    raise NotImplementedError(
-        f"the sharded fused {leg} leg comes with the multi-device mesh "
-        "(ROADMAP queue 1 item 5); one device runs the torch route")
-
-
 class _AllocLeg(NamedTuple):
     """The alloc leg's host-side capture: everything tpu-allocate must
     re-derive identically for the precomputed solve to be ITS solve."""
     inputs: object        # resident SolverInputs (the shipped image)
     cfg: object           # SolverConfig
     route: str            # choose_solver_mesh choice at stage time
-    mesh: object          # always None until the mesh route (item 5)
+    mesh: object          # its mesh on the sharded route, else None
     generation: int       # shipper generation the solve read
     cand_sig: object      # candidate-gather identity (None = full bucket)
     candidates: object    # the staged CandidateSet (remap for the fetch)
@@ -419,26 +416,41 @@ def _postevict_adjust(inp, cfg, vic_node, vic_res, vic_queue, vic_job):
     return adj, meta, chosen
 
 
-def _fused_program(legs, acfg, has_cand, ainp, cand_idx, cand_valid,
-                   cand_remap, ecfg, r, np_pad, ns_pad, statics, edyn,
-                   trows, vic_node, vic_rank, box, sx, sy, sz, pe_res,
-                   pe_queue, pe_job) -> dict:
+def _fused_program(legs, acfg, has_cand, ainp, cand, cand_idx,
+                   cand_valid, cand_remap, amesh, ecfg, r, np_pad, ns_pad,
+                   statics, edyn, eresident, trows, vic_node, vic_rank,
+                   box, sx, sy, sz, tmesh, pe_res, pe_queue,
+                   pe_job) -> dict:
     """Enqueue every staged leg on the current stream, each followed by
     its pinned readback and event (ops/solver.to_host_async); returns
     the legs' host handles without waiting.  The alloc leg's handle is a
     PendingSolve in the in-flight ledger, exactly as ``dispatch_solve``
-    builds it; the others are ``(host tensors..., event)``."""
+    builds it; the others are ``(host tensors..., event)``.  A leg with a
+    mesh (``amesh``, ``eresident`` in the mesh layout, ``tmesh``) takes
+    its sharded route."""
     from .solver import to_host_async
     out = {}
     if "topo" in legs:
-        from .topo_solver import box_scan
-        (stats,), ready = to_host_async(box_scan(box, sx, sy, sz))
+        from .topo_solver import box_scan, box_scan_sharded
+        stats = (box_scan_sharded(box, sx, sy, sz, tmesh)
+                 if tmesh is not None else box_scan(box, sx, sy, sz))
+        (stats,), ready = to_host_async(stats)
         out["topo"] = (stats, ready)
     if "evict" in legs:
-        from .evict_solver import evict_batch_solve
-        (scores, perm), ready = to_host_async(*evict_batch_solve(
-            ecfg, r, np_pad, ns_pad, statics, edyn, trows, vic_node,
-            vic_rank))
+        from .evict_solver import choose_evict_route, evict_batch_solve
+        if eresident is not None:
+            # The sharded batch solve reads the resident node leaves in
+            # place; no chaos site here (the fused dispatch has its own).
+            from ..parallel.sharded_scan import evict_batch_solve_sharded
+            emesh = choose_evict_route(eresident)[1]
+            pair = evict_batch_solve_sharded(
+                ecfg, r, np_pad, ns_pad, statics, eresident.node_used,
+                eresident.node_count, eresident.node_ports,
+                eresident.node_selcnt, trows, vic_node, vic_rank, emesh)
+        else:
+            pair = evict_batch_solve(ecfg, r, np_pad, ns_pad, statics, edyn,
+                                     trows, vic_node, vic_rank)
+        (scores, perm), ready = to_host_async(*pair)
         out["evict"] = (scores, perm, ready)
     if "solve" in legs:
         from .solver import (_gather_candidate_inputs, packed_host,
@@ -448,12 +460,21 @@ def _fused_program(legs, acfg, has_cand, ainp, cand_idx, cand_valid,
         if "postevict" in legs:
             # Storm half: the predicted first reclaim iteration's
             # occupancy update, and the solve against the ADJUSTED
-            # state.  Never staged with a candidate gather.
+            # state.  Never staged with a candidate gather.  On the
+            # mesh the adjustment runs on the gathered node state and
+            # its result is split back into the mesh layout.
+            from ..parallel.mesh import gathered, shard_solver_inputs
             sinp, pe_meta, pe_sel = _postevict_adjust(
-                ainp, acfg, vic_node, pe_res, pe_queue, pe_job)
+                gathered(ainp), acfg, vic_node, pe_res, pe_queue, pe_job)
+            if amesh is not None:
+                sinp = shard_solver_inputs(sinp, amesh)
             (meta, sel), ready = to_host_async(pe_meta, pe_sel)
             out["postevict"] = (meta, sel, ready)
-        if has_cand:
+        if has_cand and amesh is not None:
+            from ..parallel.sharded_solver import gather_candidate_sharded
+            sinp = gather_candidate_sharded(ainp, cand.local_idx,
+                                            cand.local_valid, amesh)
+        elif has_cand:
             sinp = _gather_candidate_inputs(ainp, cand_idx, cand_valid)
         res = solve_on_route(sinp, acfg)
         out["alloc"] = pending_of(res, cand_remap, host)
@@ -522,7 +543,7 @@ def _stage_alloc(ssn, snap, device, dtype) -> Optional[_AllocLeg]:
     candidates = None
     if inc_state is not None and inc_state.last_kind == "micro":
         from .prefilter import derive_candidates
-        candidates = derive_candidates(snap, route)
+        candidates = derive_candidates(snap, route, mesh)
     return _AllocLeg(inputs=inputs, cfg=snap.config, route=route,
                      mesh=mesh, generation=shipper.generation,
                      cand_sig=_cand_sig(candidates), candidates=candidates)
@@ -635,10 +656,12 @@ def take_evict(ssn, scanner, trows, node_p, rank_p):
     from ..metrics import metrics
     from ..trace import spans as trace
 
-    # The evict leg runs on the scanner's device; the reference's mesh
-    # route for it (eroute == "sharded") comes with item 5.
+    # The evict leg runs on the scanner's device, or over the mesh of its
+    # resident image (eroute "sharded", reading its node leaves in place).
+    from .evict_solver import choose_evict_route
     device = scanner.device
     dtype = scanner.dtype
+    eroute, _emesh = choose_evict_route(scanner._resident)
     legs = ["evict"]
     alloc = None
     try:
@@ -647,8 +670,6 @@ def take_evict(ssn, scanner, trows, node_p, rank_p):
         metrics.note_swallowed("fused_stage_alloc")
         alloc = None
     if alloc is not None:
-        if alloc.route == "sharded":
-            _mesh_leg("solve")
         legs.append("solve")
     storm = None
     if (alloc is not None and alloc.candidates is None
@@ -661,10 +682,10 @@ def take_evict(ssn, scanner, trows, node_p, rank_p):
     if storm is not None:
         legs.append("postevict")
     topo = st.topo_request
+    troute, tmesh = "torch", None
     if topo is not None:
         from .topo_solver import choose_topo_route
-        if choose_topo_route(int(topo[0].coords.shape[0]))[0] == "sharded":
-            _mesh_leg("topo")
+        troute, tmesh = choose_topo_route(int(topo[0].coords.shape[0]))
         legs.append("topo")
     legs = tuple(legs)
 
@@ -675,8 +696,9 @@ def take_evict(ssn, scanner, trows, node_p, rank_p):
     cand_idx = cand_valid = cand_remap = None
     if has_cand:
         c = alloc.candidates
-        cand_idx = dev(c.idx).long()
-        cand_valid = dev(c.valid)
+        if not c.sharded:
+            cand_idx = dev(c.idx).long()
+            cand_valid = dev(c.valid)
         cand_remap = c.remap
     pe_res = pe_queue = pe_job = None
     if storm is not None:
@@ -698,11 +720,15 @@ def take_evict(ssn, scanner, trows, node_p, rank_p):
         with trace.span("fused.dispatch", legs=",".join(legs)):
             out = _fused_program(
                 legs, alloc.cfg if alloc is not None else None, has_cand,
-                alloc.inputs if alloc is not None else None, cand_idx,
-                cand_valid, cand_remap, scanner.cfg, scanner.r,
-                scanner.np_pad, scanner.ns_pad, scanner.statics,
-                dev(scanner.dyn), dev(trows), dev(node_p), dev(rank_p),
-                box, sx, sy, sz, pe_res, pe_queue, pe_job)
+                alloc.inputs if alloc is not None else None,
+                alloc.candidates if alloc is not None else None, cand_idx,
+                cand_valid, cand_remap,
+                alloc.mesh if alloc is not None else None, scanner.cfg,
+                scanner.r, scanner.np_pad, scanner.ns_pad, scanner.statics,
+                None if eroute == "sharded" else dev(scanner.dyn),
+                scanner._resident if eroute == "sharded" else None,
+                dev(trows), dev(node_p), dev(rank_p), box, sx, sy, sz, tmesh,
+                pe_res, pe_queue, pe_job)
     except Exception as exc:
         _fail(ssn, st, exc, legs)
         return None
@@ -721,10 +747,10 @@ def take_evict(ssn, scanner, trows, node_p, rank_p):
              else alloc.candidates.count) if has_cand else 0),
         (None if alloc is None
          else (int(alloc.inputs.node_idle.shape[0]), alloc.cfg)),
-        "torch",
+        eroute,
         (scanner.cfg, scanner.r, scanner.np_pad, scanner.ns_pad,
          int(np.asarray(trows).shape[0]), int(np.asarray(node_p).shape[0])),
-        "torch", (int(sx), int(sy), int(sz))))
+        troute, (int(sx), int(sy), int(sz))))
     metrics.set_cycle_floor("fused", time.time() - start)
     trace.annotate(fused_legs=",".join(legs))
 

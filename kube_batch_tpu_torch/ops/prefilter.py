@@ -1,10 +1,11 @@
 """Candidate-row solve prefilter: the [C << N] allocate program.
 
 Counterpart of kube_batch_tpu/ops/prefilter.py, carried over line for
-line but for the route names (``cuda`` and ``torch``) and the sharded
-gather, which waits for the multi-device mesh.  On the card the gathered
-program is one launch of the session kernel (csrc/solve_session.cu) on
-the [C] rows, on the CPU its plain version (ops/solver.py).
+line but for the route names (``cuda`` and ``torch``).  On the card the
+gathered program is one launch of the session kernel
+(csrc/solve_session.cu) on the [C] rows, on the CPU its plain version
+(ops/solver.py); on the mesh each shard gathers its own rows and the
+sharded solve runs on them (parallel/sharded_solver.py).
 
 The last solver-side per-cycle floor (ROADMAP item #2, doc/INCREMENTAL.md
 "Killing the per-cycle floors"): even a micro session's solve scans every
@@ -84,17 +85,23 @@ class CandidateSet:
     """One session's candidate-row gather plan.
 
     ``remap`` maps every gathered program row back to its full-space node
-    row — the scatter applied to the readback's assignment column.  The
-    mesh route's per-shard plan ([n_dev, L] device-local index/valid
-    matrices) comes with the multi-device mesh."""
+    row — the scatter applied to the readback's assignment column.  On
+    the mesh route the gather happens per shard (each shard takes its own
+    rows of its resident slice), so the plan carries device-local
+    index/valid matrices shaped [n_dev, L]."""
 
-    __slots__ = ("count", "remap", "idx", "valid")
+    __slots__ = ("count", "remap", "idx", "valid", "local_idx",
+                 "local_valid", "sharded")
 
-    def __init__(self, count, remap, idx, valid):
+    def __init__(self, count, remap, idx=None, valid=None, local_idx=None,
+                 local_valid=None):
         self.count = count          # real candidate rows (pre-padding)
         self.remap = remap          # np [C_pad] int32 full node rows
-        self.idx = idx              # np [C_pad] int32
-        self.valid = valid          # np [C_pad] bool
+        self.idx = idx              # one device: np [C_pad] int32
+        self.valid = valid          # one device: np [C_pad] bool
+        self.local_idx = local_idx      # sharded: np [n_dev, L] int32
+        self.local_valid = local_valid  # sharded: np [n_dev, L] bool
+        self.sharded = local_idx is not None
 
 
 def _fit_rows(req: np.ndarray, mat: np.ndarray) -> np.ndarray:
@@ -145,13 +152,15 @@ def _grid_score_rows(res: np.ndarray, used: np.ndarray, alloc: np.ndarray,
     return score
 
 
-def derive_candidates(snap, route: str) -> Optional["CandidateSet"]:
+def derive_candidates(snap, route: str, mesh=None
+                      ) -> Optional["CandidateSet"]:
     """The session's candidate set, or None when the full program should
     run (feature gated off, dynamic predicates active, too many
     profiles, or C's bucket is not strictly smaller than the node
-    bucket — no win to be had).  ``route`` is ``choose_solver_mesh``'s
-    choice: ``cuda`` or ``torch`` gather on one device; ``sharded``
-    raises until the multi-device mesh is ported."""
+    bucket — no win to be had).  ``route`` and ``mesh`` are
+    ``choose_solver_mesh``'s choice: ``cuda`` or ``torch`` gather on one
+    device; ``sharded`` gathers per shard of ``mesh``, each shard's rows
+    padded to one bucket L (the gathered bucket is n_dev * L)."""
     if not candidate_solve_enabled():
         return None
     cfg = snap.config
@@ -210,10 +219,25 @@ def derive_candidates(snap, route: str) -> Optional["CandidateSet"]:
         return None  # nothing placeable: the full program retires fast
     cand = np.unique(np.concatenate(members)).astype(np.int32)
 
-    if route == "sharded":
-        raise NotImplementedError(
-            "the per-shard candidate gather comes with the multi-device "
-            "mesh; one device gathers on the cuda or torch route")
+    if route == "sharded" and mesh is not None:
+        n_dev = int(mesh.size)
+        n_local = n_pad // n_dev
+        shard_of = cand // n_local
+        per_shard = [cand[shard_of == s] - s * n_local
+                     for s in range(n_dev)]
+        l_pad = bucket(max(max(len(p) for p in per_shard), 1))
+        if n_dev * l_pad >= n_pad:
+            return None
+        local_idx = np.zeros((n_dev, l_pad), np.int32)
+        local_valid = np.zeros((n_dev, l_pad), bool)
+        remap = np.zeros((n_dev * l_pad,), np.int32)
+        for s, rows in enumerate(per_shard):
+            k = len(rows)
+            local_idx[s, :k] = rows
+            local_valid[s, :k] = True
+            remap[s * l_pad:s * l_pad + k] = rows + s * n_local
+        return CandidateSet(int(cand.size), remap, local_idx=local_idx,
+                            local_valid=local_valid)
 
     c_pad = bucket(int(cand.size))
     if c_pad >= n_pad:
@@ -223,4 +247,4 @@ def derive_candidates(snap, route: str) -> Optional["CandidateSet"]:
     valid = np.zeros((c_pad,), bool)
     valid[:cand.size] = True
     remap = idx.copy()
-    return CandidateSet(int(cand.size), remap, idx, valid)
+    return CandidateSet(int(cand.size), remap, idx=idx, valid=valid)

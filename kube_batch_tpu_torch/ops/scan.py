@@ -116,15 +116,38 @@ def scan_nodes(cfg, r: int, np_pad: int, ns_pad: int, statics: ScanStatics,
     return _scan_body(cfg, r, np_pad, ns_pad, statics, dyn, trow)
 
 
+def choose_scan_mesh(n_nodes: int):
+    """('sharded'|'torch', mesh): the eviction scan's mesh gate, the
+    allocate gate's node count and its pinned knobs (ops/solver.
+    shard_knobs; the bytes gate needs whole SolverInputs and is
+    allocate-only), so preempt and reclaim shard when allocate does."""
+    from ..parallel.mesh import default_mesh
+    from .solver import shard_knobs
+    mesh = default_mesh()
+    if mesh is not None and n_nodes % mesh.size == 0:
+        gate = shard_knobs()
+        if gate.force or n_nodes >= gate.nodes:
+            return "sharded", mesh
+    return "torch", None
+
+
 def best_scan_nodes(cfg, r: int, np_pad: int, ns_pad: int,
                     statics: ScanStatics, dyn, trow) -> torch.Tensor:
-    """Route one preemptor's node walk.  ``dyn`` and ``trow`` may be host
-    numpy arrays: they move to the statics' device here.  The port has
-    one route, PyTorch on the statics' device: the reference's
-    node-count mesh gate comes with the multi-device mesh (ROADMAP queue
-    1 item 5)."""
+    """Route one preemptor's node walk: the node-sharded scan when the
+    mesh gate says so (parallel/sharded_scan.py), else PyTorch on the
+    statics' device.  ``dyn`` and ``trow`` may be host numpy arrays: they
+    move to the device here.  Statics in the mesh layout that the gate
+    does not shard (the bytes gate sharded the resident image) are
+    gathered onto one device."""
     from ..metrics import metrics
-    metrics.note_route("scan", "torch")
+    choice, mesh = choose_scan_mesh(statics.node_exists.shape[0])
+    metrics.note_route("scan", choice)
+    if choice == "sharded":
+        from ..parallel.sharded_scan import scan_nodes_sharded
+        return scan_nodes_sharded(cfg, r, np_pad, ns_pad, statics, dyn,
+                                  trow, mesh)
+    statics = ScanStatics(*(leaf.full() if hasattr(leaf, "full") else leaf
+                            for leaf in statics))
     dev = statics.node_exists.device
     return scan_nodes(cfg, r, np_pad, ns_pad, statics,
                       torch.as_tensor(dyn, dtype=torch.int32, device=dev),

@@ -19,10 +19,12 @@ Observability, as in the reference: the ``solver.dispatch`` span covers
 the enqueue and the ``solver.fetch`` span the event wait and the host
 read; each solve counts ``kube_batch_solver_route_total{family=
 "allocate"}`` under its route, ``cuda`` (the kernel), ``torch`` (its
-plain version on the CPU) or ``candidates`` (the gathered rows, on
-either).  The chaos sites ``solve.device_error`` (the dispatch),
-``solve.slow`` and ``solve.poison`` (the readback) are one no-op branch
-each when the chaos engine is off.
+plain version on the CPU), ``candidates`` (the gathered rows, on either)
+or ``sharded`` (the node-sharded mesh, parallel/: K1's shard mode on
+CUDA shards, its plain version on CPU shards). The chaos sites
+``solve.device_error`` (the dispatch), ``solve.slow`` and
+``solve.poison`` (the readback) are one no-op branch each when the chaos
+engine is off.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import knobs
 from ..chaos import plan as chaos_plan
 from .scoring import ScoreWeights
 
@@ -252,6 +255,21 @@ def _solve_candidates(inp: SolverInputs, cfg: SolverConfig,
     _chaos_dispatch()
     from ..metrics import metrics
     from ..trace import spans as trace
+    from .compile_cache import note_solve
+    choice, mesh = choose_solver_mesh(inp)
+    if choice == "sharded":
+        # Each shard gathers its own rows of its resident slice
+        # (candidates.local_idx), so no node row leaves its shard, and
+        # the sharded solve runs on the gathered slices.
+        from ..parallel.sharded_solver import (gather_candidate_sharded,
+                                               solve_allocate_sharded)
+        sub = gather_candidate_sharded(inp, candidates.local_idx,
+                                       candidates.local_valid, mesh)
+        metrics.note_route("allocate", "sharded")
+        trace.annotate(route="sharded", mesh_devices=mesh.size,
+                       candidate_rows=candidates.count)
+        note_solve("sharded", sub, cfg)
+        return solve_allocate_sharded(sub, cfg, mesh)
     metrics.note_route("allocate", "candidates")
     trace.annotate(route="candidates", mesh_devices=1,
                    candidate_rows=candidates.count)
@@ -262,7 +280,6 @@ def _solve_candidates(inp: SolverInputs, cfg: SolverConfig,
     sub = _gather_candidate_inputs(inp, idx, valid)
     # Keyed under the solver that runs on the gathered rows, as the
     # reference keys its gathered solve under "xla".
-    from .compile_cache import note_solve
     note_solve(choose_solver_mesh(sub)[0], sub, cfg)
     return solve_on_route(sub, cfg)
 
@@ -360,6 +377,16 @@ def _chaos_fetch(packed: np.ndarray) -> np.ndarray:
     return packed
 
 
+def _check_not_aborted(kind: np.ndarray) -> None:
+    """K1's shard mode writes kind -1 for every task when a shard gave up
+    on the cross-shard exchange (ops/cuda_solver.py SPIN_MS): raise
+    ``DeviceFailure`` rather than read a half-solved session."""
+    if kind.size and int(kind.min()) < 0:
+        from ..chaos.breaker import DeviceFailure
+        raise DeviceFailure("the sharded solve gave up: a shard's "
+                            "cross-shard exchange timed out or aborted")
+
+
 def fetch_solve(pending: PendingSolve):
     """Wait for a dispatched solve and read it back.
 
@@ -382,6 +409,7 @@ def fetch_solve(pending: PendingSolve):
         _note_dispatch(-1)
     packed = _chaos_fetch(packed)
     assignment, kind, order, perm = packed
+    _check_not_aborted(kind)
     if pending.remap is not None:
         # A placement outside the gathered program's C rows is a
         # malformed result: raise, where the reference clips (the action
@@ -410,16 +438,95 @@ def fetch_result(result: SolveResult):
         packed = torch.stack([result.assignment, result.kind,
                               result.order]).cpu().numpy()
     packed = _chaos_fetch(packed)
+    _check_not_aborted(packed[1])
     return packed[0], packed[1], packed[2]
 
 
+# When to shard the solve over the mesh: the reference's gates and
+# defaults, 16,384 nodes and 256 MiB of node-major state, which it derived
+# from its own sharded solve on another device; they are unmeasured for
+# K1's shard mode on the H100.  FORCE_SHARD for the tests and drills.
+SHARD_NODES_ENV = knobs.SHARD_NODES.env
+SHARD_BYTES_ENV = knobs.SHARD_BYTES.env
+FORCE_SHARD_ENV = knobs.FORCE_SHARD.env
+DEFAULT_SHARD_NODES = knobs.SHARD_NODES.default
+DEFAULT_SHARD_BYTES = knobs.SHARD_BYTES.default
+
+
+def _node_state_bytes(inp: SolverInputs) -> int:
+    """Approximate node-major working set: the only state that scales with
+    the cluster's node count (everything else is replicated)."""
+    n = inp.node_idle.shape[0]
+    r = inp.node_idle.shape[1]
+    per_node = (4 * r * 4                       # idle/releasing/used/alloc
+                + inp.sig_mask.shape[0]          # static mask rows (bool)
+                + inp.task_ports.shape[1]        # port occupancy (bool)
+                + 4 * inp.task_aff_req.shape[1]  # selector counts (i32)
+                + 16)                            # count/cap/exists/cs rows
+    return n * per_node
+
+
+class ShardKnobs(NamedTuple):
+    """The routing gates, resolved from the environment once:
+    ``choose_solver_mesh`` sits on every solve and every ship, and the
+    eviction and topology gates read the same knobs.  A malformed value
+    warns once (knobs.py) and pins the default."""
+    nodes: int = DEFAULT_SHARD_NODES
+    bytes: int = DEFAULT_SHARD_BYTES
+    force: bool = False
+
+
+_SHARD_KNOBS = None  # resolved lazily once; refresh_shard_knobs re-reads
+
+
+def _resolve_shard_knobs() -> ShardKnobs:
+    return ShardKnobs(
+        nodes=knobs.SHARD_NODES.value(),
+        bytes=knobs.SHARD_BYTES.value(),
+        force=knobs.FORCE_SHARD.enabled())
+
+
+def shard_knobs() -> ShardKnobs:
+    """The pinned routing knobs (resolved at first use, startup-stable)."""
+    global _SHARD_KNOBS
+    if _SHARD_KNOBS is None:
+        _SHARD_KNOBS = _resolve_shard_knobs()
+    return _SHARD_KNOBS
+
+
+def refresh_shard_knobs() -> ShardKnobs:
+    """Re-resolve the knobs from the current environment: the test and
+    drill hook.  The scheduler loop never calls it: routing stays pinned
+    from startup."""
+    global _SHARD_KNOBS
+    _SHARD_KNOBS = None
+    return shard_knobs()
+
+
 def choose_solver_mesh(inp: SolverInputs):
-    """('cuda'|'torch', None): the hand-written kernel for CUDA tensors,
-    the plain PyTorch version for CPU tensors.  The mesh slot stays None
-    until the sharded route is ported."""
-    if inp.node_idle.is_cuda:
+    """('sharded'|'cuda'|'torch', mesh): the one routing chokepoint.  The
+    mesh route needs a mesh (parallel.mesh.default_mesh), a node bucket
+    that divides into its shards, and the node count at SHARD_NODES, the
+    node-major bytes above SHARD_BYTES, or FORCE_SHARD; the mesh returned
+    is the one it validated.  Else the hand-written kernel for CUDA
+    tensors and its plain PyTorch version for CPU tensors.  The resident
+    shipper routes its layout through the same gate, so the bytes land
+    sharded where the solve reads them."""
+    from ..parallel.mesh import default_mesh
+    mesh = default_mesh()
+    n = inp.node_idle.shape[0]
+    if mesh is not None and n % mesh.size == 0:
+        gate = shard_knobs()
+        if gate.force or n >= gate.nodes \
+                or _node_state_bytes(inp) > gate.bytes:
+            return "sharded", mesh
+    if getattr(inp.node_idle, "is_cuda", False):
         return "cuda", None
     return "torch", None
+
+
+def choose_solver(inp: SolverInputs) -> str:
+    return choose_solver_mesh(inp)[0]
 
 
 def best_solve_allocate(inp: SolverInputs, cfg: SolverConfig) -> SolveResult:
@@ -428,21 +535,31 @@ def best_solve_allocate(inp: SolverInputs, cfg: SolverConfig) -> SolveResult:
     Both routes are placement-identical (tests and chip_smoke.py hold
     the kernel against the plain version)."""
     _chaos_dispatch()
-    choice = choose_solver_mesh(inp)[0]
+    choice, mesh = choose_solver_mesh(inp)
     from ..metrics import metrics
     from ..trace import spans as trace
     metrics.note_route("allocate", choice)
-    trace.annotate(route=choice, mesh_devices=1)
+    trace.annotate(route=choice, mesh_devices=mesh.size if mesh else 1)
     from .compile_cache import note_solve
     note_solve(choice, inp, cfg)  # compile-cache hit/miss observability
     return solve_on_route(inp, cfg)
 
 
 def solve_on_route(inp: SolverInputs, cfg: SolverConfig) -> SolveResult:
-    """The kernel for CUDA tensors, its plain version for CPU tensors:
-    no chaos site and no route count (the fused program's allocate leg
-    counts its own ``fused`` route, as the reference's does)."""
+    """The route ``choose_solver_mesh`` picks, without the chaos site and
+    the route count (the fused program's allocate leg counts its own
+    ``fused`` route, as the reference's does): the sharded solve on the
+    mesh, else the kernel for CUDA tensors and its plain version for CPU
+    tensors.  Inputs sharded over the mesh gate's mesh stay so; sharded
+    inputs the gate no longer shards (a knob refreshed in between) are
+    gathered onto one device."""
     from .cuda_solver import solve_allocate_cuda, solve_allocate_plain
-    if choose_solver_mesh(inp)[0] == "cuda":
+    choice, mesh = choose_solver_mesh(inp)
+    if choice == "sharded":
+        from ..parallel.sharded_solver import solve_allocate_sharded
+        return solve_allocate_sharded(inp, cfg, mesh)
+    from ..parallel.mesh import gathered
+    inp = gathered(inp)
+    if choice == "cuda":
         return solve_allocate_cuda(inp, cfg)[0]
     return solve_allocate_plain(inp, cfg)[0]

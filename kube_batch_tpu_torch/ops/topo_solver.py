@@ -33,11 +33,11 @@ routes every live scan through it.  ``dispatch_box_scan`` is the routing
 chokepoint, counted in ``kube_batch_solver_route_total{family="topo"}``.
 
 PyTorch tensor code on the inputs' device (the reference runs it as a
-``jax.jit`` XLA program; no hand-written kernel).  The port has one
-route, ``torch``, on one device: the origin-sharded mesh route
-(``box_scan_sharded``) comes with the multi-device mesh (ROADMAP queue 1
-item 5).  The chokepoint is compile-cache keyed (``topo_solve_key`` +
-``note_solve_key``, warmed by compile_cache.warm_bucket).
+``jax.jit`` XLA program; no hand-written kernel): the ``torch`` route on
+one device, or the ``sharded`` route (``box_scan_sharded``), each shard
+of the mesh answering its own block of origins. The chokepoint is
+compile-cache keyed (``topo_solve_key`` + ``note_solve_key``, warmed by
+compile_cache.warm_bucket).
 """
 
 from __future__ import annotations
@@ -142,12 +142,27 @@ def box_scan(inp: BoxInputs, sx: int, sy: int, sz: int) -> torch.Tensor:
                      inp.vic_cost, inp.coords, sx, sy, sz)
 
 
-def box_scan_sharded(inp: BoxInputs, sx: int, sy: int, sz: int, mesh):
-    """The origin-axis sharded scan of the reference; it comes with the
-    multi-device mesh (ROADMAP queue 1 item 5)."""
-    raise NotImplementedError(
-        "the origin-sharded box scan comes with the multi-device mesh; "
-        "one device scans on the torch route")
+def box_scan_sharded(inp: BoxInputs, sx: int, sy: int, sz: int,
+                     mesh) -> torch.Tensor:
+    """The origin-axis sharded scan: shard s answers its own block of
+    origin rows against the replicated coordinate table and masks, on
+    its device, so each shard's [N, N, 3] intermediate shrinks to
+    [N/K, N, 3] and no shard talks to another; the rows equal the
+    single-device scan's.  [N, 6] i32 on the mesh's first device."""
+    n = int(inp.coords.shape[0])
+    if n % mesh.size:
+        raise ValueError(f"{n} origins do not divide into {mesh.size} "
+                         f"shards")
+    step = n // mesh.size
+    outs = []
+    for s, dev in enumerate(mesh.devices):
+        local = BoxInputs(*(torch.as_tensor(a).to(dev) for a in inp))
+        origins = local.coords[s * step:(s + 1) * step]
+        outs.append(_box_body(local.coords, local.free, local.evictable,
+                              local.vic_cnt, local.vic_cost, origins,
+                              sx, sy, sz))
+    first = mesh.devices[0]
+    return torch.cat([o.to(first) for o in outs])
 
 
 def box_scan_seq(view, free, evictable, vic_cnt, vic_cost,
@@ -192,10 +207,16 @@ def box_scan_seq(view, free, evictable, vic_cnt, vic_cost,
 
 
 def choose_topo_route(n_pad: int):
-    """('torch', None): one device scans every origin.  The reference's
-    mesh gate (the allocate/evict engines' node-count gate) and its
-    ``sharded`` route come with the multi-device mesh (ROADMAP queue 1
-    item 5)."""
+    """('sharded'|'torch', mesh): the box scan's mesh gate, the allocate
+    and eviction engines' node-count gate and pinned knobs
+    (ops/solver.shard_knobs), so slice scans shard when the solves do."""
+    from ..parallel.mesh import default_mesh
+    from .solver import shard_knobs
+    mesh = default_mesh()
+    if mesh is not None and n_pad % mesh.size == 0:
+        gate = shard_knobs()
+        if gate.force or n_pad >= gate.nodes:
+            return "sharded", mesh
     return "torch", None
 
 
@@ -231,4 +252,6 @@ def dispatch_box_scan(inp: BoxInputs, shape, device) -> np.ndarray:
     metrics.note_session_dispatch("topo")
     trace.annotate(route=route, mesh_devices=mesh.size if mesh else 1)
     note_solve_key(topo_solve_key(route, n_pad, (sx, sy, sz)))
+    if route == "sharded":
+        return box_scan_sharded(inp, sx, sy, sz, mesh).cpu().numpy()
     return box_scan(stage_box_inputs(inp, device), sx, sy, sz).cpu().numpy()

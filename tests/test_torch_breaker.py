@@ -1,8 +1,8 @@
 """The device breaker and tpu-allocate's degradation, the JAX package
 against the port, on the CPU.
 
-Twins of ``tests/test_chaos.py::TestCircuitBreaker`` (its mesh case
-waits for the node-sharded route, ROADMAP queue 1 item 5), over
+Twins of ``tests/test_chaos.py::TestCircuitBreaker`` (its mesh case is
+in tests/test_torch_mesh_twins.py), over
 ``tests/test_torch_e2e.Harness``, and the degradation of one
 tpu-allocate session at each device stage — tensorize, ship, dispatch,
 fetch, validation (a poisoned readback) — and the solve deadline, in the

@@ -14,7 +14,9 @@ difference.
 
 import gc
 import json
+import subprocess
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -72,10 +74,23 @@ def test_daemon_edge_holds_the_servers_store_against_the_cycle(capsys):
                                   tensorize_limits=0)
 
 
+# The rehearsal's shard lease.  The card's run keeps FEDERATION_LEASE_S
+# (3 s); a CPU host loaded by the test run's other workers can stall a
+# replica's renewal thread past a 3 s lease's renew deadline, and the
+# shed-and-reclaim rescopes its mirror mid-phase.
+REHEARSAL_LEASE_S = 15.0
+
+
 def test_edge_federation_splits_the_shards_and_scopes_the_mirrors(capsys):
     assert chip_smoke.edge_federation_phase(
-        cuda_solver, "cpu", shape=FEDERATION_SHAPE, device="cpu") == 0
+        cuda_solver, "cpu", shape=FEDERATION_SHAPE, device="cpu",
+        lease_s=REHEARSAL_LEASE_S) == 0
     (line,) = _lines(capsys, "edge-federation")
+    assert line["lease_s"] == REHEARSAL_LEASE_S
+    # Each replica claimed its two shards once and never lost one.
+    for name, held in (("a", ("0", "1")), ("b", ("2", "3"))):
+        assert line["lease_transitions"][name] == {
+            f'shard="{s}",kind="claim"': 1.0 for s in held}
     assert line["shards_owned"] == {"a": [0, 1], "b": [2, 3]}
     assert set(line["binds_by_queue"]["a"]) == {"q0", "q1"}
     assert set(line["binds_by_queue"]["b"]) == {"q2", "q3"}
@@ -86,6 +101,44 @@ def test_edge_federation_splits_the_shards_and_scopes_the_mirrors(capsys):
         assert line["mirrored"][name]["pods"] == FEDERATION_SHAPE[0] + 2
         assert line["mirrored"][name]["podgroups"] == (
             FEDERATION_SHAPE[2] + 4) // 2
+
+
+# A process that winds down like the daemon's interpreter: on its first
+# SIGTERM the default handler is back (finalization restores it) while it
+# exits, so a second SIGTERM in that window kills it with -15.
+_SLOW_EXIT = """
+import signal, sys, time
+def first(sig, frame):
+    signal.signal(signal.SIGTERM, signal.SIG_DFL)
+    time.sleep(1.0)
+    sys.exit(0)
+signal.signal(signal.SIGTERM, first)
+print("ready", flush=True)
+time.sleep(60)
+"""
+
+
+def test_daemon_stop_after_terminate_signals_once(tmp_path):
+    """edge-federation signals both replicas at once (``terminate``),
+    then waits for each (``stop``): each gets one SIGTERM and exits 0.
+    Signalling again in ``stop`` killed a replica that was still winding
+    down on a loaded host (exit -15), and its log was closed before the
+    error message read it."""
+    d = chip_smoke.Daemon.__new__(chip_smoke.Daemon)
+    d.name = "slow-exit"
+    d.log_path = str(tmp_path / "slow-exit.log")
+    d.log = open(d.log_path, "w")
+    d.signalled = False
+    d.proc = subprocess.Popen([sys.executable, "-c", _SLOW_EXIT],
+                              stdout=d.log, stderr=subprocess.STDOUT)
+    deadline = time.monotonic() + 30
+    while "ready" not in Path(d.log_path).read_text():
+        assert time.monotonic() < deadline and d.proc.poll() is None
+        time.sleep(0.05)
+    d.terminate()
+    assert d.stop(30) >= 0
+    assert d.proc.returncode == 0
+    assert "ready" in d.tail()
 
 
 def test_first_difference_names_the_pod_its_job_and_order_key():
@@ -107,6 +160,7 @@ def test_deferred_holds_check_in_workers_and_raise_on_a_difference(capsys):
     got = tuple(t.numpy() for t in (res.assignment, res.kind, res.order))
     bad = (got[0].copy(), got[1], got[2])
     bad[0][int(np.argmax(got[1] > 0))] += 1
+    defer_cells = chip_smoke.DeferredHolds.DEFER_CELLS
     chip_smoke.DeferredHolds.start(workers=1)
     try:
         chip_smoke.DeferredHolds.DEFER_CELLS = 1
@@ -124,7 +178,7 @@ def test_deferred_holds_check_in_workers_and_raise_on_a_difference(capsys):
         with pytest.raises(AssertionError, match="a bad launch"):
             chip_smoke.DeferredHolds.drain(300)
     finally:
-        chip_smoke.DeferredHolds.DEFER_CELLS = 50_000_000
+        chip_smoke.DeferredHolds.DEFER_CELLS = defer_cells
         if chip_smoke.DeferredHolds.pool is not None:
             chip_smoke.DeferredHolds.pool.terminate()
             chip_smoke.DeferredHolds.pool = None

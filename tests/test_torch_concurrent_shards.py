@@ -11,8 +11,8 @@ same binds, events (victim order rides in them) and lineage bind
 samples, and each must match its own sequential
 ``KUBE_BATCH_TPU_CONCURRENT_SHARDS=0`` arm.
 
-Left out: ``test_concurrent_parity_on_force_shard_mesh`` (the sharded
-route, ROADMAP queue 1 item 5).  The twins of
+``test_concurrent_parity_on_force_shard_mesh`` is twinned in
+tests/test_torch_mesh_twins.py.  The twins of
 ``test_device_error_mid_pipeline_degrades_one_shard`` and
 ``test_stale_fallback_aborts_to_sequential_rerun`` are in
 tests/test_torch_degrade.py.  On the port alone: a failed fetch of a

@@ -8,8 +8,8 @@ shapes (its STORM_SHAPES, ``make_churn_cache(420, 64, 20, 3)``,
 victims in order, the binds, and the session-dispatch, fused-leg and
 fused-route deltas: exact, integers and strings.  On the CPU the port's
 allocate leg runs the session kernel's plain version.  The mesh-leg
-twins wait for the multi-device mesh (ROADMAP queue 1 item 5), the
-poisoned postevict leg's for the host degradation (item 11).
+twins are in tests/test_torch_mesh_twins.py; the poisoned postevict
+leg's waits for the host degradation (item 11).
 """
 
 import pytest

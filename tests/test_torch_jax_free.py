@@ -18,7 +18,9 @@ tenancy cycle of the concurrent shard pipeline over two dirty shards (both
 must bind), runs one session that degrades to the host path under
 ``solve.device_error`` and binds, runs one batched arm of the scenario
 generator (``tools/scenario_gen.py``) and the chaos soak's single-seed
-smoke (``tools/chaos_soak.py``), checks that ``TpuAllocateAction()``
+smoke (``tools/chaos_soak.py``), runs one FORCE_SHARD session of the
+shipped conf on a 2-shard CPU mesh (the sharded solve, the per-shard
+ship and the sharded eviction scan), checks that ``TpuAllocateAction()``
 without a device raises
 when there is no CUDA, and that no shared object of the reference was
 loaded.  A second script boots the daemon's ``ServerRuntime`` on the CPU
@@ -247,6 +249,39 @@ smoke = chaos_soak.run_soak([11], nodes=6, cycles=6, rate=0.3, budget=30,
                             require_all_sites=False, device="cpu")
 assert smoke["ok"], smoke["problems"]
 assert smoke["seeds"][0]["injected_total"] > 0
+
+# One FORCE_SHARD session on a 2-shard CPU mesh: the sharded solve, the
+# per-shard ship and the sharded eviction scan, under the shipped conf.
+import os
+from kube_batch_tpu_torch.metrics.metrics import route_counts
+from kube_batch_tpu_torch.ops.solver import refresh_shard_knobs
+from kube_batch_tpu_torch.parallel import make_mesh, use_mesh
+os.environ["KUBE_BATCH_TPU_FORCE_SHARD"] = "1"
+os.environ["KUBE_BATCH_TPU_FUSED"] = "0"   # the per-family routes
+refresh_shard_knobs()
+routes = route_counts()
+with use_mesh(make_mesh(2)):
+    mesh_storm, mesh_binder = make_churn_cache(300, 40, 12, 3)
+    for i in range(2):
+        alloc = {"cpu": "32", "memory": "64Gi", "pods": 110}
+        mesh_storm.add_node(Node(
+            metadata=ObjectMeta(name=f"spare{i}", uid=f"spare{i}"),
+            spec=NodeSpec(), status=NodeStatus(allocatable=dict(alloc),
+                                               capacity=dict(alloc))))
+    ssn = open_session(mesh_storm, storm_tiers)
+    try:
+        for a in actions:
+            a.execute(ssn)
+    finally:
+        close_session(ssn)
+after = route_counts()
+os.environ.pop("KUBE_BATCH_TPU_FORCE_SHARD")
+os.environ["KUBE_BATCH_TPU_FUSED"] = "1"
+refresh_shard_knobs()
+for key in ("allocate/sharded", "evict/sharded"):
+    assert after.get(key, 0) > routes.get(key, 0), (key, routes, after)
+assert type(mesh_storm._ship_cache._state).__name__ == "_ShardShipState"
+assert mesh_binder.binds and mesh_storm.evictor.evicts
 
 if not torch.cuda.is_available():
     try:

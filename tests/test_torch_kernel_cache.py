@@ -62,7 +62,9 @@ class FakeToolchain:
             return self.handles.setdefault(path, types.SimpleNamespace(
                 kbt_solve_session=types.SimpleNamespace(),
                 kbt_cluster_capacity=types.SimpleNamespace(),
-                kbt_error_string=types.SimpleNamespace()))
+                kbt_error_string=types.SimpleNamespace(),
+                kbt_xchg_alloc=types.SimpleNamespace(),
+                kbt_stream_create=types.SimpleNamespace()))
 
 
 @pytest.fixture
@@ -81,6 +83,9 @@ def toolchain(monkeypatch, tmp_path):
                         raising=False)
     monkeypatch.setattr(cuda_solver._Kernel, "path", None, raising=False)
     monkeypatch.setattr(cuda_solver._Kernel, "built", None, raising=False)
+    for attr, value in (("lib", None), ("build_log", ""), ("path", None),
+                        ("built", None)):
+        monkeypatch.setattr(cuda_solver._ShardKernel, attr, value)
     monkeypatch.setattr(cc, "_cache_dir", None)
     return fake
 
@@ -194,6 +199,37 @@ class TestBuildKernel:
         objs = [argv[argv.index("-o") + 1] for argv in compiles]
         assert "-shared" in link and set(objs) <= set(link)
         assert not list(cuda_solver.BUILD_DIR.glob("*.o"))
+
+    def test_shard_mode_builds_apart_at_first_use(self, toolchain,
+                                                  tmp_path):
+        """K1's build compiles no shard-mode unit, so a host that never
+        shards never pays for it; the first sharded solve's build
+        compiles SHARD_UNITS and an entry unit with -DKBT_ENTRY_SHARD
+        into a library of its own, once, and a cache dir set afterwards
+        gets both libraries."""
+        lib = cuda_solver.build_kernel()
+        flags = {a for argv in toolchain.runs for a in argv}
+        assert "-DKBT_UNIT_SHARD=true" not in flags
+        assert "-DKBT_ENTRY_SHARD" not in flags
+        assert cuda_solver._ShardKernel.lib is None
+        runs = len(toolchain.runs)
+        shard = cuda_solver.build_shard_kernel()
+        assert shard is not lib and cuda_solver.build_shard_kernel() is shard
+        *compiles, link = toolchain.runs[runs:]
+        assert toolchain.builds == 2 and "-shared" in link
+        units = {tuple(a for a in argv if a.startswith("-DKBT"))
+                 for argv in compiles}
+        assert units == {tuple(cuda_solver._unit_flags(u))
+                         for u in cuda_solver.SHARD_UNITS} | {
+                             ("-DKBT_ENTRY_SHARD",)}
+        so = cuda_solver.library_path(which=cuda_solver._ShardKernel)
+        assert so.name.startswith("libsolve_session_shard_")
+        assert so != cuda_solver.library_path() and so.exists()
+        assert cuda_solver.kernel_tag(cuda_solver._ShardKernel) \
+            != cuda_solver.kernel_tag()
+        enable_persistent_cache(str(tmp_path / "cc"))
+        assert sorted(p.name for p in (tmp_path / "cc").glob("*.so")) == \
+            sorted([cuda_solver.library_path().name, so.name])
 
     def test_version_key_holds_the_build_identity(self, tmp_path):
         """A manifest entry is kept only under the same torch, CUDA,

@@ -131,11 +131,28 @@ def test_candidate_result_outside_gathered_rows_raises():
 
 
 def test_sharded_route_raises():
+    """The sharded route raised until the mesh was ported; now it plans
+    a gather per shard: each shard's local rows, their validity and the
+    remap equal the reference's plan for its 4-device mesh, and the
+    remap covers the one-device plan's candidate rows."""
+    from kube_batch_tpu.parallel import make_mesh as jax_make_mesh
+    from kube_batch_tpu_torch.parallel import make_mesh
     inp, cfg = make_synthetic_inputs(40, 300, 6, 2, seed=0,
                                      dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError):
-        prefilter.derive_candidates(
-            _Snap(_staged(inp), cfg, int(inp.job_count.sum())), "sharded")
+    snap = _Snap(_staged(inp), cfg, int(inp.job_count.sum()))
+    got = prefilter.derive_candidates(snap, "sharded", make_mesh(4))
+    with jax.enable_x64(False):
+        ref = jax_prefilter.derive_candidates(
+            _Snap(snap.inputs, jax_cfg(cfg), len(snap.tasks)), "sharded",
+            jax_make_mesh(4))
+    assert got is not None and got.sharded and ref.sharded
+    assert got.count == ref.count
+    for field in ("local_idx", "local_valid", "remap"):
+        assert np.array_equal(getattr(got, field), getattr(ref, field)), \
+            field
+    one = prefilter.derive_candidates(snap, "torch")
+    placed = got.remap[got.local_valid.reshape(-1)]
+    assert set(one.remap[one.valid].tolist()) == set(placed.tolist())
 
 
 CHURN = ["bind_echo", "evict", "job_update", "node_update"]

@@ -6,7 +6,7 @@ twin of tests/test_topology.py's classes that need only ported modules.
 * the port's batched ``box_scan`` (PyTorch tensor code) exactly equal to
   the jitted reference and to ``box_scan_seq`` on tori with wrap-around,
   dims of 1, several pods and invalid rows (``TestBoxScanParity``; the mesh
-  case waits for ROADMAP queue 1 item 5);
+  case is in tests/test_torch_mesh_twins.py);
 * the chaos site ``topology.bad_coords`` (``TestBadCoordsChaos``);
 * the reference's ``bench._run_topo_arm`` protocol on ``make_topo_cache``
   at 4x4x2 in its three arms — binds, evictions in order, fragmentation
@@ -373,9 +373,27 @@ class TestBoxScanParity:
             ("topo_box", "torch", 8, (2, 2, 1))
 
     def test_sharded_route_waits_for_the_mesh(self):
+        """The origin-sharded scan raised until the mesh was ported; now
+        two CPU shards answer their own origin rows, equal to the
+        single-device scan, and a bucket that does not divide into the
+        shards is refused."""
+        from kube_batch_tpu_torch.parallel import make_mesh
         m = mods("torch")
-        with pytest.raises(NotImplementedError):
-            m.topo_solver.box_scan_sharded(None, 2, 2, 2, None)
+        view = m.topology.build_view(_torus(m, "torch", 2, 2, 2))
+        n = len(view.node_names)
+        rng = np.random.default_rng(3)
+        free = rng.random(n) < 0.6
+        evictable = ~free & (rng.random(n) < 0.5)
+        vic = rng.integers(0, 3, n).astype(np.int32)
+        inp = m.topo_solver.BoxInputs(view.coords[:n].copy(), free,
+                                      evictable, vic, vic * 7)
+        single = m.topo_solver.box_scan(
+            m.topo_solver.stage_box_inputs(inp, "cpu"), 2, 2, 1).numpy()
+        sharded = m.topo_solver.box_scan_sharded(inp, 2, 2, 1,
+                                                 make_mesh(2)).numpy()
+        np.testing.assert_array_equal(sharded, single)
+        with pytest.raises(ValueError, match="do not divide"):
+            m.topo_solver.box_scan_sharded(inp, 2, 2, 1, make_mesh(3))
 
 
 # ----------------------------------------------------------------------
