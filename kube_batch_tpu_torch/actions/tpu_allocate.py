@@ -28,7 +28,9 @@ failure.  The shard pipeline's stale session (``ssn._pipeline_stale``)
 is the one exception: its failed fetch raises ``StaleSessionAbort``,
 before any mutation, so the pipeline reruns the shard fresh
 (tenancy/pipeline.py).  ``KUBE_BATCH_TPU_PROFILE=<dir>`` writes a
-``torch.profiler`` Chrome trace of each session into that directory.
+``torch.profiler`` Chrome trace of each session into that directory:
+the card's activity and the session's flight-recorder spans, on one
+clock.
 
 ``execute`` is ``execute_begin`` (tensorize, ship, dispatch) followed by
 the continuation it returns (fetch, validate, apply); the concurrent
@@ -79,32 +81,103 @@ PIPELINE_ENV = knobs.PIPELINE.env
 # Whether a profile is open: ``execute``'s covers both of its halves.
 _profile_open = [False]
 
+# The markers that put the flight recorder's spans on the profile's
+# clock, made right after the profiler starts.  On a card: a kernel
+# (``torch.cuda._sleep``, recorded as ``spin_kernel``) of about 2 ms, so
+# that the host, done with the launch, waits on an event recorded after
+# it before it ends and sees its end within microseconds; if the capture
+# left it out, the host side of the device synchronize before it, whose
+# kernels then sit 0.5-3.5 ms off.  Without a card, a range.
+_MARK_KERNEL = "spin_kernel"
+_MARK_CYCLES = 4_000_000
+_MARK_SYNC = "cudaDeviceSynchronize"
+_MARK_RANGE = "kube_batch_tpu.mark"
+
+
+def _card_marks() -> dict:
+    """{marker: the host ``perf_counter`` time at which it ends}, the
+    better marker first."""
+    torch.cuda.synchronize()
+    synced = time.perf_counter()
+    torch.cuda._sleep(_MARK_CYCLES)
+    done = torch.cuda.Event()
+    done.record()
+    done.synchronize()
+    return {_MARK_KERNEL: time.perf_counter(), _MARK_SYNC: synced}
+
 
 @contextlib.contextmanager
 def _profile_session(path: str):
-    """Profile the block with CPU and CUDA activities and write one
-    Chrome trace to ``path``.  Every flight-recorder span opened inside
-    the block is mirrored into the profile as a ``record_function``
-    range (trace/spans.py).  A profiler that cannot start (no CUPTI,
-    refused) raises with its own message: there is no silent CPU-only
-    fallback."""
+    """Profile the block and write one Chrome trace to ``path``: the
+    card's activity only (the CPU's, which made a north-star session
+    4.3 times slower, only where there is no card), and the session's
+    flight-recorder spans that end inside the block, on the profile's
+    clock.  A profiler that cannot start (no CUPTI, refused) raises with
+    its own message: there is no silent fallback."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from ..trace import spans as trace_spans
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
+    card = torch.cuda.is_available()
+    activities = [ProfilerActivity.CUDA if card else ProfilerActivity.CPU]
     os.makedirs(os.path.dirname(path), exist_ok=True)
     with profile(activities=activities) as prof:
         _profile_open[0] = True
-        trace_spans.set_profiler_range(record_function)
         try:
+            if card:
+                marks = _card_marks()
+            else:
+                with record_function(_MARK_RANGE):
+                    marks = {_MARK_RANGE: time.perf_counter()}
             yield
         finally:
-            trace_spans.set_profiler_range(None)
             _profile_open[0] = False
     prof.export_chrome_trace(path)
+    _add_session_spans(path, trace_spans.current_trace(), marks)
     log.info("tpu-allocate profile written to %s", path)
+
+
+def _add_session_spans(path: str, tr, marks: dict) -> None:
+    """Write ``tr``'s spans that end after the mark into the Chrome trace
+    at ``path``, as a process of their own, shifted so that the mark's
+    host time (``marks``: {name: perf_counter time}) falls where that
+    marker ends in the profile; the first of ``marks`` that the profile
+    holds is the one used, and the process's name says which."""
+    if tr is None:
+        return
+    import json
+
+    from ..trace.export import to_chrome_trace
+    with open(path) as fh:
+        doc = json.load(fh)
+    events = doc.setdefault("traceEvents", [])
+    at = used = None
+    for name in marks:
+        ends = [float(ev["ts"]) + float(ev.get("dur", 0.0)) for ev in events
+                if ev.get("ph") == "X" and name in str(ev.get("name"))]
+        if ends:
+            at, used = min(ends), name
+            break
+    if at is None:
+        log.warning("profile %s holds no marker: the session's spans are "
+                    "left out of it", path)
+        return
+    since = (marks[used] - tr.t0) * 1e6   # the mark, on the session's clock
+    pid = 1 + max((ev["pid"] for ev in events
+                   if isinstance(ev.get("pid"), int)), default=0)
+    for ev in to_chrome_trace(tr)["traceEvents"]:
+        if ev["ph"] == "X" and (ev["tid"] == 0      # the unfinished session
+                                or ev["ts"] + ev["dur"] < since):
+            continue
+        if ev["ph"] == "C" and ev["ts"] < since:
+            continue
+        if ev["name"] == "process_name":
+            ev["args"]["name"] += f" (aligned on {used})"
+        ev["pid"] = pid
+        if "ts" in ev:
+            ev["ts"] += at - since
+        events.append(ev)
+    with open(path, "w") as fh:
+        json.dump(doc, fh)
 
 
 def _maybe_profile(ssn, half: str = ""):
@@ -547,10 +620,11 @@ class TpuAllocateAction(Action):
             # ssn.allocate/pipeline calls (Session.batch_apply_solved).
             apply_start = time.perf_counter()
             with trace.span("apply", placed=int(ordered.size)):
-                if scaffold is None:
-                    scaffold = prepare_apply_scaffold(snap)
-                agg = build_apply_aggregates(snap, assignment, kind,
-                                             ordered, scaffold=scaffold)
+                with trace.span("apply.aggregates"):
+                    if scaffold is None:
+                        scaffold = prepare_apply_scaffold(snap)
+                    agg = build_apply_aggregates(snap, assignment, kind,
+                                                 ordered, scaffold=scaffold)
                 from ..framework.commit import batch_commit_enabled
                 from ..trace.lineage import lineage as pod_lineage
                 pod_lineage.cycle_context = f"via {self.name()}/{route}"

@@ -24,6 +24,7 @@ from ..api.queue_info import Queue, queue_from_versioned
 from ..api.pod_group_info import from_versioned
 from ..chaos import plan as chaos_plan
 from ..metrics import memledger, metrics
+from ..trace import spans as trace
 from ..trace.lineage import lineage as pod_lineage
 from .interface import (AmbiguousOutcomeError, Binder, Cache, Evictor,
                         StatusUpdater, VolumeBinder)
@@ -38,6 +39,11 @@ BIND_RETRIES_ENV = knobs.BIND_RETRIES.env
 _DEF_BIND_RETRIES = knobs.BIND_RETRIES.default
 _BIND_BACKOFF_BASE_S = 0.05
 _BIND_BACKOFF_CAP_S = 0.5
+
+# The carried spans of the informer's handler runs (trace/spans.py
+# HandlerRuns): adds and updates, and deletes.
+_INGEST = "cache.ingest"
+_DELETE = "cache.delete"
 
 
 def _bind_retries() -> int:
@@ -327,6 +333,13 @@ class SchedulerCache(Cache):
         # re-enter cache ingestion (which takes mutex itself).
         self.mirror_flush = None  # Optional[Callable[[], int]]
 
+        # Handler runs on the trace (trace/spans.py HandlerRuns): every
+        # external handler call is timed under the mutex it already
+        # holds, its seconds summed into /metrics.  None under
+        # KUBE_BATCH_TPU_TRACE=0: no clock is read.
+        self._runs = (trace.HandlerRuns(fold=metrics.note_handler_seconds)
+                      if trace.enabled() else None)  # guarded-by: mutex
+
     # ------------------------------------------------------------------
     # epoch stamping + clone pool
 
@@ -584,12 +597,16 @@ class SchedulerCache(Cache):
         lin = None
         queue = None
         with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
             self.epoch += 1
             ti = self._task_info(pod)
             if ti is not None:
                 self._add_task(ti)
                 lin = self._lineage_capture(ti, pod)
                 queue = self._queue_of_job(ti.job)
+            if runs is not None:
+                runs.note(_INGEST, "add_pod", start, time.perf_counter())
         self._lineage_emit(lin, "echo")
         self._note_churn(queue)
 
@@ -597,6 +614,8 @@ class SchedulerCache(Cache):
         lin = None
         queue = old_queue = None
         with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
             self.epoch += 1
             old_ti = self._task_info(old_pod)
             if old_ti is not None:
@@ -611,6 +630,8 @@ class SchedulerCache(Cache):
                 self._add_task(ti)
                 lin = self._lineage_capture(ti, new_pod)
                 queue = self._queue_of_job(ti.job)
+            if runs is not None:
+                runs.note(_INGEST, "update_pod", start, time.perf_counter())
         self._lineage_emit(lin, "echo")
         if old_queue is not None and old_queue != queue:
             self._note_churn(old_queue)
@@ -619,6 +640,8 @@ class SchedulerCache(Cache):
     def delete_pod(self, pod: Pod) -> None:
         queue = None
         with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
             self.epoch += 1
             ti = self._task_info(pod)
             if ti is not None:
@@ -626,6 +649,8 @@ class SchedulerCache(Cache):
                 # the terminated job from self.jobs.
                 queue = self._queue_of_job(ti.job)
                 self._delete_task(ti)
+            if runs is not None:
+                runs.note(_DELETE, "delete_pod", start, time.perf_counter())
         pod_lineage.note_deleted(pod_key(pod))
         self._note_churn(queue)
 
@@ -655,7 +680,15 @@ class SchedulerCache(Cache):
     # node ingestion (event_handlers.go:296-365)
 
     def add_node(self, node) -> None:
+        self._ingest_node(node, "add_node")
+
+    def update_node(self, old_node, new_node) -> None:
+        self._ingest_node(new_node, "update_node")
+
+    def _ingest_node(self, node, handler: str) -> None:
         with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
             self.epoch += 1
             if node.name in self.nodes:
                 self.nodes[node.name].set_node(node)
@@ -663,21 +696,14 @@ class SchedulerCache(Cache):
                 self.nodes[node.name] = NodeInfo(node)
                 self._stamp_seq(self.nodes[node.name])
             self._touch_node(self.nodes[node.name])
-        self._note_churn()
-
-    def update_node(self, old_node, new_node) -> None:
-        with self.mutex:
-            self.epoch += 1
-            if new_node.name in self.nodes:
-                self.nodes[new_node.name].set_node(new_node)
-            else:
-                self.nodes[new_node.name] = NodeInfo(new_node)
-                self._stamp_seq(self.nodes[new_node.name])
-            self._touch_node(self.nodes[new_node.name])
+            if runs is not None:
+                runs.note(_INGEST, handler, start, time.perf_counter())
         self._note_churn()
 
     def delete_node(self, node) -> None:
         with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
             self.epoch += 1
             self.nodes.pop(node.name, None)
             self._pooled_nodes.pop(node.name, None)
@@ -685,6 +711,8 @@ class SchedulerCache(Cache):
             st = self._snap_state
             if st is not None:
                 st.dirty_nodes.add(node.name)
+            if runs is not None:
+                runs.note(_DELETE, "delete_node", start, time.perf_counter())
         self._note_churn()
 
     # ------------------------------------------------------------------
@@ -693,9 +721,17 @@ class SchedulerCache(Cache):
     def add_pod_group(self, pg) -> None:
         """Accepts a v1alpha1 or v1alpha2 PodGroup (event_handlers.go
         version-converting handlers)."""
+        self._ingest_pod_group(pg, "add_pod_group")
+
+    def update_pod_group(self, old_pg, new_pg) -> None:
+        self._ingest_pod_group(new_pg, "update_pod_group")
+
+    def _ingest_pod_group(self, pg, handler: str) -> None:
         internal = from_versioned(pg) if not isinstance(pg, PodGroup) else pg
         key = f"{internal.metadata.namespace}/{internal.metadata.name}"
         with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
             self.epoch += 1
             if key not in self.jobs:
                 self.jobs[key] = JobInfo(key)
@@ -723,55 +759,78 @@ class SchedulerCache(Cache):
                 job.queue = self.default_queue
             self._touch_job(job)
             queue = job.queue or None
+            if runs is not None:
+                runs.note(_INGEST, handler, start, time.perf_counter())
         if not self_echo:
             if old_queue is not None and old_queue != queue:
                 self._note_churn(old_queue)
             self._note_churn(queue)
 
-    def update_pod_group(self, old_pg, new_pg) -> None:
-        self.add_pod_group(new_pg)
-
     def delete_pod_group(self, pg) -> None:
         internal = from_versioned(pg) if not isinstance(pg, PodGroup) else pg
         key = f"{internal.metadata.namespace}/{internal.metadata.name}"
         with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
             self.epoch += 1
             job = self.jobs.get(key)
-            if job is None:
-                return
-            queue = job.queue or None
-            job.unset_pod_group()
-            self._touch_job(job)
-            if job_terminated(job):
-                del self.jobs[key]
-                self._pooled_jobs.pop(key, None)
-                self._mem_pool_refresh_locked()
-            else:
-                self.deleted_jobs.append(job)
-        self._note_churn(queue)
+            if job is not None:
+                queue = job.queue or None
+                job.unset_pod_group()
+                self._touch_job(job)
+                if job_terminated(job):
+                    del self.jobs[key]
+                    self._pooled_jobs.pop(key, None)
+                    self._mem_pool_refresh_locked()
+                else:
+                    self.deleted_jobs.append(job)
+            if runs is not None:
+                runs.note(_DELETE, "delete_pod_group", start,
+                          time.perf_counter())
+        if job is not None:
+            self._note_churn(queue)
 
     def add_queue(self, queue) -> None:
-        q = queue if isinstance(queue, Queue) else queue_from_versioned(queue)
-        with self.mutex:
-            self.queues[q.metadata.name] = q
-            self._snap_full_invalidate()
-        self._note_churn(q.metadata.name)
+        self._ingest_queue(queue, "add_queue")
 
     def update_queue(self, old_queue, new_queue) -> None:
-        self.add_queue(new_queue)
+        self._ingest_queue(new_queue, "update_queue")
+
+    def _ingest_queue(self, queue, handler: str) -> None:
+        q = queue if isinstance(queue, Queue) else queue_from_versioned(queue)
+        with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
+            self.queues[q.metadata.name] = q
+            self._snap_full_invalidate()
+            if runs is not None:
+                runs.note(_INGEST, handler, start, time.perf_counter())
+        self._note_churn(q.metadata.name)
 
     def delete_queue(self, queue) -> None:
         name = queue.metadata.name if hasattr(queue, "metadata") else str(queue)
         with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
             self.queues.pop(name, None)
             self._snap_full_invalidate()
+            if runs is not None:
+                runs.note(_DELETE, "delete_queue", start, time.perf_counter())
         self._note_churn(name)
 
     def add_pdb(self, pdb) -> None:
         """Legacy gang source; PDB jobs land in the default queue
         (event_handlers.go:664-681)."""
+        self._ingest_pdb(pdb, "add_pdb")
+
+    def update_pdb(self, old_pdb, new_pdb) -> None:
+        self._ingest_pdb(new_pdb, "update_pdb")
+
+    def _ingest_pdb(self, pdb, handler: str) -> None:
         key = f"{pdb.metadata.namespace}/{pdb.metadata.name}"
         with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
             self.epoch += 1
             if key not in self.jobs:
                 self.jobs[key] = JobInfo(key)
@@ -780,37 +839,45 @@ class SchedulerCache(Cache):
             job.set_pdb(pdb)
             job.queue = self.default_queue
             self._touch_job(job)
+            if runs is not None:
+                runs.note(_INGEST, handler, start, time.perf_counter())
         self._note_churn(self.default_queue)
-
-    def update_pdb(self, old_pdb, new_pdb) -> None:
-        self.add_pdb(new_pdb)
 
     def delete_pdb(self, pdb) -> None:
         key = f"{pdb.metadata.namespace}/{pdb.metadata.name}"
         with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
             self.epoch += 1
             job = self.jobs.get(key)
-            if job is None:
-                return
-            queue = job.queue or None
-            job.unset_pdb()
-            self._touch_job(job)
-            if job_terminated(job):
-                del self.jobs[key]
-                self._pooled_jobs.pop(key, None)
-                self._mem_pool_refresh_locked()
-            else:
-                self.deleted_jobs.append(job)
-        self._note_churn(queue)
+            if job is not None:
+                queue = job.queue or None
+                job.unset_pdb()
+                self._touch_job(job)
+                if job_terminated(job):
+                    del self.jobs[key]
+                    self._pooled_jobs.pop(key, None)
+                    self._mem_pool_refresh_locked()
+                else:
+                    self.deleted_jobs.append(job)
+            if runs is not None:
+                runs.note(_DELETE, "delete_pdb", start, time.perf_counter())
+        if job is not None:
+            self._note_churn(queue)
 
     def add_priority_class(self, pc) -> None:
         if not self.priority_class_enabled:
             return
         with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
             self.priority_classes[pc.metadata.name] = pc
             if pc.global_default:
                 self.default_priority_class = pc
             self._snap_full_invalidate()
+            if runs is not None:
+                runs.note(_INGEST, "add_priority_class", start,
+                          time.perf_counter())
         # PriorityClass changes alter job priorities without bumping any
         # job epoch (snapshot() re-resolves priority every cycle), so
         # the wake is the only thing making the loop react before the
@@ -819,12 +886,17 @@ class SchedulerCache(Cache):
 
     def delete_priority_class(self, pc) -> None:
         with self.mutex:
+            runs = self._runs
+            start = time.perf_counter() if runs is not None else 0.0
             self.priority_classes.pop(pc.metadata.name, None)
             if (self.default_priority_class is not None
                     and self.default_priority_class.metadata.name
                     == pc.metadata.name):
                 self.default_priority_class = None
             self._snap_full_invalidate()
+            if runs is not None:
+                runs.note(_DELETE, "delete_priority_class", start,
+                          time.perf_counter())
         self._note_churn()
 
     # ------------------------------------------------------------------
@@ -1375,29 +1447,31 @@ class SchedulerCache(Cache):
         if self.binder is None:
             raise RuntimeError("no binder configured")
         self._check_write_fence()
-        if pod_lineage.cfg().enabled:
-            pod_lineage.note_bind_sent([pod_key(t.pod) for t in tasks])
-        pending = [(t.pod, t.node_name) for t in tasks]
-        retries = _bind_retries()
-        delay = _BIND_BACKOFF_BASE_S
-        ambiguous: list = []
-        final_failures: list = []
-        for attempt in range(retries + 1):
-            failures = self._bind_many(pending)
-            retryable = []
-            for pod, hostname, exc in failures:
-                if isinstance(exc, AmbiguousOutcomeError):
-                    ambiguous.append((pod, hostname, exc))
-                elif _retryable_bind_error(exc):
-                    retryable.append((pod, hostname, exc))
-                else:
-                    final_failures.append((pod, hostname, exc))
-            if not retryable or attempt >= retries:
-                final_failures.extend(retryable)
-                break
-            metrics.note_bind_retry()
-            delay = _backoff_sleep(delay)
-            pending = [(pod, hostname) for pod, hostname, _ in retryable]
+        with trace.span("cache.lineage"):
+            if pod_lineage.cfg().enabled:
+                pod_lineage.note_bind_sent([pod_key(t.pod) for t in tasks])
+        with trace.span("cache.bind"):
+            pending = [(t.pod, t.node_name) for t in tasks]
+            retries = _bind_retries()
+            delay = _BIND_BACKOFF_BASE_S
+            ambiguous: list = []
+            final_failures: list = []
+            for attempt in range(retries + 1):
+                failures = self._bind_many(pending)
+                retryable = []
+                for pod, hostname, exc in failures:
+                    if isinstance(exc, AmbiguousOutcomeError):
+                        ambiguous.append((pod, hostname, exc))
+                    elif _retryable_bind_error(exc):
+                        retryable.append((pod, hostname, exc))
+                    else:
+                        final_failures.append((pod, hostname, exc))
+                if not retryable or attempt >= retries:
+                    final_failures.extend(retryable)
+                    break
+                metrics.note_bind_retry()
+                delay = _backoff_sleep(delay)
+                pending = [(pod, hostname) for pod, hostname, _ in retryable]
         failed_uids = set()
         for pod, _hostname, _exc in ambiguous:
             metrics.note_bind_ambiguous("unproven")
@@ -1405,23 +1479,27 @@ class SchedulerCache(Cache):
         for pod, _hostname, _exc in final_failures:
             failed_uids.add(pod.metadata.uid)
         if not failed_uids:  # one bulk event write for the whole batch
-            for t in tasks:
-                self._assume_bound(t, t.node_name)
-            self._lineage_bound(tasks, "bind")
-            self.events.extend(("Scheduled", pod_key(t.pod), t.node_name)
-                               for t in tasks)
+            with trace.span("cache.assume"):
+                for t in tasks:
+                    self._assume_bound(t, t.node_name)
+                self.events.extend(("Scheduled", pod_key(t.pod),
+                                    t.node_name) for t in tasks)
+            with trace.span("cache.lineage"):
+                self._lineage_bound(tasks, "bind")
             return
         landed = []
-        for t in tasks:
-            if t.uid in failed_uids:
-                self._resync_task(t)
-            else:
-                self._assume_bound(t, t.node_name)
-                landed.append(t)
-                self.events.append(("Scheduled", pod_key(t.pod),
-                                    t.node_name))
+        with trace.span("cache.assume"):
+            for t in tasks:
+                if t.uid in failed_uids:
+                    self._resync_task(t)
+                else:
+                    self._assume_bound(t, t.node_name)
+                    landed.append(t)
+                    self.events.append(("Scheduled", pod_key(t.pod),
+                                        t.node_name))
         if landed:
-            self._lineage_bound(landed, "bind")
+            with trace.span("cache.lineage"):
+                self._lineage_bound(landed, "bind")
 
     def evict(self, task: TaskInfo, reason: str) -> None:
         """Delegate to the Evictor (cache.go:425-488)."""

@@ -542,93 +542,96 @@ class Session:
         per-task loop is only index moves + node-clone inserts."""
         from ..api.resource import Resource
 
-        placements = list(placements)
-        # Feasibility pre-check: the sequential path rejects a placement
-        # whose request exceeds idle beyond epsilon (node_info.go AddTask)
-        # and the action skips it.  Summed aggregates can't reproduce that
-        # per-task skip, so if any node's total looks overdrawn (solver bug
-        # or stale snapshot), replay the whole batch through the exact
-        # per-task path instead.  With agg the sums already exist
-        # (vectorized); without it, build them once and reuse below.
-        if agg is not None:
-            check_alloc, check_pipe = agg.node_alloc, agg.node_pipe
-        else:
-            check_alloc, check_pipe = {}, {}
-            for task, hostname, kind in placements:
-                accs = check_alloc if kind == 1 else check_pipe
-                acc = accs.get(hostname)
-                if acc is None:
-                    acc = accs[hostname] = Resource.empty()
-                acc.add(task.resreq)
-        for accs, pool in ((check_alloc, "idle"), (check_pipe, "releasing")):
-            for hostname, acc in accs.items():
-                node = self.nodes.get(hostname)
-                if node is not None and not acc.less_equal(
-                        getattr(node, pool)):
-                    self._apply_sequential(placements)
-                    return
+        with trace.span("apply.walk"):
+            placements = list(placements)
+            # Feasibility pre-check: the sequential path rejects a placement
+            # whose request exceeds idle beyond epsilon (node_info.go AddTask)
+            # and the action skips it.  Summed aggregates can't reproduce that
+            # per-task skip, so if any node's total looks overdrawn (solver bug
+            # or stale snapshot), replay the whole batch through the exact
+            # per-task path instead.  With agg the sums already exist
+            # (vectorized); without it, build them once and reuse below.
+            if agg is not None:
+                check_alloc, check_pipe = agg.node_alloc, agg.node_pipe
+            else:
+                check_alloc, check_pipe = {}, {}
+                for task, hostname, kind in placements:
+                    accs = check_alloc if kind == 1 else check_pipe
+                    acc = accs.get(hostname)
+                    if acc is None:
+                        acc = accs[hostname] = Resource.empty()
+                    acc.add(task.resreq)
+            for accs, pool in ((check_alloc, "idle"),
+                               (check_pipe, "releasing")):
+                for hostname, acc in accs.items():
+                    node = self.nodes.get(hostname)
+                    if node is not None and not acc.less_equal(
+                            getattr(node, pool)):
+                        self._apply_sequential(placements)
+                        return
 
-        if self._dirty_node_hook is not None:
-            self._predeclare_nodes({h for _t, h, _k in placements})
-        node_alloc: dict = check_alloc
-        node_pipe: dict = check_pipe
-        touched_jobs: dict = {}
-        applied: List[TaskInfo] = []
-        skipped = []
-        jobs_get = self.jobs.get
-        nodes_get = self.nodes.get
-        allocate_volumes = self.cache.allocate_volumes
-        applied_append = applied.append
-        allocated_st, pipelined_st = TaskStatus.Allocated, TaskStatus.Pipelined
-        # With agg, status-index moves are deferred and batched per job
-        # (same end state: index moves commute within the batch); the
-        # whole-bucket case — every Pending task of a job allocated, the
-        # norm for gang jobs — moves the bucket dict wholesale instead of
-        # one pop+insert per task.  The per-placement pass itself runs in
-        # C when the native extension built (kube_batch_tpu_torch/native).
-        alloc_moves: dict = {}
-        pipe_moves: dict = {}
-        if agg is not None and native_apply is not None:
-            (applied, skipped, touched_jobs, alloc_moves,
-             pipe_moves) = native_apply(self.jobs, self.nodes, placements,
-                                        allocate_volumes)
-        else:
-            for task, hostname, kind in placements:
-                job = jobs_get(task.job)
-                node = nodes_get(hostname)
-                if job is None or node is None:
-                    skipped.append((task, hostname, kind))
-                    continue
-                key = pod_key(task.pod)  # f"{namespace}/{name}", cached
-                if key in node.tasks:  # add_task would raise; log-and-skip
-                    skipped.append((task, hostname, kind))
-                    continue
-                if kind == 1:
-                    if task.pod.spec.volumes:
-                        # Volume-less pods skip the binder round-trip:
-                        # every VolumeBinder is a no-op without claims,
-                        # and 50k no-op calls cost ~30 ms per cycle.
-                        try:
-                            allocate_volumes(task, hostname)
-                        except (KeyError, ValueError):
-                            # e.g. a missing PVC: skip this placement
-                            # exactly as the sequential path's per-task
-                            # catch would.
-                            skipped.append((task, hostname, kind))
-                            continue
-                    if agg is None:
-                        job.move_task_status(task, allocated_st)
+            if self._dirty_node_hook is not None:
+                self._predeclare_nodes({h for _t, h, _k in placements})
+            node_alloc: dict = check_alloc
+            node_pipe: dict = check_pipe
+            touched_jobs: dict = {}
+            applied: List[TaskInfo] = []
+            skipped = []
+            jobs_get = self.jobs.get
+            nodes_get = self.nodes.get
+            allocate_volumes = self.cache.allocate_volumes
+            applied_append = applied.append
+            allocated_st = TaskStatus.Allocated
+            pipelined_st = TaskStatus.Pipelined
+            # With agg, status-index moves are deferred and batched per job
+            # (same end state: index moves commute within the batch); the
+            # whole-bucket case — every Pending task of a job allocated, the
+            # norm for gang jobs — moves the bucket dict wholesale instead of
+            # one pop+insert per task.  The per-placement pass itself runs in
+            # C when the native extension built (kube_batch_tpu_torch/native).
+            alloc_moves: dict = {}
+            pipe_moves: dict = {}
+            if agg is not None and native_apply is not None:
+                (applied, skipped, touched_jobs, alloc_moves,
+                 pipe_moves) = native_apply(self.jobs, self.nodes, placements,
+                                            allocate_volumes)
+            else:
+                for task, hostname, kind in placements:
+                    job = jobs_get(task.job)
+                    node = nodes_get(hostname)
+                    if job is None or node is None:
+                        skipped.append((task, hostname, kind))
+                        continue
+                    key = pod_key(task.pod)  # f"{namespace}/{name}", cached
+                    if key in node.tasks:  # add_task would raise; log-and-skip
+                        skipped.append((task, hostname, kind))
+                        continue
+                    if kind == 1:
+                        if task.pod.spec.volumes:
+                            # Volume-less pods skip the binder round-trip:
+                            # every VolumeBinder is a no-op without claims,
+                            # and 50k no-op calls cost ~30 ms per cycle.
+                            try:
+                                allocate_volumes(task, hostname)
+                            except (KeyError, ValueError):
+                                # e.g. a missing PVC: skip this placement
+                                # exactly as the sequential path's per-task
+                                # catch would.
+                                skipped.append((task, hostname, kind))
+                                continue
+                        if agg is None:
+                            job.move_task_status(task, allocated_st)
+                        else:
+                            alloc_moves.setdefault(task.job, []).append(task)
                     else:
-                        alloc_moves.setdefault(task.job, []).append(task)
-                else:
-                    if agg is None:
-                        job.move_task_status(task, pipelined_st)
-                    else:
-                        pipe_moves.setdefault(task.job, []).append(task)
-                task.node_name = node.name
-                lazy_insert(node.tasks, key, task)
-                touched_jobs[task.job] = job
-                applied_append(task)
+                        if agg is None:
+                            job.move_task_status(task, pipelined_st)
+                        else:
+                            pipe_moves.setdefault(task.job, []).append(task)
+                    task.node_name = node.name
+                    lazy_insert(node.tasks, key, task)
+                    touched_jobs[task.job] = job
+                    applied_append(task)
 
         self._settle_batch(node_alloc, node_pipe, touched_jobs, applied,
                            skipped, agg, alloc_moves, pipe_moves)
@@ -640,7 +643,22 @@ class Session:
         (batch_apply_solved): deferred status-index moves, dirty marks,
         lineage, skip settlement, per-node/per-job accounting, the
         plugin batch event, and the gang dispatch barrier — in exactly
-        the order the tuple path always ran them."""
+        the order the tuple path always ran them — then the binds of the
+        tasks the barrier dispatched."""
+        with trace.span("apply.settle"):
+            dispatching, now = self._settle(
+                node_alloc, node_pipe, touched_jobs, applied, skipped, agg,
+                alloc_moves, pipe_moves)
+        if dispatching:
+            self.cache.bind_batch(dispatching)
+            metrics.observe_task_schedule_latencies(
+                [now - t.pod.metadata.creation_timestamp
+                 for t in dispatching])
+
+    def _settle(self, node_alloc, node_pipe, touched_jobs, applied,
+                skipped, agg, alloc_moves, pipe_moves):
+        """``_settle_batch`` up to the binds: (the tasks the gang barrier
+        dispatched, the barrier's wall-clock time)."""
         if alloc_moves or pipe_moves:
             allocated_st, pipelined_st = (TaskStatus.Allocated,
                                           TaskStatus.Pipelined)
@@ -773,11 +791,7 @@ class Session:
                 t.status = TaskStatus.Binding
                 binding[uid] = t
                 dispatching.append(t)
-        if dispatching:
-            self.cache.bind_batch(dispatching)
-            metrics.observe_task_schedule_latencies(
-                [now - t.pod.metadata.creation_timestamp
-                 for t in dispatching])
+        return dispatching, now
 
     def batch_apply_solved(self, tasks_arr, node_names_arr, assignment,
                            kind, ordered, jobix, job_uids, agg) -> None:
@@ -802,49 +816,57 @@ class Session:
         index; ``job_uids``: job index -> uid; ``agg``:
         BatchAggregates (required — the pre-check and accounting read
         it)."""
+        sel = ordered
+        with trace.span("apply.walk"):
+            n_idx = assignment[sel]
+
+            # Feasibility pre-check, identical to batch_apply: an
+            # overdrawn node total means the solver and session disagree
+            # — replay the whole batch through the exact per-task path.
+            for accs, pool in ((agg.node_alloc, "idle"),
+                               (agg.node_pipe, "releasing")):
+                for hostname, acc in accs.items():
+                    node = self.nodes.get(hostname)
+                    if node is not None and not acc.less_equal(
+                            getattr(node, pool)):
+                        self._apply_sequential(
+                            list(zip(tasks_arr[sel].tolist(),
+                                     node_names_arr[n_idx].tolist(),
+                                     kind[sel].tolist())))
+                        return
+
+            if self._dirty_node_hook is not None:
+                self._predeclare_nodes(set(node_names_arr[n_idx].tolist()))
+
+            # Native columns walk: the same C per-placement pass the
+            # tuple path runs (kube_batch_tpu_torch/native), fed three
+            # parallel lists — no per-placement tuple packing.  Returns
+            # exactly the settle inputs, with touched_jobs/moves in
+            # first-touch placement order by dict-insertion construction.
+            if native_apply is not None:
+                (applied, skipped, touched_jobs, alloc_moves,
+                 pipe_moves) = native_apply(
+                    self.jobs, self.nodes,
+                    (tasks_arr[sel].tolist(), node_names_arr[n_idx].tolist(),
+                     kind[sel].tolist()),
+                    self.cache.allocate_volumes)
+            else:
+                (applied, skipped, touched_jobs, alloc_moves,
+                 pipe_moves) = self._walk_columns(
+                    tasks_arr, node_names_arr, kind, sel, n_idx, jobix,
+                    job_uids)
+        self._settle_batch(agg.node_alloc, agg.node_pipe, touched_jobs,
+                           applied, skipped, agg, alloc_moves, pipe_moves)
+
+    def _walk_columns(self, tasks_arr, node_names_arr, kind, sel, n_idx,
+                      jobix, job_uids):
+        """The Python columnar fallback of ``batch_apply_solved``'s walk:
+        (applied, skipped, touched_jobs, alloc_moves, pipe_moves), as
+        the native walk returns them.  Object fan-out resolves each
+        unique node/job once, then numpy takes; the per-task loop keeps
+        only the work that is inherently per object."""
         import numpy as np
 
-        sel = ordered
-        n_idx = assignment[sel]
-
-        # Feasibility pre-check, identical to batch_apply: an overdrawn
-        # node total means the solver and session disagree — replay the
-        # whole batch through the exact per-task path.
-        for accs, pool in ((agg.node_alloc, "idle"),
-                           (agg.node_pipe, "releasing")):
-            for hostname, acc in accs.items():
-                node = self.nodes.get(hostname)
-                if node is not None and not acc.less_equal(
-                        getattr(node, pool)):
-                    self._apply_sequential(
-                        list(zip(tasks_arr[sel].tolist(),
-                                 node_names_arr[n_idx].tolist(),
-                                 kind[sel].tolist())))
-                    return
-
-        if self._dirty_node_hook is not None:
-            self._predeclare_nodes(set(node_names_arr[n_idx].tolist()))
-
-        # Native columns walk: the same C per-placement pass the tuple
-        # path runs (kube_batch_tpu_torch/native), fed three parallel lists —
-        # no per-placement tuple packing.  Returns exactly the settle
-        # inputs, with touched_jobs/moves in first-touch placement
-        # order by dict-insertion construction.
-        if native_apply is not None:
-            (applied, skipped, touched_jobs, alloc_moves,
-             pipe_moves) = native_apply(
-                self.jobs, self.nodes,
-                (tasks_arr[sel].tolist(), node_names_arr[n_idx].tolist(),
-                 kind[sel].tolist()),
-                self.cache.allocate_volumes)
-            self._settle_batch(agg.node_alloc, agg.node_pipe,
-                               touched_jobs, applied, skipped, agg,
-                               alloc_moves, pipe_moves)
-            return
-
-        # Python columnar fallback: object fan-out resolves each unique
-        # node/job once, then numpy takes; the per-task loop keeps only
-        # the work that is inherently per object.
         node_objs = np.empty(len(node_names_arr), dtype=object)
         node_objs[:] = [self.nodes.get(n)
                         for n in node_names_arr.tolist()]
@@ -919,9 +941,7 @@ class Session:
             for gi, j in enumerate(groups.tolist()):
                 moves[job_uids[j]] = tasks_arr[
                     rows_sorted[bounds[gi]:bounds[gi + 1]]].tolist()
-
-        self._settle_batch(agg.node_alloc, agg.node_pipe, touched_jobs,
-                           applied, skipped, agg, alloc_moves, pipe_moves)
+        return applied, skipped, touched_jobs, alloc_moves, pipe_moves
 
     def evict(self, reclaimee: TaskInfo, reason: str) -> None:
         """Evict through the cache, then mirror in-session (session.go:317-345).

@@ -216,8 +216,17 @@ class Counter:
             for labels, v in self._values.items():
                 label_str = _label_str(self.label_names, labels)
                 braces = f"{{{label_str}}}" if label_str else ""
-                lines.append(f"{self.name}{braces} {v}")
+                lines.append(f"{self.name}{braces} {_number(v)}")
         return "\n".join(lines)
+
+
+def _number(v: float) -> str:
+    """A sample value in plain decimals where Python would write a
+    negative exponent (seconds of a few microseconds)."""
+    text = f"{v}"
+    if "e-" in text:
+        text = f"{v:.12f}".rstrip("0").rstrip(".")
+    return text
 
 
 class Gauge(Counter):
@@ -231,12 +240,18 @@ class Gauge(Counter):
 class Registry:
     def __init__(self):
         self.collectors: List = []
+        # Called before each exposition: counters whose writers keep
+        # their own totals (the collector hook's) are brought up to date
+        # there.
+        self.samplers: List = []
 
     def register(self, collector):
         self.collectors.append(collector)
         return collector
 
     def expose(self) -> str:
+        for sample in self.samplers:
+            sample()
         return "\n".join(c.expose() for c in self.collectors) + "\n"
 
 
@@ -724,6 +739,46 @@ topo_bad_coords = registry.register(Counter(
     f"{SUBSYSTEM}_topo_bad_coords_total",
     "Nodes degraded to flat-list placement by malformed/missing/"
     "duplicate coordinate labels (incl. chaos topology.bad_coords)"))
+
+# Host time the trace already reads (trace/spans.py), summed for
+# operators: the external SchedulerCache handler calls, timed under the
+# mutex they hold (a handler's stretches of back-to-back calls, added
+# when the cache's next run opens), and each pass of the cyclic
+# collector by generation (the hook a Scheduler holds, brought up to date
+# at exposition).  Both stay at 0 under KUBE_BATCH_TPU_TRACE=0, where
+# nothing is timed.
+cache_handler_seconds = registry.register(Counter(
+    f"{SUBSYSTEM}_cache_handler_seconds_total",
+    "Seconds of the cache's informer handler calls under the cache "
+    "mutex, back-to-back calls timed together", ("handler",)))
+gc_pause_seconds = registry.register(Counter(
+    f"{SUBSYSTEM}_gc_pause_seconds_total",
+    "Seconds the cyclic garbage collector paused the process, by "
+    "generation", ("generation",)))
+_gc_sampled = [0.0, 0.0, 0.0]  # guarded-by: _gc_sampled_lock
+_gc_sampled_lock = threading.Lock()
+
+
+def note_handler_seconds(seconds: Dict[str, float]) -> None:
+    """Add one handler run's {handler: seconds} to
+    ``cache_handler_seconds``."""
+    for handler, s in seconds.items():
+        cache_handler_seconds.inc(s, handler)
+
+
+def sample_gc_pauses() -> None:
+    """Add what the collector hook's totals grew by since the last
+    sample to ``gc_pause_seconds`` (the hook takes no lock, so it cannot
+    add them itself)."""
+    from ..trace import spans
+    with _gc_sampled_lock:
+        for generation, total in enumerate(spans.gc_pause_seconds()):
+            gc_pause_seconds.inc(total - _gc_sampled[generation],
+                                 str(generation))
+            _gc_sampled[generation] = total
+
+
+registry.samplers.append(sample_gc_pauses)
 
 
 # Helper API (metrics.go:123-191).

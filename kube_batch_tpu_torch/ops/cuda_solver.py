@@ -1045,6 +1045,60 @@ def hostable_plan(inp: SolverInputs, cfg: SolverConfig, ops: Operands,
         bound = plan.cluster // 2
 
 
+class K1Timing:
+    """Two timing events around one K1 launch on its stream, and a host
+    ``perf_counter`` stamp paired with a third event recorded when the
+    stream was idle, so that the launch lands on the host clock.  It
+    rides the launch's result (``TimedResult``) and its PendingSolve, and
+    the fetch that waits for them turns it into a ``k1.device`` span; a
+    discarded handle drops it.  When the stream was busy at the pairing,
+    the span is ``aligned`` false: its duration holds, its place does
+    not."""
+
+    __slots__ = ("pair", "host", "aligned", "start", "end")
+
+    @classmethod
+    def begin(cls, stream) -> "K1Timing | None":
+        """Pair the host clock with ``stream`` and record the start
+        event; None, and no event created, under KUBE_BATCH_TPU_TRACE=0."""
+        from ..trace import spans as trace
+        if not trace.enabled():
+            return None
+        self = cls()
+        self.pair = torch.cuda.Event(enable_timing=True)
+        self.aligned = bool(stream.query())
+        self.pair.record(stream)
+        # After the record returns: the event goes to the idle stream at
+        # the end of the call, which a profiler's callbacks can lengthen.
+        self.host = time.perf_counter()
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record(stream)
+        return self
+
+    def launched(self, stream) -> None:
+        """Record the end event after the launch."""
+        self.end = torch.cuda.Event(enable_timing=True)
+        self.end.record(stream)
+
+    def record(self) -> None:
+        """The launch's ``k1.device`` span in the active session trace
+        (host clock, track ``device``); ``device_ms`` is the time between
+        its events.  Called by the fetch once it has waited for the
+        solve, so the end event has completed."""
+        from ..trace import spans as trace
+        self.end.synchronize()
+        device_ms = self.start.elapsed_time(self.end)
+        start = self.host + self.pair.elapsed_time(self.start) / 1e3
+        trace.record_span("k1.device", start, start + device_ms / 1e3,
+                          track="device", device_ms=device_ms,
+                          aligned=self.aligned)
+
+
+class TimedResult(SolveResult):
+    """The SolveResult of one K1 launch, with its K1Timing in
+    ``timing``."""
+
+
 def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig, *,
                         stamps: torch.Tensor | None = None,
                         max_cluster: int = CLUSTER_SIZES[-1]):
@@ -1087,10 +1141,14 @@ def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig, *,
                                          dtype=torch.int32, device=dev)
         args = _launch_args(ops, cfg, plan, tensors)
         lib = build_kernel()
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        current = torch.cuda.current_stream(dev)
+        stream = current.cuda_stream
+        timing = K1Timing.begin(current)
         rc = lib.kbt_solve_session(ctypes.byref(args),
                                    int(bufs.jsta.dtype == torch.float64),
                                    stream)
+        if rc == 0 and timing is not None:
+            timing.launched(current)
     if rc != 0:
         raise RuntimeError("solve_session kernel launch failed: "
                            + lib.kbt_error_string(rc).decode())
@@ -1099,6 +1157,9 @@ def solve_allocate_cuda(inp: SolverInputs, cfg: SolverConfig, *,
     tally[stream] = tally.get(stream, 0) + 1
     result = SolveResult(assignment=out[:, 0], kind=out[:, 1],
                          order=out[:, 2], step=steps[0])
+    if timing is not None:
+        result = TimedResult(*result)
+        result.timing = timing
     return result, FinalState(bufs.node_int, bufs.jdyn, bufs.qdyn,
                               ops.nport, ops.nsel)
 

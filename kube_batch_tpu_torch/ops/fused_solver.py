@@ -867,7 +867,7 @@ def take_alloc(ssn, shipper, snap, route, candidates):
         packed = served.packed
         if packed.ndim >= 2 and packed.shape[-1]:
             served = PendingSolve(packed[..., :-1].contiguous(), None,
-                                  served.remap)
+                                  served.remap, served.timing)
     metrics.note_fused_leg(family, "served")
     return served
 
@@ -1066,7 +1066,8 @@ def _prove_storm(storm, snap, route, candidates, pending):
                    np.iinfo(np.int32).max)
     perm_f = np.argsort(key, kind="stable").astype(np.int32)
     out = np.ascontiguousarray(np.stack([a_f, k_f, o_f, perm_f]))
-    return PendingSolve(torch.from_numpy(out), None, None)
+    # K1's timing rides on: the fetch records the served launch's span.
+    return PendingSolve(torch.from_numpy(out), None, None, pending.timing)
 
 
 def take_topo(ssn, inp, shape, n: int, device, dtype):

@@ -115,6 +115,10 @@ class SolveResult(NamedTuple):
     order: torch.Tensor       # [P] i32 placement sequence number
     step: torch.Tensor        # scalar i32 total placements
 
+    # A K1 launch's result carries its ops/cuda_solver.K1Timing here
+    # (``TimedResult``); every other result reads None.
+    timing = None
+
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -135,11 +139,13 @@ class PendingSolve(NamedTuple):
     ``ready`` is the CUDA event recorded after that copy.  On the CPU the
     solve ran synchronously and ``ready`` is None.  ``remap`` (numpy [C]
     int32, candidate-row solves only) maps each gathered row back to its
-    full-space node row.  Every dispatched handle ends in exactly one
-    ``fetch_solve`` or ``discard_solve``."""
+    full-space node row.  ``timing`` is the K1 launch's K1Timing, which
+    the fetch records as a ``k1.device`` span.  Every dispatched handle
+    ends in exactly one ``fetch_solve`` or ``discard_solve``."""
     packed: torch.Tensor       # [4, P] i32: assignment/kind/order/perm
     ready: object = None       # torch.cuda.Event, or None on the CPU
     remap: object = None       # np [C] int32, or None for a full solve
+    timing: object = None      # ops/cuda_solver.K1Timing, or None
 
 
 # In-flight dispatch ledger (process-wide): dispatched-but-not-consumed
@@ -165,8 +171,8 @@ def solver_inflight() -> int:
 def discard_solve(pending: PendingSolve) -> None:
     """Abandon a dispatched solve without reading it back.  The resident
     input image stays a valid delta baseline: the ship that fed this
-    dispatch completed.  It only drops the handle and calls nothing on
-    the device."""
+    dispatch completed.  It only drops the handle, K1's timing with it
+    (no ``k1.device`` span), and calls nothing on the device."""
     if pending is not None:
         _note_dispatch(-1)
 
@@ -322,7 +328,7 @@ def pending_of(result: SolveResult, remap=None, host=None) -> PendingSolve:
         _pack_result_ordered(result.assignment, result.kind, result.order),
         out=None if host is None else (host,))
     _note_dispatch(+1)
-    return PendingSolve(packed, ready, remap)
+    return PendingSolve(packed, ready, remap, result.timing)
 
 
 def dispatch_solve(inp: SolverInputs, cfg: SolverConfig,
@@ -402,6 +408,8 @@ def fetch_solve(pending: PendingSolve):
         with trace.span("solver.fetch"):
             if pending.ready is not None:
                 pending.ready.synchronize()
+            if pending.timing is not None:
+                pending.timing.record()
             packed = pending.packed.numpy()
     finally:
         # Consumed either way: a fetch that raises still retires the
@@ -437,6 +445,8 @@ def fetch_result(result: SolveResult):
     with trace.span("solver.fetch"):
         packed = torch.stack([result.assignment, result.kind,
                               result.order]).cpu().numpy()
+        if result.timing is not None:
+            result.timing.record()
     packed = _chaos_fetch(packed)
     _check_not_aborted(packed[1])
     return packed[0], packed[1], packed[2]

@@ -206,6 +206,12 @@ class Scheduler:
         # Log<->trace correlation: every loop record carries [s=<id>]
         # while a traced session is active (doc/OBSERVABILITY.md).
         trace.install_log_correlation()
+        # The collector's passes on the trace, beside the policy this
+        # loop sets for it (frozen in run(), paused in session_once):
+        # each full pass a carried ``gc.full`` span, every pass in
+        # /metrics (trace/spans.py).  Held until stop() or collection.
+        if trace.enabled():
+            trace.hold_gc_hook(self)
         # Queue-shard tenancy engine (kube_batch_tpu/tenancy/,
         # doc/TENANCY.md): when KUBE_BATCH_TPU_TENANCY asks for shards,
         # run_once pipelines one shard-scoped micro-session per dirty
@@ -643,3 +649,6 @@ class Scheduler:
                     "dispatch(es) with resident images invalidated — "
                     "stuck shard id(s): %s",
                     len(stuck), ", ".join(str(s) for s in stuck))
+        # The collector hook this Scheduler holds (removed with the last
+        # holder).
+        trace.release_gc_hook(id(self))

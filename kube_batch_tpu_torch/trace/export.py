@@ -10,12 +10,16 @@ shipped) as counter ("C") events.  Timestamps are microseconds from
 session start.
 
 ``summarize_phases`` / ``phase_percentiles`` are the aggregation used by
-/debug/sessions and bench.py's per-round span summaries.
+/debug/sessions and bench.py's per-round span summaries;
+``summarize_carried`` sums the spans carried in from between sessions,
+which ride a track of their own at negative timestamps.
 """
 
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional
+
+from .spans import CARRIED_TRACK
 
 _PID = 1
 
@@ -70,10 +74,23 @@ def to_chrome_trace(trace) -> dict:
 
 def summarize_phases(trace) -> Dict[str, float]:
     """Total milliseconds per top-level phase (depth-0 spans only — nested
-    spans are contained in their parent and would double-count)."""
+    spans are contained in their parent and would double-count).  The
+    spans carried from between sessions are not the session's phases:
+    ``summarize_carried`` reports them."""
     out: Dict[str, float] = {}
     for sp in trace.spans:
-        if sp.depth == 0:
+        if sp.depth == 0 and sp.track != CARRIED_TRACK:
+            out[sp.name] = out.get(sp.name, 0.0) + sp.dur / 1e3
+    return {k: round(v, 3) for k, v in out.items()}
+
+
+def summarize_carried(trace) -> Dict[str, float]:
+    """Total milliseconds per name of the spans carried into the session
+    from before it (trace/spans.py ``handoff``: handler runs, full
+    collections)."""
+    out: Dict[str, float] = {}
+    for sp in trace.spans:
+        if sp.track == CARRIED_TRACK:
             out[sp.name] = out.get(sp.name, 0.0) + sp.dur / 1e3
     return {k: round(v, 3) for k, v in out.items()}
 

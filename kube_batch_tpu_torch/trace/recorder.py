@@ -111,7 +111,7 @@ class FlightRecorder:
 
     def summaries(self) -> List[dict]:
         """Recent session summaries, newest first (/debug/sessions)."""
-        from .export import summarize_phases
+        from .export import summarize_carried, summarize_phases
         out = []
         for tr in reversed(self.traces()):
             evictions: Dict[str, int] = {}
@@ -135,6 +135,10 @@ class FlightRecorder:
                 "start": round(tr.start_time, 3),
                 "duration_ms": round(tr.duration_ms, 3),
                 "phases_ms": summarize_phases(tr),
+                # The handler runs and full collections carried in from
+                # before the session (trace/spans.py handoff), apart
+                # from its phases.
+                "between_sessions_ms": summarize_carried(tr),
                 "spans": len(tr.spans),
                 "verdicts": len(tr.verdicts),
                 "tallies": len(tr.tallies),

@@ -17,14 +17,55 @@ itself.  The recorder's mutex is touched exactly once per session, at
 whole module a no-op: ``begin_session`` returns None without creating
 state, ``span()`` returns a shared do-nothing context manager, and the
 hot path acquires zero additional locks (pinned by tests/test_trace.py).
+
+Work that happens between sessions, or on threads that hold no session
+(the cache's informer handlers, the interpreter's cyclic collector), is
+carried: ``handoff`` keeps up to ``CARRY_MAX`` completed spans, and the
+next ``begin_session`` drains them into its trace on a track of their own,
+``CARRIED_TRACK``, with timestamps before the session's start (negative
+``ts``); ``summarize_phases`` and ``/debug/sessions``' ``phases_ms`` leave
+that track out, and ``/debug/sessions`` reports it apart as
+``between_sessions_ms``.  Past ``CARRY_MAX`` each new span merges into the
+last, counted in its ``merged`` arg, so a standby replica that never
+opens a session does not grow.  Under ``KUBE_BATCH_TPU_TRACE=0`` nothing
+is carried, no handler reads the clock, no collector hook is installed
+and no CUDA event is created.
+
+The spans of a scheduling cycle, besides the session's phases:
+
+- ``cache.ingest`` (carried): one per run of back-to-back ``add_*`` /
+  ``update_*`` informer handler calls of one ``SchedulerCache`` (pods,
+  pod groups, nodes, queues, PDBs, priority classes), timed under the
+  cache mutex (``HandlerRuns``); args ``calls``, ``handlers``.
+  ``cache.delete`` likewise for the ``delete_*`` handlers.
+- ``gc.full`` (carried, depth 1): one per full collection, from the
+  collector hook each live ``Scheduler`` holds (``hold_gc_hook``);
+  args ``collected``.  A collection that starts inside a handler lies
+  inside that handler's run.
+- ``apply.aggregates``, ``apply.walk``, ``apply.settle``,
+  ``cache.lineage`` (two), ``cache.bind`` and ``cache.assume``: apply's
+  children, one of each per batch (actions/tpu_allocate.py,
+  framework/session.py, cache/cache.py).
+- ``k1.device`` (track ``device``): K1's device time on the host clock,
+  from CUDA events around the launch read when its handle is fetched
+  (ops/cuda_solver.py ``K1Timing``); args ``device_ms``, ``aligned``.
+
+The same clock readings feed ``/metrics``:
+``kube_batch_cache_handler_seconds_total{handler}`` (the walls of a
+run's stretches of each handler's calls, when the cache's next run
+opens) and
+``kube_batch_gc_pause_seconds_total{generation}``.
 """
 
 from __future__ import annotations
 
+import gc
 import itertools
 import logging
 import threading
 import time
+import weakref
+from collections import deque
 from typing import Dict, List, Optional
 
 from .. import knobs
@@ -39,19 +80,6 @@ _MAX_VERDICTS = 10_000
 
 _session_ids = itertools.count(1)  # itertools.count is atomic in CPython
 _tls = threading.local()
-
-# A profiler capture (actions/tpu_allocate.py, KUBE_BATCH_TPU_PROFILE)
-# sets this to ``torch.profiler.record_function``: every span opened while
-# it is set is mirrored into the profile as a range of the same name.
-# None, the default, costs one global read per span.
-_profiler_range = None
-
-
-def set_profiler_range(factory) -> None:
-    """Mirror spans into a profiler (``factory(name)`` -> context
-    manager), or stop with None."""
-    global _profiler_range
-    _profiler_range = factory
 
 
 def enabled() -> bool:
@@ -107,19 +135,14 @@ class _SpanCtx:
     ``annotate()`` while open are captured; the record's args dict stays
     the same object, so late annotation before export still lands."""
 
-    __slots__ = ("_trace", "name", "args", "_start", "_track", "_depth",
-                 "_range")
+    __slots__ = ("_trace", "name", "args", "_start", "_track", "_depth")
 
     def __init__(self, trace: SessionTrace, name: str, args: Optional[dict]):
         self._trace = trace
         self.name = name
         self.args = args
-        self._range = None
 
     def __enter__(self):
-        if _profiler_range is not None:
-            self._range = _profiler_range(self.name)
-            self._range.__enter__()
         tr = self._trace
         stack = tr._stack
         self._depth = len(stack)
@@ -139,9 +162,6 @@ class _SpanCtx:
         tr.spans.append(SpanRecord(self.name, ts, (end - self._start) * 1e6,
                                    self._track, self._depth,
                                    self.args or {}))
-        if self._range is not None:
-            self._range.__exit__(exc_type, exc, tb)
-            self._range = None
         return False
 
     def annotate(self, **kv) -> None:
@@ -169,21 +189,247 @@ class _NoopSpan:
 _NOOP = _NoopSpan()
 
 
-class _RangeOnly(_NoopSpan):
-    """A profiler range for a span opened with no active session."""
+# ----------------------------------------------------------------------
+# spans carried between sessions
 
-    __slots__ = ("_range",)
+# The track carried spans ride in a session trace; summarize_phases leaves
+# it out, so a session's phases still sum to at most its wall time.
+CARRIED_TRACK = "between sessions"
+# A standby replica never opens a session: past this many carried spans,
+# each new one is merged into the last and counted in its args.
+CARRY_MAX = 256
+# A handler call joins its cache's run when less than this passed since
+# the run's last call ended, the collector's passes in between not
+# counted.
+RUN_GAP_S = 1e-3
 
-    def __init__(self, rng):
-        self._range = rng
 
-    def __enter__(self):
-        self._range.__enter__()
-        return self
+class _Carried:
+    """One carried span (``perf_counter`` seconds), open to extension
+    until a session drains it (``sealed``)."""
 
-    def __exit__(self, exc_type, exc, tb):
-        self._range.__exit__(exc_type, exc, tb)
-        return False
+    __slots__ = ("name", "start", "end", "depth", "args", "merged",
+                 "sealed")
+
+    def __init__(self, name, start, end, depth=0, args=None):
+        self.name = name
+        self.start = start
+        self.end = end
+        self.depth = depth
+        self.args = args
+        self.merged = 0
+        self.sealed = False
+
+    def record_args(self) -> dict:
+        out = dict(self.args) if self.args else {}
+        if self.merged:
+            out["merged"] = self.merged
+        return out
+
+
+class _Run(_Carried):
+    """A carried run of one cache's handler calls: ``calls`` in all, and
+    [calls, seconds] per handler in ``stats`` for the stretches of the
+    run it has closed, a stretch's seconds its wall, from its first
+    call's start to its last call's end.  The open stretch is
+    ``handler``'s, from ``since``, after ``before`` calls."""
+
+    __slots__ = ("calls", "handler", "since", "before", "stats")
+
+    def __init__(self, name, start):
+        super().__init__(name, start, start)
+        self.calls = 0
+        self.handler: Optional[str] = None
+        self.since = start
+        self.before = 0
+        self.stats: Dict[str, list] = {}
+
+    def switch(self, handler: Optional[str], start: float) -> None:
+        """Close the open stretch; ``handler``'s opens at ``start``."""
+        if self.handler is not None:
+            st = self.stats.setdefault(self.handler, [0, 0.0])
+            st[0] += self.calls - self.before
+            st[1] += self.end - self.since
+        self.handler, self.since, self.before = handler, start, self.calls
+
+    def record_args(self) -> dict:
+        out = super().record_args()
+        handlers = set(dict(self.stats))   # one C-level copy: the owner adds
+        handlers.add(self.handler)
+        handlers.discard(None)
+        out["calls"] = self.calls
+        out["handlers"] = sorted(handlers)
+        return out
+
+
+class Handoff:
+    """The bounded, process-wide list of carried spans.  Writers only
+    append (atomic under the GIL), so the collector's hook may carry a
+    span while a handler that started the collection holds its cache's
+    mutex; the drain pops, so two sessions opening at once split the
+    spans between them and never take one twice."""
+
+    def __init__(self, capacity: int = CARRY_MAX):
+        self.capacity = capacity
+        self._spans: List[_Carried] = []
+
+    def __len__(self) -> int:
+        return len(self._spans)
+
+    def carry(self, rec: _Carried) -> None:
+        """Carry ``rec`` to the next session; past ``capacity``, merge it
+        into the last one instead (``rec`` then reaches no session)."""
+        spans = self._spans
+        if len(spans) >= self.capacity:
+            try:
+                last = spans[-1]
+            except IndexError:      # a session drained it meanwhile
+                pass
+            else:
+                last.start = min(last.start, rec.start)
+                last.end = max(last.end, rec.end)
+                last.merged += 1
+                return
+        spans.append(rec)
+
+    def drain_into(self, tr: "SessionTrace") -> None:
+        """Move every carried span into ``tr`` on CARRIED_TRACK."""
+        spans = self._spans
+        for _ in range(len(spans)):
+            try:
+                c = spans.pop(0)
+            except IndexError:
+                break
+            c.sealed = True
+            tr.spans.append(SpanRecord(
+                c.name, (c.start - tr.t0) * 1e6, (c.end - c.start) * 1e6,
+                CARRIED_TRACK, c.depth, c.record_args()))
+
+    def clear(self) -> None:
+        del self._spans[:]
+
+
+handoff = Handoff()
+# What a cache's HandlerRuns holds before its first call: a sealed run.
+_NO_RUN = _Run("", 0.0)
+_NO_RUN.sealed = True
+
+
+class HandlerRuns:
+    """One cache's handler calls, merged into runs: a call joins the run
+    when it is of the same kind (``cache.ingest`` or ``cache.delete``)
+    and less than RUN_GAP_S passed since the run's last call ended, the
+    collector's passes in between not counted.  Each run is one carried
+    span, with ``calls`` and the handlers it ran in its args.  When the
+    cache's next run opens, the run's seconds per handler (the walls of
+    its stretches of that handler's calls) go to ``fold`` (``/metrics``
+    kube_batch_cache_handler_seconds_total).  ``note`` runs under the
+    cache's mutex, which guards everything here."""
+
+    __slots__ = ("_run", "_fold")
+
+    def __init__(self, fold=None):
+        self._run = _NO_RUN
+        self._fold = fold
+
+    def note(self, name: str, handler: str, start: float,
+             end: float) -> None:
+        """One handler call, ``start`` to ``end`` (perf_counter)."""
+        run = self._run
+        if (run.sealed or start - run.end >= RUN_GAP_S
+                or run.name is not name):
+            run = self._open(name, start)
+        if handler is not run.handler:
+            run.switch(handler, start)
+        run.end = end
+        run.calls += 1
+
+    def _open(self, name: str, start: float) -> _Run:
+        """The run this call joins: the current one when the collector
+        filled the gap since its last call, else a new one."""
+        run = self._run
+        if not run.sealed and run.name == name:
+            gap = start - run.end
+            for a, b in list(_GC_HOOK.recent):
+                if a >= run.end and b <= start:
+                    gap -= b - a
+            if gap < RUN_GAP_S:
+                return run
+        if run.calls and self._fold is not None:
+            run.switch(None, start)
+            self._fold({h: st[1] for h, st in run.stats.items()})
+        run = self._run = _Run(name, start)
+        handoff.carry(run)
+        return run
+
+
+class _CollectorHook:
+    """The ``gc.callbacks`` entry: each full (generation 2) pass becomes
+    a carried ``gc.full`` span with ``collected`` in its args; every pass
+    adds to ``pause`` by generation.  ``recent`` keeps the last passes of
+    every generation, for HandlerRuns to leave out of a run's gaps.  It
+    takes no lock: a pass can start inside a handler that holds its
+    cache's mutex."""
+
+    __slots__ = ("_start", "pause", "recent")
+
+    def __init__(self):
+        self._start: Optional[float] = None
+        self.pause = [0.0, 0.0, 0.0]    # seconds per generation
+        self.recent = deque(maxlen=64)  # (start, end) of each pass
+
+    def __call__(self, phase, info) -> None:
+        now = time.perf_counter()
+        if phase == "start":
+            self._start = now
+            return
+        start = self._start
+        if start is None:
+            return
+        self._start = None
+        generation = info.get("generation", 2)
+        self.pause[generation] += now - start
+        self.recent.append((start, now))
+        if generation == 2:
+            handoff.carry(_Carried("gc.full", start, now, 1,
+                                   {"collected": info.get("collected", 0)}))
+
+
+_GC_HOOK = _CollectorHook()
+_gc_hook_lock = threading.Lock()
+# id() of each live Scheduler that holds the hook.
+_gc_holders: set = set()
+
+
+def hold_gc_hook(holder) -> None:
+    """Time the collector's passes while ``holder`` (a Scheduler) lives
+    and has not released them: the hook is installed once per process
+    and removed when its last holder is stopped or collected."""
+    key = id(holder)
+    with _gc_hook_lock:
+        _gc_holders.add(key)
+        if _GC_HOOK not in gc.callbacks:
+            gc.callbacks.append(_GC_HOOK)
+    weakref.finalize(holder, release_gc_hook, key)
+
+
+def release_gc_hook(key: int) -> None:
+    """Drop a holder (``id()`` of it); the last one removes the hook.
+    Takes no lock: it runs as a finalizer, inside whatever collection
+    collects the holder."""
+    _gc_holders.discard(key)
+    if not _gc_holders:
+        try:
+            gc.callbacks.remove(_GC_HOOK)
+        except ValueError:
+            pass
+
+
+def gc_pause_seconds() -> List[float]:
+    """Seconds the collector paused the process, per generation, while
+    the hook was installed (``/metrics``
+    kube_batch_gc_pause_seconds_total)."""
+    return list(_GC_HOOK.pause)
 
 
 # ----------------------------------------------------------------------
@@ -203,6 +449,7 @@ def begin_session(**meta) -> Optional[int]:
         _tls.nested = getattr(_tls, "nested", 0) + 1
         return None
     tr = SessionTrace(next(_session_ids), meta)
+    handoff.drain_into(tr)
     _tls.trace = tr
     _tls.nested = 0
     return tr.sid
@@ -268,10 +515,26 @@ def span(name: str, **args):
     tracing is off or no session is active (zero locks, zero state)."""
     tr = getattr(_tls, "trace", None)
     if tr is None:
-        if _profiler_range is not None:
-            return _RangeOnly(_profiler_range(name))
         return _NOOP
     return _SpanCtx(tr, name, args or None)
+
+
+def record_span(name: str, start: float, end: float,
+                track: Optional[str] = None, **args) -> None:
+    """Record a completed span from explicit ``time.perf_counter``
+    start and end times into the active session trace (``ts`` may be
+    negative).  It nests at the open spans' depth, on ``track`` when
+    given (work that overlaps the open spans, such as the device's),
+    else on the open root phase's."""
+    tr = getattr(_tls, "trace", None)
+    if tr is None:
+        return
+    stack = tr._stack
+    if track is None:
+        track = stack[0].name if stack else name
+    tr.spans.append(SpanRecord(name, (start - tr.t0) * 1e6,
+                               (end - start) * 1e6, track, len(stack),
+                               args))
 
 
 def annotate(**kv) -> None:

@@ -178,3 +178,53 @@ def test_malformed_series_cap_env_warns_and_pins_default(monkeypatch,
         metrics.refresh_series_cap()
         return cap == metrics.DEFAULT_SERIES_CAP, warned
     assert twin(body) == (True, True)
+
+
+def test_handler_and_collector_seconds_on_the_exposition():
+    """The port's own counters, fed by the clock readings its trace takes
+    (no twin in the reference): seconds in each cache handler and in the
+    collector's passes by generation, parsed under the strict grammar
+    and growing with the work."""
+    import gc
+
+    from kube_batch_tpu_torch.api import ObjectMeta
+    from kube_batch_tpu_torch.apis.scheduling import v1alpha1
+    from kube_batch_tpu_torch.cache import SchedulerCache
+    from kube_batch_tpu_torch.metrics import metrics
+    from kube_batch_tpu_torch.trace import spans
+
+    def read():
+        parsed = parse_exposition(metrics.registry.expose())
+        handlers = {labels["handler"]: v for _n, labels, v in
+                    parsed["kube_batch_cache_handler_seconds_total"]
+                    ["samples"] if "handler" in labels}
+        pauses = {labels["generation"]: v for _n, labels, v in
+                  parsed["kube_batch_gc_pause_seconds_total"]["samples"]}
+        return (parsed["kube_batch_cache_handler_seconds_total"]["type"],
+                handlers, pauses)
+
+    class Holder:
+        pass
+
+    holder = Holder()
+    spans.hold_gc_hook(holder)
+    try:
+        kind, handlers0, pauses0 = read()
+        cache = SchedulerCache()
+        queue = v1alpha1.Queue(metadata=ObjectMeta(name="q"),
+                               spec=v1alpha1.QueueSpec(weight=1))
+        for _ in range(20):
+            cache.add_queue(queue)
+        # A run's seconds reach the counter when the cache's next run
+        # opens: a delete is another kind of run.
+        cache.delete_queue(queue)
+        gc.collect()
+        _kind, handlers1, pauses1 = read()
+    finally:
+        spans.release_gc_hook(id(holder))
+        spans.handoff.clear()
+    assert kind == "counter"
+    assert set(pauses1) == {"0", "1", "2"}
+    assert handlers1["add_queue"] > handlers0.get("add_queue", 0.0)
+    assert pauses1["2"] > pauses0["2"]
+    assert all(handlers1[h] >= v for h, v in handlers0.items())

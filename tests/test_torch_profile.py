@@ -4,8 +4,9 @@ tpu-allocate session (the port's counterpart of the reference's
 ``_maybe_profile``), on the CPU.
 
 Set, one session writes one parseable Chrome trace, named by the session
-uid, whose ranges include the session's flight-recorder spans (the
-device half's ``solver.dispatch`` and ``solver.fetch`` among them).
+uid, that holds the session's flight-recorder spans (the device half's
+``solver.dispatch`` and ``solver.fetch`` among them), placed on the
+profile's clock by a marker.
 A shard session of the concurrent pipeline writes one trace for each
 half (``-begin``, ``-retire``).  Unset, no profiler is built and nothing
 is written.  A profiler that
@@ -45,8 +46,10 @@ def test_profile_writes_a_chrome_trace_with_the_session_spans(
     assert {"tensorize", "ship", "dispatch", "solver.dispatch",
             "host_overlap", "device_wait", "solver.fetch",
             "apply"} <= names
+    # The spans are written into the file from the flight recorder on
+    # the profile's clock; no span is mirrored into the profiler.
     from kube_batch_tpu_torch.trace import spans
-    assert spans._profiler_range is None
+    assert not hasattr(spans, "set_profiler_range")
 
 
 def test_unset_builds_no_profiler_and_writes_nothing(monkeypatch,

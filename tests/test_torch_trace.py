@@ -65,6 +65,14 @@ def _small_cluster(lp, n_tasks=200, n_nodes=32, n_jobs=10, n_queues=2):
 # span mechanics
 
 
+def _own(tr):
+    """The session's own spans: the port carries the work done before
+    the session (cache handler runs, full collections, trace/spans.py
+    ``handoff``) into it on a track of its own, which the reference does
+    not have."""
+    return [sp for sp in tr.spans if sp.track != "between sessions"]
+
+
 def test_span_nesting_depth_track_and_containment():
     def body(lp):
         spans, rec, _ = _parts(lp)
@@ -76,7 +84,7 @@ def test_span_nesting_depth_track_and_containment():
             spans.instant("marker", note="x")
         spans.end_session()
         tr = rec.get(sid)
-        by_name = {sp.name: sp for sp in tr.spans}
+        by_name = {sp.name: sp for sp in _own(tr)}
         a, i = by_name["phase_a"], by_name["inner"]
         assert i.ts >= a.ts and i.ts + i.dur <= a.ts + a.dur + 1.0
         assert tr.duration_ms >= 0.0
@@ -248,7 +256,7 @@ def test_recorder_under_concurrent_sessions(monkeypatch):
         monkeypatch.undo()
         assert all(rec.get(t.sid) is t for t in ring)
         return (len(seen), len(set(seen)), len(ring),
-                len({t.sid for t in ring}), {len(t.spans) for t in ring})
+                len({t.sid for t in ring}), {len(_own(t)) for t in ring})
 
     assert loop_twin(body) == (80, 80, 16, 16, {1})
 
@@ -284,6 +292,12 @@ def traced_cycle(lp):
     return _CYCLES[lp.pkg]
 
 
+# The port's spans inside apply and the bind egress, and K1's device time
+# on the card, which the reference does not record.
+PORT_SPANS = {"apply.aggregates", "apply.walk", "apply.settle", "cache.bind",
+              "cache.assume", "cache.lineage", "k1.device"}
+
+
 def test_chrome_export_schema():
     def body(lp):
         _, _, export = _parts(lp)
@@ -291,17 +305,26 @@ def test_chrome_export_schema():
             export.to_chrome_trace(traced_cycle(lp)["trace"])))
         events = doc["traceEvents"]
         named = set()
+        # The port carries the spans taken before the session (the cache
+        # handlers' runs, full collections) on a track of their own, at
+        # negative timestamps; the reference has no such track.
+        carried = {ev["tid"] for ev in events if ev["ph"] == "M"
+                   and ev["name"] == "thread_name"
+                   and ev["args"]["name"] == "between sessions"}
         for ev in events:
             assert set(ev) >= {"name", "ph", "pid", "tid"}
             assert ev["ph"] in ("M", "X", "C")
             if ev["ph"] == "M" and ev["name"] == "thread_name":
                 named.add(ev["tid"])
             elif ev["ph"] == "X":
-                assert ev["ts"] >= 0 and ev["dur"] >= 0
+                assert ev["ts"] >= 0 or ev["tid"] in carried
+                assert ev["dur"] >= 0
         used = {ev["tid"] for ev in events if ev["ph"] in ("X", "C")}
         assert used - {0} <= named
         # The session's own event is named by its process-wide id.
         return sorted({ev["name"] for ev in events if ev["ph"] == "X"
+                       and ev["tid"] not in carried
+                       and ev["name"] not in PORT_SPANS
                        and not ev["name"].startswith("session ")})
 
     names = loop_twin(body)
