@@ -17,8 +17,8 @@ from typing import Dict, List, Optional
 
 from .. import knobs
 from ..api import (ClusterInfo, JobInfo, NodeInfo, Pod, PodGroup, QueueInfo,
-                   TaskInfo, TaskStatus, get_job_id, job_terminated,
-                   pod_key)
+                   TaskInfo, TaskStatus, allocated_status, get_job_id,
+                   job_terminated, pod_key)
 from ..api.job_info import TaskInfo as _TaskInfo
 from ..api.queue_info import Queue, queue_from_versioned
 from ..api.pod_group_info import from_versioned
@@ -26,6 +26,8 @@ from ..chaos import plan as chaos_plan
 from ..metrics import memledger, metrics
 from ..trace import spans as trace
 from ..trace.lineage import lineage as pod_lineage
+from .assume import (assume_walk, exact, exact_sum, group_sums,
+                     insert_clones)
 from .interface import (AmbiguousOutcomeError, Binder, Cache, Evictor,
                         StatusUpdater, VolumeBinder)
 from .shadow import create_shadow_pod_group, shadow_group_key, shadow_pod_group
@@ -306,7 +308,7 @@ class SchedulerCache(Cache):
         # ingestion path (informer callbacks, resync repair) sets it —
         # the loop then wakes immediately instead of sleeping out its
         # schedule_period.  Deliberately NOT fired by the scheduler's
-        # own writes (_assume_bound, the evict truth mirror): waking on
+        # own writes (_assume_bound_many, the evict truth mirror): waking on
         # self-inflicted churn would spin the loop one no-op cycle per
         # bind.  threading.Event.set is atomic, so the field needs no
         # lock of its own; it is installed once before cache.run().
@@ -510,19 +512,27 @@ class SchedulerCache(Cache):
             return
         if ti.node_name:
             if ti.node_name not in self.nodes:
-                self.nodes[ti.node_name] = NodeInfo(None)
-                self.nodes[ti.node_name].name = ti.node_name
-                self._stamp_seq(self.nodes[ti.node_name])
-            self._touch_node(self.nodes[ti.node_name])
-            try:
-                self.nodes[ti.node_name].add_task(ti)
-            except ValueError as exc:
-                # Informer truth can transiently overcommit a node; the
-                # reference logs and tolerates (event_handlers.go AddPod),
-                # letting OutOfSync detection exclude the node if accounting
-                # stays inconsistent.
-                self.events.append(("FailedAddTask", pod_key(ti.pod),
-                                    str(exc)))
+                self._placeholder_node(ti.node_name)
+            self._node_add(self.nodes[ti.node_name], ti)
+
+    def _placeholder_node(self, name: str) -> None:  # holds-lock: mutex
+        """A node the cache has not seen yet: its tasks arrived first."""
+        node = NodeInfo(None)
+        node.name = name
+        self.nodes[name] = node
+        self._stamp_seq(node)
+
+    def _node_add(self, node: NodeInfo, ti: _TaskInfo) -> None:  # holds-lock: mutex
+        """``node.add_task(ti)``; an overcommit is an event, not an error."""
+        self._touch_node(node)
+        try:
+            node.add_task(ti)
+        except ValueError as exc:
+            # Informer truth can transiently overcommit a node; the
+            # reference logs and tolerates (event_handlers.go AddPod),
+            # letting OutOfSync detection exclude the node if accounting
+            # stays inconsistent.
+            self.events.append(("FailedAddTask", pod_key(ti.pod), str(exc)))
 
     def _delete_task(self, ti: _TaskInfo) -> None:  # holds-lock: mutex
         job = self.jobs.get(ti.job)
@@ -576,7 +586,7 @@ class SchedulerCache(Cache):
     def _lineage_emit(cap, source: str) -> None:
         """Pod-lineage hook for EXTERNAL ingestion (informer callbacks,
         resync repair) — deliberately not wired into _add_task, so the
-        scheduler's own _assume_bound mirror never records an echo it
+        scheduler's own _assume_bound_many mirror never records an echo it
         did not receive.  A Pending unbound pod starts (or keeps) its
         timeline with the edge decode's monotonic stamp when one rode
         in on the object; a node-carrying delivery of a tracked pod is
@@ -1356,36 +1366,142 @@ class SchedulerCache(Cache):
                 metrics.note_bind_retry()
                 delay = _backoff_sleep(delay)
 
-    def _assume_bound(self, task: TaskInfo, hostname: str) -> None:
-        """Mirror our own successful bind into cache truth AHEAD of the
+    def _assume_bound_many(self, tasks, hostname: Optional[str] = None
+                           ) -> None:
+        """Mirror our own successful binds into cache truth AHEAD of the
         watch echo (kube-scheduler's assume semantics).  On a remote edge
         the echo lags the POST; until it lands, snapshots would still see
-        the pod Pending, and the next session would re-place it — a
+        a pod Pending, and the next session would re-place it — a
         duplicate (409-rejected) Binding POST at best, a double-bind at
-        worst.  Re-ingests a node-stamped copy of the pod through the
-        exact update path the echo will later take, so the echo itself is
-        an idempotent replacement.  On the in-process cluster the
-        informer echo is synchronous and this early-returns."""
-        import dataclasses
+        worst.  Each cached task is replaced by a copy bound to its node
+        (``hostname``, or the task's own ``node_name`` when None), the
+        state the echo's update path will leave, so the echo itself is an
+        idempotent replacement.  A task whose echo already landed, as it
+        always has on the in-process cluster, or that is gone, is skipped.
+
+        One mutex acquisition and one epoch bump for the batch.  The end
+        state is the one the task-by-task delete and re-add
+        (``_delete_task``, ``_task_info``, ``_add_task``) leaves in batch
+        order, dict orders, events and every bit included, without its
+        per-task work:
+
+        - no re-parse: the bound task is the cached one's ``clone_lite``
+          (its request vectors come from containers a bind does not
+          change) with the stamped pod, its status and its node;
+        - a fused job move: out of its status bucket, to the end of
+          ``tasks`` and of its new bucket, as delete and re-add leave it;
+          ``total_request`` keeps its value and ``allocated`` grows once
+          per job (``_settle_moved``);
+        - each node's ``idle``, ``used`` and ``releasing`` move once, by
+          the sum of its new tasks, where that sum fits ``idle``
+          (``_mirror_node``).
+
+        Sums stand in for steps only where they give the same bits
+        (``assume.exact_sum``).  Otherwise, and for a task already allocated
+        or whose job has no gang source (its delete may drop the job),
+        the task-by-task steps run, in batch order, ``FailedAddTask``
+        events included."""
+        slow: set = set()             # uids that took a per-task step
+        moved: Dict[JobInfo, list] = {}   # job -> its fused tasks
+        groups: Dict[str, list] = {}      # node -> its new tasks
+        on_nodes: list = []               # every node's new tasks, in order
+
+        def step_job(job, cached, bound):
+            self._assume_exact(job, cached, bound, moved, slow)  # lint: disable=lock-discipline (only the walk below calls it, under the mutex)
+
         with self.mutex:
-            job = self.jobs.get(task.job)
-            cached = job.tasks.get(task.uid) if job is not None else None
-            if cached is None or cached.node_name:
-                return  # echo already landed, or the task is gone
             self.epoch += 1
-            # Shallow replace, not deepcopy: only spec.node_name changes;
-            # containers/metadata are shared with the replaced pod, which
-            # is safe under the PodSpec immutability contract
-            # (api/objects.py) and the old pod is discarded here anyway.
-            # deepcopy was ~0.3 ms PER BOUND POD — O(binds) of pure
-            # overhead on every steady cycle's assume path.
-            pod = dataclasses.replace(
-                cached.pod, spec=dataclasses.replace(cached.pod.spec,
-                                                     node_name=hostname))
-            self._delete_task(cached)
-            ti = self._task_info(pod)
-            if ti is not None:
-                self._add_task(ti)
+            mirrored, skipped = assume_walk(
+                self.jobs, self.nodes, tasks, hostname, moved, groups,
+                on_nodes, step_job, self._placeholder_node)
+            if not mirrored:
+                self.epoch -= 1  # nothing was stamped with it
+            for job, fused in moved.items():
+                self._settle_moved(job, fused, slow)
+            nodes = self.nodes
+            stepped = {host for host, group in groups.items()
+                       if not self._mirror_node(nodes[host], host, group)}
+            if stepped:
+                for bound in on_nodes:
+                    if bound.node_name in stepped:
+                        slow.add(bound.uid)
+                        self._node_add(nodes[bound.node_name], bound)
+        metrics.note_assume_mirrored(mirrored - len(slow), len(slow),
+                                     skipped)
+
+    def _assume_exact(self, job, cached, bound, moved, slow):  # holds-lock: mutex
+        """The job side of one bound task, step by step as the informer
+        handlers take it: for a task already allocated, or whose job has
+        no gang source, so that its delete may drop the job.  The job's
+        fused tasks before it are settled first, keeping the order of
+        its vector steps."""
+        fused = moved.pop(job, None)
+        if fused is not None:
+            self._settle_moved(job, fused, slow)
+        self._delete_task(cached)
+        home = self._get_or_create_job(bound)
+        if home is not None:
+            home.add_task_info(bound)
+            self._touch_job(home)
+        slow.add(bound.uid)
+
+    def _settle_moved(self, job, fused, slow) -> None:  # holds-lock: mutex
+        """The job vectors' part of ``fused``, the job's tasks the
+        assume mirror moved to their bound copies: ``total_request`` is
+        unchanged by each task's delete and re-add, and ``allocated``
+        grows by the newly allocated requests, each by their sum where
+        that gives the steps' bits, else step by step in batch order."""
+        job._ready_num = None
+        total = exact_sum(fused)
+        summed = total is not None and exact(job.total_request)
+        if not summed:
+            for t in fused:
+                job.total_request.sub(t.resreq)
+                job.total_request.add(t.resreq)
+        alloc = [t for t in fused if allocated_status(t.status)]
+        if alloc:
+            if summed and exact(job.allocated):
+                job.allocated.add(total if len(alloc) == len(fused)
+                                  else exact_sum(alloc))
+            else:
+                summed = False
+                for t in alloc:
+                    job.allocated.add(t.resreq)
+        if not summed:
+            slow.update(t.uid for t in fused)
+        self._touch_job(job)
+
+    def _mirror_node(self, node, host, group) -> bool:  # holds-lock: mutex
+        """``node.add_task`` of each task of ``group`` with the vectors
+        moved once, or False, leaving the node untouched, where that
+        would not give the steps' end state: a node without its API
+        object or of another name, a pod key already on the node or
+        twice in the group, a request that ``exact_sum`` refuses,
+        vectors that are not ``exact``, or a sum that does not fit
+        ``idle``.  Each step checks that its task fits what the ones
+        before left (``less_equal``, with its tolerance); with exact
+        non-negative parts the last step's check is the sum's, and it
+        implies the others'.  No bound task is Pipelined
+        (``get_task_status``), so each takes from ``idle``; the
+        Releasing ones add to ``releasing`` too."""
+        if node.node is None or node.name != host:
+            return False
+        sums = group_sums(node.tasks, group)
+        if sums is None:
+            return False
+        total, releasing = sums
+        if (not exact(total) or not exact(node.idle)
+                or not exact(node.used) or not total.less_equal(node.idle)):
+            return False
+        if releasing is not None:
+            if not exact(node.releasing):
+                return False
+            node.releasing.add(releasing)
+        node.idle.sub_lenient(total)
+        node.used.add(total)
+        insert_clones(node.tasks, group)
+        self._touch_node(node)
+        return True
 
     def _lineage_bound(self, tasks, source: str) -> None:
         """Bind egress proven for ``tasks``: resolve queues under the
@@ -1409,7 +1525,7 @@ class SchedulerCache(Cache):
         pod_lineage.note_bind_sent((pod_key(task.pod),))
         try:
             self._bind_with_backoff(task.pod, hostname)
-            self._assume_bound(task, hostname)
+            self._assume_bound_many((task,), hostname)
             self._lineage_bound((task,), "bind")
             self.events.append(("Scheduled", pod_key(task.pod), hostname))
         except AmbiguousOutcomeError:
@@ -1478,25 +1594,19 @@ class SchedulerCache(Cache):
             failed_uids.add(pod.metadata.uid)
         for pod, _hostname, _exc in final_failures:
             failed_uids.add(pod.metadata.uid)
-        if not failed_uids:  # one bulk event write for the whole batch
-            with trace.span("cache.assume"):
-                for t in tasks:
-                    self._assume_bound(t, t.node_name)
-                self.events.extend(("Scheduled", pod_key(t.pod),
-                                    t.node_name) for t in tasks)
-            with trace.span("cache.lineage"):
-                self._lineage_bound(tasks, "bind")
-            return
-        landed = []
+        landed = tasks
         with trace.span("cache.assume"):
-            for t in tasks:
-                if t.uid in failed_uids:
-                    self._resync_task(t)
-                else:
-                    self._assume_bound(t, t.node_name)
-                    landed.append(t)
-                    self.events.append(("Scheduled", pod_key(t.pod),
-                                        t.node_name))
+            if failed_uids:
+                landed = []
+                for t in tasks:
+                    if t.uid in failed_uids:
+                        self._resync_task(t)
+                    else:
+                        landed.append(t)
+            self._assume_bound_many(landed)
+            # One bulk event write for the batch.
+            self.events.extend(("Scheduled", pod_key(t.pod), t.node_name)
+                               for t in landed)
         if landed:
             with trace.span("cache.lineage"):
                 self._lineage_bound(landed, "bind")

@@ -451,6 +451,14 @@ bind_ambiguous = registry.register(Counter(
 bind_retries = registry.register(Counter(
     f"{SUBSYSTEM}_bind_retries_total",
     "Bind-egress retry waves after transient, unambiguous failures"))
+# The port's own: the path each bound task took into cache truth ahead
+# of its watch echo (cache/cache.py ``_assume_bound_many``).
+assume_mirrored = registry.register(Counter(
+    f"{SUBSYSTEM}_assume_mirrored_total",
+    "Bound tasks mirrored into cache truth ahead of the watch echo, by "
+    "path (batched = node and job vectors moved once by their sums; "
+    "per_task = a task-by-task step; skipped = the echo landed first or "
+    "the task is gone)", ("path",)))
 watch_reconnects = registry.register(Counter(
     f"{SUBSYSTEM}_watch_reconnects_total",
     "Reflector watch-stream reconnects, by resource and cause "
@@ -1028,6 +1036,14 @@ def note_bind_ambiguous(outcome: str) -> None:
 
 def note_bind_retry() -> None:
     bind_retries.inc()
+
+
+def note_assume_mirrored(batched: int, per_task: int, skipped: int) -> None:
+    """Count one bind batch's truth mirror: one update per path."""
+    for path, n in (("batched", batched), ("per_task", per_task),
+                    ("skipped", skipped)):
+        if n:
+            assume_mirrored.inc(float(n), path)
 
 
 def note_watch_reconnect(resource: str, cause: str) -> None:

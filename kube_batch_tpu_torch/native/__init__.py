@@ -119,3 +119,7 @@ apply_placements = getattr(_mod, "apply_placements", None)
 clone_task_map = getattr(_mod, "clone_task_map", None)
 pod_static = getattr(_mod, "pod_static", None)
 pod_static_setup = getattr(_mod, "pod_static_setup", None)
+assume_walk = getattr(_mod, "assume_walk", None)
+assume_setup = getattr(_mod, "assume_setup", None)
+assume_group = getattr(_mod, "assume_group", None)
+assume_insert = getattr(_mod, "assume_insert", None)

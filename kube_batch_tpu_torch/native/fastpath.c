@@ -14,13 +14,20 @@
  * placement (task, hostname, kind) resolve job/node, duplicate-check
  * against node.tasks, optionally bind volumes, stamp task.node_name,
  * insert task.clone_lite() into node.tasks, and bucket the task for the
- * deferred status-index moves.  Behavior is bit-identical to the Python
- * loop it replaces; kube_batch_tpu_torch/native/__init__.py falls back to
- * that loop when this extension cannot be built.
+ * deferred status-index moves.
+ *
+ *   assume_walk, assume_group, assume_insert
+ *
+ * do the same for the cache's mirror of a batch of binds
+ * (cache/assume.py): the walk over the batch, and each node's sums and
+ * inserts.  Behavior is bit-identical to the Python loops they replace;
+ * kube_batch_tpu_torch/native/__init__.py falls back to those loops when
+ * this extension cannot be built.
  */
 #define PY_SSIZE_T_CLEAN
 #include <Python.h>
 #include <structmember.h>
+#include <math.h>
 
 /* Exception-free attribute probe (returns -1 err / 0 missing / 1 found
  * with a new ref in *result): a missed PyObject_GetAttr materializes an
@@ -38,7 +45,7 @@ extern int _PyObject_LookupAttr(PyObject *, PyObject *, PyObject **);
 /* Cached attribute-name objects (created once at module init). */
 static PyObject *s_job, *s_pod, *s_spec, *s_volumes, *s_node_name,
     *s_name, *s_tasks, *s_clone_lite, *s_pod_key_cache, *s_metadata,
-    *s_namespace, *s_lazy, *s_status;
+    *s_namespace, *s_lazy, *s_status, *s_uid;
 
 /* TaskInfo slot layout, resolved once from the first task's type: the
  * member-descriptor offsets let the clone run as 11 pointer copies
@@ -683,6 +690,560 @@ pod_static(PyObject *self, PyObject *pod)
     return result;
 }
 
+/* assume_walk: pass 1 of the cache's assume mirror
+ * (cache/cache.py SchedulerCache._assume_bound_many), the twin of
+ * cache/assume.py ``assume_walk_py``, with the same semantics:
+ *
+ *   assume_walk(jobs, nodes, tasks, hostname, moved, groups, on_nodes,
+ *               step_job, placeholder) -> (mirrored, skipped)
+ *
+ * Per task, in order: skip it when its job or its cached task is gone or
+ * the cached task already has a node (the echo landed); else make the
+ * bound copy — the cached task's clone with a node-stamped pod, the pod's
+ * status and priority, volume_ready False — and move it in its job:
+ * fused (out of its status bucket, to the end of job.tasks and its new
+ * bucket, appended to moved[job]) or, for a task already allocated or a
+ * job without a gang source, through step_job(job, cached, bound).  Then
+ * joins groups[hostname] and on_nodes unless it has no node or a
+ * terminated status; placeholder(name) makes a node the cache has not
+ * seen.  assume_setup registers the types, field names and functions the
+ * walk needs, once. */
+static PyObject *as_pod_type = NULL, *as_spec_type = NULL,
+    *as_pod_fields = NULL, *as_spec_fields = NULL, *as_status_fn = NULL,
+    *as_stamp_fn = NULL, *as_no_node = NULL, *as_empty_tuple = NULL,
+    *as_one = NULL;
+static long as_alloc_mask = 0;
+static PyObject *s_pod_group, *s_pdb, *s_task_status_index, *s_priority;
+
+static PyObject *
+assume_setup(PyObject *self, PyObject *args)
+{
+    PyObject *pod_type, *spec_type, *pod_fields, *spec_fields, *status_fn,
+        *stamp_fn, *no_node;
+    long mask;
+    if (!PyArg_ParseTuple(args, "OOOOOOlO", &pod_type, &spec_type,
+                          &pod_fields, &spec_fields, &status_fn, &stamp_fn,
+                          &mask, &no_node))
+        return NULL;
+    if (!PyType_Check(pod_type) || !PyType_Check(spec_type)
+        || !PyTuple_Check(pod_fields) || !PyTuple_Check(spec_fields)
+        || !PyTuple_Check(no_node)) {
+        PyErr_SetString(PyExc_TypeError, "assume_setup: bad arguments");
+        return NULL;
+    }
+    PyObject *objs[] = {pod_type, spec_type, pod_fields, spec_fields,
+                        status_fn, stamp_fn, no_node};
+    PyObject **slots[] = {&as_pod_type, &as_spec_type, &as_pod_fields,
+                          &as_spec_fields, &as_status_fn, &as_stamp_fn,
+                          &as_no_node};
+    for (int i = 0; i < 7; i++) {
+        Py_INCREF(objs[i]);
+        Py_XSETREF(*slots[i], objs[i]);
+    }
+    as_alloc_mask = mask;
+    if (as_empty_tuple == NULL && (as_empty_tuple = PyTuple_New(0)) == NULL)
+        return NULL;
+    if (as_one == NULL && (as_one = PyLong_FromLong(1)) == NULL)
+        return NULL;
+    Py_RETURN_NONE;
+}
+
+/* A new instance of ``type`` with ``fields`` copied from ``src`` one by
+ * one, as dataclasses.replace shares them: attribute stores keep the
+ * instance's inline values, where a __dict__ copy would give both
+ * objects a dict for the collector to walk. */
+static PyObject *
+copy_fields(PyObject *type, PyObject *src, PyObject *fields)
+{
+    PyObject *obj = PyBaseObject_Type.tp_new((PyTypeObject *)type,
+                                             as_empty_tuple, NULL);
+    if (obj == NULL)
+        return NULL;
+    Py_ssize_t n = PyTuple_GET_SIZE(fields);
+    for (Py_ssize_t i = 0; i < n; i++) {
+        PyObject *name = PyTuple_GET_ITEM(fields, i);
+        PyObject *v = PyObject_GetAttr(src, name);
+        if (v == NULL || PyObject_SetAttr(obj, name, v) < 0) {
+            Py_XDECREF(v);
+            Py_DECREF(obj);
+            return NULL;
+        }
+        Py_DECREF(v);
+    }
+    return obj;
+}
+
+/* cache/assume.py node_stamped in C: a new Pod and PodSpec, node_name set,
+ * _pod_key carried; other types go to the Python function. */
+static PyObject *
+stamp_pod(PyObject *pod, PyObject *host)
+{
+    PyObject *spec = PyObject_GetAttr(pod, s_spec);
+    if (spec == NULL)
+        return NULL;
+    if ((PyObject *)Py_TYPE(pod) != as_pod_type
+        || (PyObject *)Py_TYPE(spec) != as_spec_type) {
+        Py_DECREF(spec);
+        return PyObject_CallFunctionObjArgs(as_stamp_fn, pod, host, NULL);
+    }
+    PyObject *new_spec = copy_fields(as_spec_type, spec, as_spec_fields);
+    Py_DECREF(spec);
+    if (new_spec == NULL)
+        return NULL;
+    if (PyObject_SetAttr(new_spec, s_node_name, host) < 0) {
+        Py_DECREF(new_spec);
+        return NULL;
+    }
+    PyObject *new_pod = copy_fields(as_pod_type, pod, as_pod_fields);
+    if (new_pod == NULL || PyObject_SetAttr(new_pod, s_spec, new_spec) < 0) {
+        Py_XDECREF(new_pod);
+        Py_DECREF(new_spec);
+        return NULL;
+    }
+    Py_DECREF(new_spec);
+    PyObject *key;
+    if (LOOKUP_ATTR(pod, s_pod_key_cache, &key) < 0) {
+        Py_DECREF(new_pod);
+        return NULL;
+    }
+    if (key != NULL) {
+        int rc = PyObject_SetAttr(new_pod, s_pod_key_cache, key);
+        Py_DECREF(key);
+        if (rc < 0) {
+            Py_DECREF(new_pod);
+            return NULL;
+        }
+    }
+    return new_pod;
+}
+
+static inline void
+slot_put(PyObject *obj, int slot, PyObject *v)  /* takes a new ref */
+{
+    PyObject **p = (PyObject **)((char *)obj + layout.offsets[slot]);
+    PyObject *old = *p;
+    *p = v;
+    Py_XDECREF(old);
+}
+
+/* The bound copy of ``cached`` on ``host``; *status_out borrows its
+ * status.  Needs the fast layout (checked by the caller). */
+static PyObject *
+bound_copy(PyObject *cached, PyObject *host, PyObject **status_out)
+{
+    PyObject *pod = stamp_pod(slot_get(cached, SL_POD), host);
+    if (pod == NULL)
+        return NULL;
+    PyObject *status = PyObject_CallOneArg(as_status_fn, pod);
+    if (status == NULL) {
+        Py_DECREF(pod);
+        return NULL;
+    }
+    PyObject *spec = PyObject_GetAttr(pod, s_spec);
+    PyObject *priority = spec ? PyObject_GetAttr(spec, s_priority) : NULL;
+    Py_XDECREF(spec);
+    if (priority == NULL) {
+        Py_DECREF(status);
+        Py_DECREF(pod);
+        return NULL;
+    }
+    if (priority == Py_None) {
+        Py_DECREF(priority);
+        priority = Py_NewRef(as_one);
+    }
+    PyObject *bound = clone_task_fast(cached);
+    if (bound == NULL) {
+        Py_DECREF(priority);
+        Py_DECREF(status);
+        Py_DECREF(pod);
+        return NULL;
+    }
+    slot_put(bound, SL_POD, pod);
+    slot_put(bound, SL_NODE_NAME, Py_NewRef(host));
+    slot_put(bound, SL_STATUS, status);
+    slot_put(bound, SL_PRIORITY, priority);
+    slot_put(bound, SL_VOLUME_READY, Py_NewRef(Py_False));
+    *status_out = status;
+    return bound;
+}
+
+/* list at d[key], made empty when missing; borrowed. */
+static PyObject *
+list_at(PyObject *d, PyObject *key)
+{
+    PyObject *lst = PyDict_GetItemWithError(d, key);
+    if (lst != NULL || PyErr_Occurred())
+        return lst;
+    lst = PyList_New(0);
+    if (lst == NULL)
+        return NULL;
+    int rc = PyDict_SetItem(d, key, lst);
+    Py_DECREF(lst);
+    return rc < 0 ? NULL : lst;
+}
+
+/* The fused job move of cached -> bound (see the walk's comment). */
+static int
+fused_move(PyObject *job, PyObject *job_tasks, PyObject *cached,
+           PyObject *bound, PyObject *status, PyObject *moved)
+{
+    PyObject *uid = slot_get(cached, SL_UID);
+    PyObject *old_status = slot_get(cached, SL_STATUS);
+    PyObject *index = PyObject_GetAttr(job, s_task_status_index);
+    if (index == NULL)
+        return -1;
+    int rc = -1;
+    PyObject *bucket = PyDict_GetItemWithError(index, old_status);
+    if (bucket == NULL && PyErr_Occurred())
+        goto done;
+    if (bucket != NULL) {
+        int has = PyDict_Contains(bucket, uid);
+        if (has < 0 || (has && PyDict_DelItem(bucket, uid) < 0))
+            goto done;
+        if (PyDict_GET_SIZE(bucket) == 0
+            && PyDict_DelItem(index, old_status) < 0)
+            goto done;
+    }
+    if (PyDict_DelItem(job_tasks, uid) < 0
+        || PyDict_SetItem(job_tasks, uid, bound) < 0)
+        goto done;
+    /* index[status]: the defaultdict makes the bucket when missing. */
+    PyObject *dest = PyObject_GetItem(index, status);
+    if (dest == NULL)
+        goto done;
+    int set = PyDict_Check(dest) ? PyDict_SetItem(dest, uid, bound)
+                                 : PyObject_SetItem(dest, uid, bound);
+    Py_DECREF(dest);
+    if (set < 0)
+        goto done;
+    PyObject *fused = list_at(moved, job);
+    if (fused == NULL || PyList_Append(fused, bound) < 0)
+        goto done;
+    rc = 0;
+done:
+    Py_DECREF(index);
+    return rc;
+}
+
+/* Whether the job side of cached must take the exact steps: its job has
+ * neither a pod group nor a PDB, or the task is already allocated. */
+static int
+needs_exact(PyObject *job, PyObject *cached)
+{
+    PyObject *pg = PyObject_GetAttr(job, s_pod_group);
+    if (pg == NULL)
+        return -1;
+    int none = (pg == Py_None);
+    Py_DECREF(pg);
+    if (none) {
+        PyObject *pdb = PyObject_GetAttr(job, s_pdb);
+        if (pdb == NULL)
+            return -1;
+        none = (pdb == Py_None);
+        Py_DECREF(pdb);
+        if (none)
+            return 1;
+    }
+    long st = PyLong_AsLong(slot_get(cached, SL_STATUS));
+    if (st == -1 && PyErr_Occurred())
+        return -1;
+    return (st & as_alloc_mask) != 0;
+}
+
+static PyObject *
+assume_walk(PyObject *self, PyObject *args)
+{
+    PyObject *jobs, *nodes, *tasks, *hostname, *moved, *groups, *on_nodes,
+        *step_job, *placeholder;
+    if (!PyArg_ParseTuple(args, "OOOOOOOOO", &jobs, &nodes, &tasks,
+                          &hostname, &moved, &groups, &on_nodes, &step_job,
+                          &placeholder))
+        return NULL;
+    if (as_status_fn == NULL) {
+        PyErr_SetString(PyExc_RuntimeError, "assume_setup not called");
+        return NULL;
+    }
+    if (!PyDict_Check(jobs) || !PyDict_Check(nodes) || !PyDict_Check(moved)
+        || !PyDict_Check(groups) || !PyList_Check(on_nodes)) {
+        PyErr_SetString(PyExc_TypeError, "assume_walk: bad arguments");
+        return NULL;
+    }
+    PyObject *seq = PySequence_Fast(tasks, "tasks must be a sequence");
+    if (seq == NULL)
+        return NULL;
+    Py_ssize_t mirrored = 0, skipped = 0;
+    Py_ssize_t n = PySequence_Fast_GET_SIZE(seq);
+    for (Py_ssize_t i = 0; i < n; i++) {
+        PyObject *t = PySequence_Fast_GET_ITEM(seq, i);
+        PyObject *job_uid = PyObject_GetAttr(t, s_job);
+        if (job_uid == NULL)
+            goto fail;
+        PyObject *job = PyDict_GetItemWithError(jobs, job_uid);
+        Py_DECREF(job_uid);
+        if (job == NULL) {
+            if (PyErr_Occurred())
+                goto fail;
+            skipped++;
+            continue;
+        }
+        Py_INCREF(job);
+        PyObject *uid = PyObject_GetAttr(t, s_uid);
+        PyObject *job_tasks = uid ? PyObject_GetAttr(job, s_tasks) : NULL;
+        PyObject *cached = job_tasks
+            ? PyDict_GetItemWithError(job_tasks, uid) : NULL;
+        Py_XDECREF(uid);
+        if (cached == NULL) {
+            Py_XDECREF(job_tasks);
+            Py_DECREF(job);
+            if (PyErr_Occurred())
+                goto fail;
+            skipped++;
+            continue;
+        }
+        Py_INCREF(cached);  /* job.tasks lets go of it below */
+        PyObject *host = NULL, *bound = NULL, *status = NULL;
+        if (layout.type != Py_TYPE(cached))
+            resolve_layout(Py_TYPE(cached));
+        if (!layout.valid || Py_TYPE(cached) != layout.type
+            || slot_get(cached, SL_NODE_NAME) == NULL
+            || slot_get(cached, SL_POD) == NULL) {
+            PyErr_SetString(PyExc_TypeError,
+                            "assume_walk: unexpected task layout");
+            goto fail_task;
+        }
+        int landed = PyObject_IsTrue(slot_get(cached, SL_NODE_NAME));
+        if (landed < 0)
+            goto fail_task;
+        if (landed) {
+            Py_DECREF(cached);
+            Py_DECREF(job_tasks);
+            Py_DECREF(job);
+            skipped++;
+            continue;
+        }
+        mirrored++;
+        host = hostname == Py_None ? PyObject_GetAttr(t, s_node_name)
+                                   : Py_NewRef(hostname);
+        if (host == NULL)
+            goto fail_task;
+        bound = bound_copy(cached, host, &status);
+        if (bound == NULL)
+            goto fail_task;
+        int ex = needs_exact(job, cached);
+        if (ex < 0)
+            goto fail_task;
+        if (ex) {
+            PyObject *r = PyObject_CallFunctionObjArgs(step_job, job, cached,
+                                                       bound, NULL);
+            if (r == NULL)
+                goto fail_task;
+            Py_DECREF(r);
+        } else if (fused_move(job, job_tasks, cached, bound, status,
+                              moved) < 0) {
+            goto fail_task;
+        }
+        int keep = PyObject_IsTrue(host);
+        if (keep < 0)
+            goto fail_task;
+        if (keep) {
+            int term = PySequence_Contains(as_no_node, status);
+            if (term < 0)
+                goto fail_task;
+            keep = !term;
+        }
+        if (keep) {
+            PyObject *group = PyDict_GetItemWithError(groups, host);
+            if (group == NULL) {
+                if (PyErr_Occurred())
+                    goto fail_task;
+                int known = PyDict_Contains(nodes, host);
+                if (known < 0)
+                    goto fail_task;
+                if (!known) {
+                    PyObject *r = PyObject_CallOneArg(placeholder, host);
+                    if (r == NULL)
+                        goto fail_task;
+                    Py_DECREF(r);
+                }
+                group = list_at(groups, host);
+                if (group == NULL)
+                    goto fail_task;
+            }
+            if (PyList_Append(group, bound) < 0
+                || PyList_Append(on_nodes, bound) < 0)
+                goto fail_task;
+        }
+        Py_DECREF(bound);
+        Py_DECREF(host);
+        Py_DECREF(cached);
+        Py_DECREF(job_tasks);
+        Py_DECREF(job);
+        continue;
+    fail_task:
+        Py_XDECREF(bound);
+        Py_XDECREF(host);
+        Py_DECREF(cached);
+        Py_DECREF(job_tasks);
+        Py_DECREF(job);
+        goto fail;
+    }
+    Py_DECREF(seq);
+    return Py_BuildValue("(nn)", mirrored, skipped);
+fail:
+    Py_DECREF(seq);
+    return NULL;
+}
+
+/* assume_group(node_tasks, group, releasing) -> sums | False | None
+ *
+ * The common case of cache/assume.py group_sums, for one node's new tasks
+ * in the assume mirror: (cpu, memory, Releasing cpu, Releasing memory,
+ * Releasing count), each summed in group order from 0.0; False where a
+ * pod key is already in node_tasks or repeats in the group, or a
+ * request's milli-CPU or memory is negative or not a whole number (the
+ * Python form refuses those too); None where a request has scalar
+ * resources or a layout this does not read, and the Python form
+ * decides. */
+static PyObject *s_milli_cpu, *s_memory, *s_scalar_resources;
+
+/* 1 and *out set where obj is a float that is whole and not negative;
+ * 0 where it is a float that is not; -1 (no error set) for another
+ * type. */
+static int
+whole_float(PyObject *obj, double *out)
+{
+    if (!PyFloat_CheckExact(obj))
+        return -1;
+    double v = PyFloat_AS_DOUBLE(obj);
+    if (!(v >= 0.0 && isfinite(v) && v == floor(v)))
+        return 0;
+    *out = v;
+    return 1;
+}
+
+static PyObject *
+assume_group(PyObject *self, PyObject *args)
+{
+    PyObject *node_tasks, *group, *releasing;
+    if (!PyArg_ParseTuple(args, "OOO", &node_tasks, &group, &releasing))
+        return NULL;
+    if (!PyDict_Check(node_tasks) || !PyList_Check(group))
+        Py_RETURN_NONE;
+    Py_ssize_t n = PyList_GET_SIZE(group);
+    PyObject *seen = n > 1 ? PySet_New(NULL) : NULL;
+    if (n > 1 && seen == NULL)
+        return NULL;
+    PyObject *result = NULL;
+    double cpu = 0.0, mem = 0.0, rel_cpu = 0.0, rel_mem = 0.0;
+    Py_ssize_t n_rel = 0;
+    for (Py_ssize_t i = 0; i < n; i++) {
+        PyObject *t = PyList_GET_ITEM(group, i);
+        if (layout.type != Py_TYPE(t))
+            resolve_layout(Py_TYPE(t));
+        if (!layout.valid || Py_TYPE(t) != layout.type
+            || slot_get(t, SL_POD) == NULL || slot_get(t, SL_RESREQ) == NULL
+            || slot_get(t, SL_STATUS) == NULL) {
+            result = Py_NewRef(Py_None);
+            goto done;
+        }
+        PyObject *key = get_pod_key(slot_get(t, SL_POD));
+        if (key == NULL)
+            goto done;
+        int dup = PyDict_Contains(node_tasks, key);
+        if (dup == 0 && seen != NULL) {
+            dup = PySet_Contains(seen, key);
+            if (dup == 0 && PySet_Add(seen, key) < 0)
+                dup = -1;
+        }
+        Py_DECREF(key);
+        if (dup < 0)
+            goto done;
+        if (dup) {
+            result = Py_NewRef(Py_False);
+            goto done;
+        }
+        PyObject *r = slot_get(t, SL_RESREQ);
+        PyObject *sc = PyObject_GetAttr(r, s_scalar_resources);
+        if (sc == NULL)
+            goto done;
+        int plain = PyDict_Check(sc) && PyDict_GET_SIZE(sc) == 0;
+        Py_DECREF(sc);
+        if (!plain) {
+            result = Py_NewRef(Py_None);
+            goto done;
+        }
+        PyObject *c_obj = PyObject_GetAttr(r, s_milli_cpu);
+        PyObject *m_obj = c_obj ? PyObject_GetAttr(r, s_memory) : NULL;
+        if (m_obj == NULL) {
+            Py_XDECREF(c_obj);
+            goto done;
+        }
+        double c = 0.0, m = 0.0;
+        int wc = whole_float(c_obj, &c), wm = whole_float(m_obj, &m);
+        Py_DECREF(c_obj);
+        Py_DECREF(m_obj);
+        if (wc < 0 || wm < 0) {
+            result = Py_NewRef(Py_None);
+            goto done;
+        }
+        if (!wc || !wm) {
+            result = Py_NewRef(Py_False);
+            goto done;
+        }
+        cpu += c;
+        mem += m;
+        int rel = PyObject_RichCompareBool(slot_get(t, SL_STATUS), releasing,
+                                           Py_EQ);
+        if (rel < 0)
+            goto done;
+        if (rel) {
+            rel_cpu += c;
+            rel_mem += m;
+            n_rel++;
+        }
+    }
+    result = Py_BuildValue("(ddddn)", cpu, mem, rel_cpu, rel_mem, n_rel);
+done:
+    Py_XDECREF(seen);
+    return result;
+}
+
+/* assume_insert(node_tasks, group): node_tasks[pod key] = the task's
+ * clone, for each task of group in order (cache/assume.py insert_clones). */
+static PyObject *
+assume_insert(PyObject *self, PyObject *args)
+{
+    PyObject *node_tasks, *group;
+    if (!PyArg_ParseTuple(args, "OO", &node_tasks, &group))
+        return NULL;
+    PyObject *seq = PySequence_Fast(group, "group must be a sequence");
+    if (seq == NULL)
+        return NULL;
+    Py_ssize_t n = PySequence_Fast_GET_SIZE(seq);
+    for (Py_ssize_t i = 0; i < n; i++) {
+        PyObject *t = PySequence_Fast_GET_ITEM(seq, i);
+        if (layout.type != Py_TYPE(t))
+            resolve_layout(Py_TYPE(t));
+        int fast = layout.valid && Py_TYPE(t) == layout.type;
+        PyObject *pod = fast ? slot_get(t, SL_POD) : NULL;
+        pod = pod ? Py_NewRef(pod) : PyObject_GetAttr(t, s_pod);
+        PyObject *key = pod ? get_pod_key(pod) : NULL;
+        Py_XDECREF(pod);
+        PyObject *clone = key == NULL ? NULL
+            : fast ? clone_task_fast(t)
+                   : PyObject_CallMethodNoArgs(t, s_clone_lite);
+        int rc = clone ? PyObject_SetItem(node_tasks, key, clone) : -1;
+        Py_XDECREF(clone);
+        Py_XDECREF(key);
+        if (rc < 0) {
+            Py_DECREF(seq);
+            return NULL;
+        }
+    }
+    Py_DECREF(seq);
+    Py_RETURN_NONE;
+}
+
 static PyMethodDef methods[] = {
     {"apply_placements", apply_placements, METH_VARARGS,
      "Pass 1 of Session.batch_apply (see module docstring)."},
@@ -692,6 +1253,14 @@ static PyMethodDef methods[] = {
      "Register (empty_sig, slow_fn) for pod_static."},
     {"pod_static", pod_static, METH_O,
      "First-touch static-feature derivation for a pod (cached)."},
+    {"assume_setup", assume_setup, METH_VARARGS,
+     "Register the types, fields and functions of assume_walk."},
+    {"assume_walk", assume_walk, METH_VARARGS,
+     "Pass 1 of the cache's assume mirror (see its comment)."},
+    {"assume_group", assume_group, METH_VARARGS,
+     "One node's sums for the assume mirror (see its comment)."},
+    {"assume_insert", assume_insert, METH_VARARGS,
+     "Insert a node's new tasks' clones for the assume mirror."},
     {NULL, NULL, 0, NULL},
 };
 
@@ -723,12 +1292,22 @@ PyInit__fastpath_torch(void)
     s_node_selector = PyUnicode_InternFromString("node_selector");
     s_tolerations = PyUnicode_InternFromString("tolerations");
     s_affinity = PyUnicode_InternFromString("affinity");
+    s_uid = PyUnicode_InternFromString("uid");
+    s_pod_group = PyUnicode_InternFromString("pod_group");
+    s_pdb = PyUnicode_InternFromString("pdb");
+    s_task_status_index = PyUnicode_InternFromString("task_status_index");
+    s_priority = PyUnicode_InternFromString("priority");
+    s_milli_cpu = PyUnicode_InternFromString("milli_cpu");
+    s_memory = PyUnicode_InternFromString("memory");
+    s_scalar_resources = PyUnicode_InternFromString("scalar_resources");
     if (!s_job || !s_pod || !s_spec || !s_volumes || !s_node_name
         || !s_name || !s_tasks || !s_clone_lite || !s_pod_key_cache
         || !s_metadata || !s_namespace || !s_lazy || !s_status
         || !s_tensor_static
         || !s_containers || !s_ports || !s_host_port || !s_node_selector
-        || !s_tolerations || !s_affinity)
+        || !s_tolerations || !s_affinity || !s_uid || !s_pod_group
+        || !s_pdb || !s_task_status_index || !s_priority || !s_milli_cpu
+        || !s_memory || !s_scalar_resources)
         return NULL;
     return PyModule_Create(&moduledef);
 }
