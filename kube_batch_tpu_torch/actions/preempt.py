@@ -92,6 +92,26 @@ class PreemptAction(Action):
             if scanner is not None:
                 vindex.attach_nodes(scanner.snap.node_names)
 
+        walk = {"tried": 0, "victims": 0, "pipelines": 0}
+        with trace.span("preempt.walk") as sp:
+            self._walk(ssn, queues, preemptors_map, preemptor_tasks,
+                       under_request, scanner, vindex, walk)
+            sp.annotate(**walk)
+
+    def _walk(self, ssn, queues, preemptors_map, preemptor_tasks,
+              under_request, scanner, vindex, walk) -> None:
+        """The host walk; ``walk`` counts the preemptors tried and the
+        victims and pipelines of the statements committed."""
+
+        def close(stmt, commit: bool) -> None:
+            if commit:
+                counts = stmt.counts()
+                walk["victims"] += counts["evicts"]
+                walk["pipelines"] += counts["pipelines"]
+                stmt.commit()
+            else:
+                stmt.discard()
+
         # Preemption between jobs within a queue (preempt.go:76-134).
         for queue in queues.values():
             while True:
@@ -100,7 +120,7 @@ class PreemptAction(Action):
                     break
                 preemptor_job = preemptors.pop()
 
-                stmt = ssn.statement()
+                stmt = ssn.statement(self.name())
                 if scanner is not None:
                     scanner.checkpoint()
                 assigned = False
@@ -127,6 +147,7 @@ class PreemptAction(Action):
                     mask_fn = (lambda q=preemptor_job.queue,
                                ju=preemptor.job:
                                vindex.queue_mask(q, ju))
+                    walk["tried"] += 1
                     if _preempt(ssn, stmt, preemptor, ssn.nodes, job_filter,
                                 scanner, node_ok, vindex, mask_fn):
                         assigned = True
@@ -142,13 +163,13 @@ class PreemptAction(Action):
                 # task queue is empty (an empty commit; the old
                 # commit-inside-the-loop leaked that frame).
                 if ssn.job_pipelined(preemptor_job):
-                    stmt.commit()
+                    close(stmt, True)
                     if scanner is not None:
                         scanner.commit()
                     if assigned:
                         preemptors.push(preemptor_job)
                 else:
-                    stmt.discard()  # also counts victims back into vindex
+                    close(stmt, False)  # also counts victims back into vindex
                     if scanner is not None:
                         scanner.restore()
 
@@ -161,7 +182,8 @@ class PreemptAction(Action):
                     preemptor = tasks.pop()
                     if not vindex.any_for_job(job.uid):
                         break  # the job has no Running task to sacrifice
-                    stmt = ssn.statement()
+                    stmt = ssn.statement(self.name())
+                    walk["tried"] += 1
                     assigned = _preempt(
                         ssn, stmt, preemptor, ssn.nodes,
                         lambda task: (task.status == TaskStatus.Running
@@ -170,7 +192,7 @@ class PreemptAction(Action):
                         lambda name, ju=job.uid:
                         vindex.node_for_job(name, ju),
                         vindex)
-                    stmt.commit()
+                    close(stmt, True)
                     if not assigned:
                         break
 

@@ -15,6 +15,7 @@ import torch
 from ..api import FitError, Resource, TaskStatus
 from ..device import check_float_dtype, resolve_device
 from ..framework import Action
+from ..metrics import metrics
 from ..trace import spans as trace
 from ..utils import PriorityQueue, get_node_list
 
@@ -41,8 +42,6 @@ class ReclaimAction(Action):
             self._execute(ssn)
 
     def _execute(self, ssn) -> None:
-        scanner = None
-        scanner_built = False
         queues = PriorityQueue(ssn.queue_order_fn)
         queue_map: Dict[str, object] = {}
         preemptors_map: Dict[str, PriorityQueue] = {}
@@ -62,6 +61,20 @@ class ReclaimAction(Action):
                 preemptor_tasks[job.uid] = ssn.task_queue(
                     job.task_status_index[TaskStatus.Pending].values())
 
+        walk = {"tried": 0, "victims": 0, "pipelines": 0}
+        with trace.span("reclaim.walk") as sp:
+            self._walk(ssn, queues, preemptors_map, preemptor_tasks, walk)
+            sp.annotate(**walk)
+        metrics.note_pipelined(self.name(), walk["pipelines"])
+
+    def _walk(self, ssn, queues, preemptors_map, preemptor_tasks,
+              walk) -> None:
+        """The host walk; ``walk`` counts the tasks that walked the
+        nodes, the victims evicted and the tasks pipelined.  Its
+        ``reclaim.prepare`` span, at the first task that walks, nests in
+        the walk's."""
+        scanner = None
+        scanner_built = False
         while not queues.empty():
             queue = queues.pop()
             if ssn.overused(queue):
@@ -98,6 +111,7 @@ class ReclaimAction(Action):
                         vindex.attach_nodes(scanner.snap.node_names)
             if not vindex.any_for_other_queues(job.queue):
                 continue  # no node anywhere holds a reclaimable victim
+            walk["tried"] += 1
             # Candidate walk in node order; the device scan answers the
             # predicate chain for all nodes at once (reclaim.go:115).
             # Nodes without a Running resident of another queue are
@@ -163,12 +177,14 @@ class ReclaimAction(Action):
                     vindex.on_evict(node.name,
                                     vjob.queue if vjob is not None else "",
                                     reclaimee.job)
+                    walk["victims"] += 1
                     reclaimed.add(reclaimee.resreq)
                     if resreq.less_equal(reclaimed):
                         break
 
                 if task.init_resreq.less_equal(reclaimed):
                     ssn.pipeline(task, node.name)
+                    walk["pipelines"] += 1
                     if scanner is not None:
                         scanner.apply_pipeline(task, node.name)
                     assigned = True

@@ -394,9 +394,11 @@ class Session:
     # ------------------------------------------------------------------
     # decisions (session.go:186-345)
 
-    def statement(self):
+    def statement(self, action: str = ""):
+        """A new Statement; ``action`` names the eviction action that
+        opened it, for its spans and counters."""
         from .statement import Statement
-        return Statement(self)
+        return Statement(self, action)
 
     def _dirty_job(self, uid: str) -> None:
         """Record that this session mutated job ``uid``'s clone (and evict

@@ -42,9 +42,16 @@ def unevict_session(ssn, reclaimee: TaskInfo) -> None:
 
 class Statement:
 
-    def __init__(self, ssn):
+    def __init__(self, ssn, action: str = ""):
         self.ssn = ssn
+        self.action = action
         self.operations: List[Tuple[str, tuple]] = []
+
+    def counts(self) -> dict:
+        """The ``evicts`` and ``pipelines`` this statement holds."""
+        evicts = sum(1 for name, _ in self.operations if name == "evict")
+        return {"evicts": evicts,
+                "pipelines": len(self.operations) - evicts}
 
     # -- forward ops --------------------------------------------------------
 
@@ -107,12 +114,16 @@ class Statement:
 
     def discard(self) -> None:
         """Roll back all logged operations in reverse (go:196-207)."""
-        for name, args in reversed(self.operations):
-            if name == "evict":
-                self._unevict(args[0])
-            elif name == "pipeline":
-                self._unpipeline(args[0])
-        self.operations.clear()
+        from ..metrics import metrics
+        from ..trace import spans as trace
+        with trace.span("statement.discard", **self.counts()):
+            for name, args in reversed(self.operations):
+                if name == "evict":
+                    self._unevict(args[0])
+                elif name == "pipeline":
+                    self._unpipeline(args[0])
+            self.operations.clear()
+        metrics.note_statement(self.action, "discard")
 
     def commit(self) -> None:
         """Replay evictions against the cluster; pipelines stay session-only
@@ -124,6 +135,15 @@ class Statement:
         single flush replays them in this exact order, so the victim
         sequence and event stream equal the sequential loop below (the
         KUBE_BATCH_TPU_BATCH_COMMIT=0 control)."""
+        from ..metrics import metrics
+        from ..trace import spans as trace
+        counts = self.counts()
+        with trace.span("statement.commit", **counts):
+            self._commit()
+        metrics.note_statement(self.action, "commit")
+        metrics.note_pipelined(self.action, counts["pipelines"])
+
+    def _commit(self) -> None:
         import time
 
         from ..metrics import metrics

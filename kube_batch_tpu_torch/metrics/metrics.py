@@ -384,6 +384,18 @@ swallowed_exceptions = registry.register(Counter(
 evictions_total = registry.register(Counter(
     f"{SUBSYSTEM}_evictions_total",
     "Cluster-committed evictions, by deciding action", ("action",)))
+# The eviction actions' statements (preempt's one per popped preemptor
+# job: committed once the job is pipelined, else discarded) and the
+# pipelines that stood when an action ended, beside the evictions above.
+statements_total = registry.register(Counter(
+    f"{SUBSYSTEM}_statements_total",
+    "Statements closed by an eviction action, by action and outcome "
+    "(commit | discard)", ("action", "outcome")))
+pipelined_total = registry.register(Counter(
+    f"{SUBSYSTEM}_pipelined_total",
+    "Tasks an eviction action pipelined onto releasing room that stood "
+    "(reclaim's each, preempt's those of committed statements), by action",
+    ("action",)))
 victim_index_events = registry.register(Counter(
     f"{SUBSYSTEM}_victim_index_events_total",
     "VictimIndex life-cycle events (rebuild | evict | restore)",
@@ -971,6 +983,31 @@ def evictions_by_action() -> Dict[str, int]:
     """{action: count} so far — bench artifact + /debug/sessions."""
     return {labels[0]: int(v)
             for labels, v in evictions_total.values().items() if labels}
+
+
+def note_statement(action: str, outcome: str) -> None:
+    """Count one statement of ``action`` closed by ``outcome`` ("commit"
+    | "discard")."""
+    statements_total.inc(1.0, action, outcome)
+
+
+def note_pipelined(action: str, count: int = 1) -> None:
+    """Count ``count`` pipelines of ``action`` that stood."""
+    if count:
+        pipelined_total.inc(float(count), action)
+
+
+def statement_counts() -> Dict[str, int]:
+    """{"action/outcome": count} so far."""
+    return {f"{labels[0]}/{labels[1]}": int(v)
+            for labels, v in statements_total.values().items()
+            if len(labels) == 2}
+
+
+def pipelined_by_action() -> Dict[str, int]:
+    """{action: count} so far."""
+    return {labels[0]: int(v)
+            for labels, v in pipelined_total.values().items() if labels}
 
 
 def note_victim_index(kind: str) -> None:

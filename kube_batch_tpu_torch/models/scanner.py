@@ -363,6 +363,8 @@ class DeviceNodeScanner:
                 mat, perm = fused_solver.consume_evict(
                     pb["scores"], pb["perm"], pb["ready"], pb["kb"],
                     self.dyn.shape[0])
+                if pb["timing"] is not None:
+                    pb["timing"].record()
         except Exception as exc:
             from ..chaos.breaker import feed_failure
             self._batched = False
@@ -489,7 +491,8 @@ class DeviceNodeScanner:
                                             rank_p)
             if fused is not None:
                 self._pending_batch = dict(
-                    scores=fused[0], perm=fused[1], ready=fused[2], kb=kb,
+                    scores=fused[0], perm=fused[1], ready=fused[2],
+                    timing=fused[3], kb=kb,
                     keys=keys, vic_uids=vic_uids, m=m,
                     stock_order=stock_order, pos=len(self._edit_log),
                     owner=ssn.cache)
@@ -502,6 +505,10 @@ class DeviceNodeScanner:
                 # node leaves in place, and dyn ships nothing.
                 dyn_dev = (None if route == "sharded"
                            else torch.as_tensor(self.dyn, device=dev))
+                timing = None
+                if route != "sharded":
+                    from ..ops.cuda_solver import EvictTiming
+                    timing = EvictTiming.around(dev)
                 scores, perm = evict_solver.dispatch_evict_batch_solve(
                     self.cfg, self.r, self.np_pad, self.ns_pad,
                     self.statics, dyn_dev,
@@ -509,8 +516,12 @@ class DeviceNodeScanner:
                     torch.as_tensor(node_p, device=dev),
                     torch.as_tensor(rank_p, device=dev),
                     resident=self._resident)
+                if timing is not None:
+                    timing.launched()
                 mat = _readback(scores).astype(np.int64)
                 perm = _readback(perm)
+                if timing is not None:
+                    timing.record()
             except Exception as exc:
                 # The failure feeds the shared device breaker
                 # (doc/CHAOS.md).  On the CPU an unseeded scanner still

@@ -1057,6 +1057,8 @@ class K1Timing:
 
     __slots__ = ("pair", "host", "aligned", "start", "end")
 
+    SPAN = "k1.device"
+
     @classmethod
     def begin(cls, stream) -> "K1Timing | None":
         """Pair the host clock with ``stream`` and record the start
@@ -1081,17 +1083,44 @@ class K1Timing:
         self.end.record(stream)
 
     def record(self) -> None:
-        """The launch's ``k1.device`` span in the active session trace
-        (host clock, track ``device``); ``device_ms`` is the time between
-        its events.  Called by the fetch once it has waited for the
-        solve, so the end event has completed."""
+        """The launch's ``SPAN`` span in the active session trace (host
+        clock, track ``device``); ``device_ms`` is the time between its
+        events.  Called by the fetch once it has waited for the solve,
+        so the end event has completed."""
         from ..trace import spans as trace
         self.end.synchronize()
         device_ms = self.start.elapsed_time(self.end)
         start = self.host + self.pair.elapsed_time(self.start) / 1e3
-        trace.record_span("k1.device", start, start + device_ms / 1e3,
+        trace.record_span(self.SPAN, start, start + device_ms / 1e3,
                           track="device", device_ms=device_ms,
                           aligned=self.aligned)
+
+
+class EvictTiming(K1Timing):
+    """K1Timing around the batched eviction solve
+    (ops/evict_solver.py), on its own or as the fused program's evict
+    leg; the scanner records it as ``evict.device`` once the solve's
+    readback has waited."""
+
+    __slots__ = ("stream",)
+
+    SPAN = "evict.device"
+
+    @classmethod
+    def around(cls, device) -> "EvictTiming | None":
+        """Begin on the current stream of ``device``; None off the card
+        (and under KUBE_BATCH_TPU_TRACE=0).  ``launched()`` then records
+        the end event on the same stream."""
+        if torch.device(device).type != "cuda":
+            return None
+        stream = torch.cuda.current_stream(device)
+        self = cls.begin(stream)
+        if self is not None:
+            self.stream = stream
+        return self
+
+    def launched(self, stream=None) -> None:
+        super().launched(self.stream if stream is None else stream)
 
 
 class TimedResult(SolveResult):

@@ -447,11 +447,16 @@ def _fused_program(legs, acfg, has_cand, ainp, cand, cand_idx,
                 ecfg, r, np_pad, ns_pad, statics, eresident.node_used,
                 eresident.node_count, eresident.node_ports,
                 eresident.node_selcnt, trows, vic_node, vic_rank, emesh)
+            timing = None
         else:
+            from .cuda_solver import EvictTiming
+            timing = EvictTiming.around(edyn.device)
             pair = evict_batch_solve(ecfg, r, np_pad, ns_pad, statics, edyn,
                                      trows, vic_node, vic_rank)
+            if timing is not None:
+                timing.launched()
         (scores, perm), ready = to_host_async(*pair)
-        out["evict"] = (scores, perm, ready)
+        out["evict"] = (scores, perm, ready, timing)
     if "solve" in legs:
         from .solver import (_gather_candidate_inputs, packed_host,
                              pending_of, solve_on_route)

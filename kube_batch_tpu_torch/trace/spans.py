@@ -49,12 +49,29 @@ The spans of a scheduling cycle, besides the session's phases:
 - ``k1.device`` (track ``device``): K1's device time on the host clock,
   from CUDA events around the launch read when its handle is fetched
   (ops/cuda_solver.py ``K1Timing``); args ``device_ms``, ``aligned``.
+- ``reclaim.walk`` and ``preempt.walk``: the eviction actions' host
+  walks (actions/reclaim.py, actions/preempt.py; reclaim's
+  ``reclaim.prepare`` nests in its walk at the first task that walks
+  the nodes); args ``tried`` (preemptor tasks that walked the nodes),
+  ``victims`` and ``pipelines`` (those that stood: reclaim's every one,
+  preempt's of committed statements).
+- ``statement.commit`` and ``statement.discard``: one per statement
+  preempt closes (framework/statement.py); args ``evicts``,
+  ``pipelines``.
+- ``evict.device`` (track ``device``): the batched eviction solve's
+  device time on the host clock, alone or as the fused program's evict
+  leg (ops/cuda_solver.py ``EvictTiming``, recorded by models/scanner.py
+  once the solve's readback has waited; on the card only, not on the
+  mesh's sharded route); args ``device_ms``, ``aligned``.
 
 The same clock readings feed ``/metrics``:
 ``kube_batch_cache_handler_seconds_total{handler}`` (the walls of a
 run's stretches of each handler's calls, when the cache's next run
 opens) and
-``kube_batch_gc_pause_seconds_total{generation}``.
+``kube_batch_gc_pause_seconds_total{generation}``; the eviction actions
+count ``kube_batch_statements_total{action,outcome}`` and
+``kube_batch_pipelined_total{action}`` beside
+``kube_batch_evictions_total{action}``.
 """
 
 from __future__ import annotations
