@@ -123,12 +123,14 @@ class TestScopedMirror:
         pod.metadata.labels = {QUEUE_LABEL: "qa"}
         cluster.update_pod(pod)
         _wait(lambda: "ns/mover" in remote.pods, msg="queue move in")
-        assert ("add", "mover") in events
+        # The mirror changes before its handlers run: wait for the
+        # event itself.
+        _wait(lambda: ("add", "mover") in events, msg="the ADDED event")
         pod = copy.deepcopy(pod)
         pod.metadata.labels = {QUEUE_LABEL: "qb"}
         cluster.update_pod(pod)
         _wait(lambda: "ns/mover" not in remote.pods, msg="queue move out")
-        assert ("del", "mover") in events
+        _wait(lambda: ("del", "mover") in events, msg="the DELETED event")
 
     def test_bind_transition_never_fires_delete(self, scoped):
         """An own-queue pod binding to a node crosses from the

@@ -15,6 +15,8 @@ as in the reference's gate.
 import pathlib
 import sys
 
+import pytest
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
@@ -45,7 +47,11 @@ def _real(path: str) -> str:
         AS_REFERENCE) else path
 
 
-def _run():
+@pytest.fixture(scope="module")
+def lint():
+    """One lint of the port, (findings, markers), read by each case
+    that checks it: the run is the module's cost, and nothing mutates
+    it."""
     return run_files(_port_files(), root=str(ROOT))
 
 
@@ -54,39 +60,39 @@ def _shown(items):
                      for i in items)
 
 
-def test_port_is_lint_clean():
-    findings, _markers = _run()
+def test_port_is_lint_clean(lint):
+    findings, _markers = lint
     assert not findings, (
         "graftlint found unsuppressed contract violations in the port:\n"
         + _shown(findings))
 
 
-def test_the_harnesses_are_linted():
+def test_the_harnesses_are_linted(lint):
     """kube_batch_tpu_torch/tools/ is in the linted set (seen at
     kube_batch_tpu/tools/), clean, and its swallow markers reasoned."""
     files = {_real(sf.path) for sf in _port_files()}
     tools = {PORT + f"/tools/{name}.py" for name in (
         "__init__", "replay", "scenario_gen", "chaos_soak", "replica_soak")}
     assert tools <= files, sorted(tools - files)
-    findings, markers = _run()
+    findings, markers = lint
     assert not [f for f in findings if _real(f.path) in tools]
     swallows = [m for m in markers if m.kind == "allow-swallow"
                 and _real(m.path) in tools]
     assert len(swallows) >= 3 and all(m.reason for m in swallows)
 
 
-def test_every_suppression_carries_a_reason():
-    _findings, markers = _run()
+def test_every_suppression_carries_a_reason(lint):
+    _findings, markers = lint
     missing = [m for m in markers
                if m.kind in ("disable", "allow-swallow") and not m.reason]
     assert not missing, ("suppressions without a reason string:\n"
                          + _shown(missing))
 
 
-def test_contract_annotations_cover_the_known_invariants():
+def test_contract_annotations_cover_the_known_invariants(lint):
     """The annotations the reference's gate pins are present in the
     port too: losing one silently disables its rule for that file."""
-    _findings, markers = _run()
+    _findings, markers = lint
     by_kind = {}
     for m in markers:
         by_kind.setdefault(m.kind, []).append(m)
@@ -112,12 +118,12 @@ def test_contract_annotations_cover_the_known_invariants():
     assert len(by_kind.get("allow-swallow", [])) >= 10
 
 
-def test_registry_rules_are_wired():
+def test_registry_rules_are_wired(lint):
     """The registry rules exist and the port is clean under each."""
     rules = ("knob-registry", "metric-discipline", "chaos-registry",
              "thread-lifecycle", "ledger-discipline")
     assert set(rules) <= set(RULES), sorted(RULES)
-    findings, _markers = _run()
+    findings, _markers = lint
     for rule in rules:
         hits = [f for f in findings if f.rule == rule]
         assert not hits, _shown(hits)

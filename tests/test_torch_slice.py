@@ -21,6 +21,7 @@ from kube_batch_tpu_torch.models.synthetic import (make_feature_inputs,
                                                    make_synthetic_inputs)
 from kube_batch_tpu_torch.ops import cuda_solver, resources, solver
 from test_torch_solver import jax_cfg
+from tests.test_torch_utils import reference_gc_guard  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -16,7 +16,6 @@ SolverInputs and SolverConfig.
 import contextlib
 import copy
 import dataclasses
-import gc
 import os
 import types
 
@@ -36,31 +35,20 @@ import kube_batch_tpu_torch.models.tensor_snapshot as torch_tensorize
 import kube_batch_tpu_torch.plugins.factory as torch_plugins
 import kube_batch_tpu_torch.scheduler as torch_scheduler
 from kube_batch_tpu_torch.actions.tpu_allocate import TpuAllocateAction
+from tests.collector import collector_held_off
 
 torch.set_num_threads(1)
 
 
 @pytest.fixture(autouse=True)
 def reference_gc_guard():
-    """The JAX package's memory ledger drops a dead store's bytes from a
-    ``weakref.finalize`` callback that takes the ledger's own mutex
-    (kube_batch_tpu/metrics/memledger.py ``Ledger.track`` -> ``drop``):
-    a cyclic collection that starts at an allocation inside ``track``
-    runs that callback with the mutex held, and the process waits on
-    itself forever.  These tests build many stores of both packages in
-    one process, which makes the collision likely, so each test runs
-    with the collector off, and a full collection before and after it
-    runs the finalizers outside every ledger lock.  The port's ledger
-    queues drops without a lock (tests/test_torch_memledger.py).  A
-    test module that builds the JAX package's stores imports this
-    fixture."""
-    gc.collect()
-    gc.disable()
-    try:
+    """Each test under tests/collector.py's ``collector_held_off``.  A
+    port test module that builds the JAX package's stores imports this
+    fixture; a fixture of wider scope that builds them holds the
+    collector off itself.  The JAX package's own test modules get the
+    guard from the repo's root conftest.py."""
+    with collector_held_off():
         yield
-    finally:
-        gc.enable()
-        gc.collect()
 
 
 def build_resource_list(cpu, memory, **scalars):
